@@ -1,0 +1,209 @@
+"""User-facing model classes: GigaAM (encoder) and GigaAMASR (CTC head),
+ported from ``gigaam_tpu/models/model.py``.
+
+* Audio is padded to 1-second buckets, as in the JAX package.
+* Activations run in bfloat16 on CUDA and float32 on the CPU.
+* Everything from the log-mel to the greedy CTC mask runs on the device
+  with no host sync in between (only shapes steer control flow); one
+  transfer then brings labels, mask, per-frame log-probs and lengths back.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..audio import load_audio
+from ..config import (
+    LONGFORM_THRESHOLD_SEC,
+    SAMPLE_RATE,
+    CTCHeadConfig,
+    ModelConfig,
+)
+from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
+from ..decode.timestamps import compute_frame_shift, frames_to_words
+from ..decode.tokenizer import Tokenizer
+from ..frontend import LogMelFrontend, num_frames
+from ..ops.conformer_ops import static_subsampled_length
+from ..types import TranscriptionResult, Word
+from . import heads as heads_lib
+from .encoder import (
+    ConformerEncoder,
+    PosTables,
+    as_module,
+    init_encoder_state,
+    init_linear,
+)
+
+BUCKET_SAMPLES = SAMPLE_RATE  # pad waveforms to 1 s buckets
+
+
+def bucket_length(n: int) -> int:
+    return max(BUCKET_SAMPLES,
+               ((n + BUCKET_SAMPLES - 1) // BUCKET_SAMPLES) * BUCKET_SAMPLES)
+
+
+def pad_wav_batch(wavs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """Zero-pad a list of waveforms to a common bucketed length."""
+    from ..native import collate
+
+    lens = np.array([len(w) for w in wavs], dtype=np.int32)
+    max_len = bucket_length(int(lens.max()))
+    return collate(wavs, max_len), lens
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]
+                   ) -> torch.device:
+    """``None`` means the card: raise rather than fall back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class GigaAM(nn.Module):
+    """Encoder model (reference ``gigaam/model.py:16-83``)."""
+
+    def __init__(self, cfg: ModelConfig, state: Optional[Dict[str, Any]] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.device = device
+        self.compute_dtype = (torch.bfloat16 if device.type == "cuda"
+                              else torch.float32)
+        if state is None:
+            state = init_state(cfg, seed)
+        self.frontend = LogMelFrontend(cfg.preprocessor)
+        self.encoder = ConformerEncoder(cfg.encoder, state["encoder"])
+        self.pos_tables = PosTables(cfg.encoder)
+        if "head" in state:
+            self.head = as_module(state["head"])
+        self.to(device)
+
+    def cast_encoder(self, dtype: torch.dtype = torch.bfloat16) -> None:
+        """Cast the encoder weights in place (reference ``fp16_encoder``,
+        ``gigaam/__init__.py:188-189``); the head stays fp32."""
+        self.encoder.to(dtype)
+        for layer in self.encoder.layers:
+            layer.clear_prepared()
+
+    # -- forward -----------------------------------------------------------
+
+    def _encode(self, wavs: torch.Tensor, lengths: torch.Tensor,
+                pos: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats, feat_lens = self.frontend(wavs, lengths)
+        return self.encoder(feats.transpose(1, 2), feat_lens, pos,
+                            self.compute_dtype)
+
+    def _pos_for(self, padded_samples: int):
+        t_sub = static_subsampled_length(
+            num_frames(padded_samples, self.cfg.preprocessor),
+            self.cfg.encoder.num_subsampling_stages,
+            self.cfg.encoder.subs_kernel_size)
+        return self.pos_tables.rotary(t_sub, self.device)
+
+    def _device_batch(self, wavs: List[np.ndarray]):
+        batch, lens = pad_wav_batch(wavs)
+        return (torch.from_numpy(batch).to(self.device),
+                torch.from_numpy(lens).to(self.device), lens,
+                self._pos_for(batch.shape[1]))
+
+    @torch.inference_mode()
+    def encode_batch(self, wavs: List[np.ndarray]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Waveforms -> (encoded [B, T', D], enc_lens [B]) on the device."""
+        dev_batch, dev_lens, _, pos = self._device_batch(wavs)
+        return self._encode(dev_batch, dev_lens, pos)
+
+    def prepare_wav(self, wav_file: Union[str, np.ndarray]) -> np.ndarray:
+        """Path -> 16 kHz float waveform; arrays pass through."""
+        if isinstance(wav_file, np.ndarray):
+            return np.asarray(wav_file, dtype=np.float32)
+        return load_audio(wav_file)
+
+    def embed_audio(self, wav_file: Union[str, np.ndarray],
+                    layout: str = "btd") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Encoder representations (``gigaam/model.py:57-63``): ``"btd"``
+        gives [1, T', D] (time-major, the default), ``"bdt"`` gives
+        [1, D, T'] as the reference returns them."""
+        if layout not in ("btd", "bdt"):
+            raise ValueError(f"layout must be 'btd' or 'bdt', got {layout!r}")
+        encoded, enc_len = self.encode_batch([self.prepare_wav(wav_file)])
+        if layout == "bdt":
+            encoded = encoded.transpose(1, 2)
+        return encoded, enc_len
+
+
+class GigaAMASR(GigaAM):
+    """ASR model with a CTC head (reference ``gigaam/model.py:86-259``)."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        if not isinstance(cfg.head, CTCHeadConfig) or cfg.decoding is None:
+            raise NotImplementedError("only CTC heads are ported")
+        self.tokenizer = Tokenizer(cfg.decoding.vocabulary or [],
+                                   cfg.decoding.model_path)
+        super().__init__(cfg, **kw)
+
+    def _ctc_forward(self, wavs: torch.Tensor, lengths: torch.Tensor,
+                     pos: Tuple[torch.Tensor, torch.Tensor]):
+        encoded, enc_lens = self._encode(wavs, lengths, pos)
+        log_probs = heads_lib.ctc_log_probs(self.head, encoded)
+        labels, keep = ctc_greedy_mask(log_probs, enc_lens)
+        # argmax token's log-prob per frame: feeds per-word confidence
+        tok_lp = log_probs.amax(dim=-1)
+        return labels, keep, tok_lp, enc_lens
+
+    @torch.inference_mode()
+    def _decode_batch(self, wavs: List[np.ndarray], word_timestamps: bool
+                      ) -> List[Tuple[str, Optional[List[Word]]]]:
+        """Batched greedy CTC transcription (reference ``model.py:96-124``)."""
+        dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
+        labels, keep, tok_lp, enc_lens = (
+            t.cpu().numpy() for t in self._ctc_forward(dev_batch, dev_lens, pos))
+        out: List[Tuple[str, Optional[List[Word]]]] = []
+        for i, (ids, frames) in enumerate(ctc_extract(labels, keep)):
+            words = None
+            if word_timestamps:
+                shift = compute_frame_shift(int(lens[i]), int(enc_lens[i]))
+                words = frames_to_words(
+                    self.tokenizer, ids, frames, shift,
+                    token_logps=[float(tok_lp[i, f]) for f in frames])
+            out.append((self.tokenizer.decode(ids), words))
+        return out
+
+    def transcribe(self, wav_file: Union[str, np.ndarray],
+                   word_timestamps: bool = False) -> TranscriptionResult:
+        """Transcribe a short (<25 s) clip (``model.py:126-140``)."""
+        wav = self.prepare_wav(wav_file)
+        if len(wav) > LONGFORM_THRESHOLD_SEC * SAMPLE_RATE:
+            raise ValueError(
+                "Too long wav file, use 'transcribe_longform' method.")
+        text, words = self._decode_batch([wav], word_timestamps)[0]
+        return TranscriptionResult(text=text, words=words)
+
+
+def init_state(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
+    """Random weights for ``cfg`` from a ``torch.Generator`` seeded with
+    ``seed`` (CPU tensors, fp32)."""
+    gen = torch.Generator().manual_seed(seed)
+    state: Dict[str, Any] = {"encoder": init_encoder_state(gen, cfg.encoder)}
+    if isinstance(cfg.head, CTCHeadConfig):
+        state["head"] = {"proj": init_linear(gen, cfg.head.feat_in,
+                                             cfg.head.num_classes)}
+    return state
+
+
+def model_class_for(cfg: ModelConfig):
+    if cfg.model_class == "asr":
+        return GigaAMASR
+    if cfg.model_class == "ssl":
+        return GigaAM
+    raise NotImplementedError(f"model class {cfg.model_class!r} is not ported")

@@ -1,0 +1,89 @@
+"""Rotary multi-head self-attention (port of
+``gigaam_tpu/ops/attention.py::rotary_mha``).
+
+RoPE is applied to the *pre-projection* input for Q and K (faithful to
+``gigaam/encoder.py:244-256``); V projects the un-rotated input.
+
+Masking: a boolean *valid* mask [B, T] (True = real frame); invalid score
+entries get a finite -1e9 before the softmax, so padded query rows are
+finite garbage, never NaN.
+
+Weights layout: Linear weights are [in, out] (``x @ w + b``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+
+from .conformer_ops import Params, linear
+from .rotary import apply_rotary_wide
+
+NEG_INF = -1e9
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, T, D] -> [B, H, T, d]"""
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads).transpose(1, 2)
+
+
+def _out_proj(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Output projection straight off the [B, H, T, d] head layout:
+    ``sum_h x[:, h] @ w[h]``, the merge-transpose folded into the matmul."""
+    b, h, t, d = x.shape
+    w = p["w"].reshape(h, d, -1).to(x.dtype)
+    y = torch.einsum("bhtd,hdk->btk", x, w)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def _masked_softmax(scores: torch.Tensor,
+                    valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """scores [B, H, Tq, Tk]; valid [B, T] -> softmax over Tk in fp32."""
+    if valid is not None:
+        pair = valid[:, None, None, :] & valid[:, None, :, None]
+        scores = torch.where(pair, scores,
+                             torch.full((), NEG_INF, dtype=scores.dtype,
+                                        device=scores.device))
+    return torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+
+
+def rotary_mha(
+    params: Mapping[str, Params],
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    n_heads: int,
+    use_fused: bool = False,
+) -> torch.Tensor:
+    """Rotary self-attention. x [B, T, D]; cos/sin [T, d_head] fp32.
+
+    ``use_fused`` routes the SDPA core through the hand-written kernel
+    ``ops.fused_attention.fused_mha`` (K3); the projections stay
+    ``torch.matmul``, as they were XLA ops around the Pallas kernel.
+    """
+    b, t, d = x.shape
+    xr = apply_rotary_wide(x, cos, sin, n_heads)
+    q = _split_heads(linear(params["linear_q"], xr), n_heads)
+    k = _split_heads(linear(params["linear_k"], xr), n_heads)
+    v = _split_heads(linear(params["linear_v"], x), n_heads)
+
+    if use_fused:
+        from .fused_attention import fused_mha
+
+        valid_b = (torch.ones((b, t), dtype=torch.bool, device=x.device)
+                   if valid is None else valid)
+        out = fused_mha(q.contiguous(), k.contiguous(), v.contiguous(),
+                        valid_b)
+        return _out_proj(params["linear_out"], out)
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+    attn = _masked_softmax(scores, valid).to(v.dtype)
+    out = (attn.float() @ v.float()).to(x.dtype)
+    return _out_proj(params["linear_out"], out)

@@ -1,0 +1,117 @@
+"""The port's weights bridge: a JAX v3_ctc model saved with ``save_model``
+and reloaded by the port keeps every leaf bit-exact (in the JAX layout
+after undoing the port's layout changes), as does ``params_from_jax`` on
+the in-memory tree and a legacy fused-GLU artifact through
+``migrate_params``."""
+
+import numpy as np
+import pytest
+
+import jax
+
+from gigaam_tpu.config import (
+    CTCHeadConfig,
+    DecodingConfig,
+    EncoderConfig,
+    FeaturesConfig,
+    ModelConfig,
+    RU_VOCAB,
+)
+from gigaam_tpu.models.model import GigaAMASR, _flatten, save_model
+
+import gigaam_tpu_torch as gt
+from gigaam_tpu_torch import weights
+
+
+def tiny_v3_cfg():
+    v = len(RU_VOCAB)
+    return ModelConfig(
+        model_name="tiny_v3_ctc", model_class="asr",
+        preprocessor=FeaturesConfig(center=False),
+        encoder=EncoderConfig(feat_in=64, n_layers=2, d_model=64, n_heads=4,
+                              ff_expansion_factor=2, conv_kernel_size=7,
+                              pos_emb_max_len=256),
+        head=CTCHeadConfig(feat_in=64, num_classes=v + 1),
+        decoding=DecodingConfig(kind="ctc_greedy", vocabulary=list(RU_VOCAB)))
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    return GigaAMASR(tiny_v3_cfg(), seed=0)
+
+
+def jax_layout(model) -> dict:
+    """The port model's weights back in the JAX layout, under the JAX
+    package's ``/``-joined keys, layers stacked on a leading axis."""
+    flat, layers = {}, {}
+    for name, p in model.state_dict().items():
+        if name.startswith("frontend."):
+            continue
+        parts = name.split(".")
+        a = p.numpy()
+        if parts[:2] == ["encoder", "layers"]:
+            rest = parts[3:]
+            if rest[-2:] == ["depthwise_conv", "w"]:
+                a = a.transpose(2, 1, 0)
+            layers.setdefault("/".join(rest), []).append(a)
+            continue
+        if parts[:2] == ["encoder", "pre_encode"] and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        flat["/".join(parts)] = a
+    for key, per_layer in layers.items():
+        flat[f"encoder/layers/{key}"] = np.stack(per_layer)
+    return flat
+
+
+def assert_bit_exact(port_flat, jax_flat):
+    assert sorted(port_flat) == sorted(jax_flat)
+    for key, ref in jax_flat.items():
+        got = port_flat[key]
+        assert got.dtype == ref.dtype and got.shape == ref.shape, key
+        assert np.array_equal(got, ref), key
+
+
+def test_native_artifact_reloads_bit_exact(jax_model, tmp_path):
+    path = str(tmp_path / "tiny")
+    save_model(jax_model, path)
+    port = gt.load_model(path + ".npz", device="cpu")
+    assert isinstance(port, gt.GigaAMASR)
+    assert port.cfg.to_dict() == jax_model.cfg.to_dict()
+    assert_bit_exact(jax_layout(port),
+                     _flatten(jax.tree.map(np.asarray, jax_model.params)))
+
+
+def test_params_from_jax_bit_exact(jax_model):
+    tree = jax.tree.map(np.asarray, jax_model.params)
+    port = gt.GigaAMASR(gt.ModelConfig.from_dict(jax_model.cfg.to_dict()),
+                        state=gt.params_from_jax(tree), device="cpu")
+    assert_bit_exact(jax_layout(port), _flatten(tree))
+
+
+def test_legacy_fused_glu_artifact_migrates(jax_model, tmp_path):
+    """Artifacts with the old fused ``pointwise_conv1 {w, b}`` load into the
+    split value/gate leaves, bit-exact."""
+    flat = _flatten(jax.tree.map(np.asarray, jax_model.params))
+    legacy = {}
+    for k, v in flat.items():
+        if k.endswith("pointwise_conv1/w_value"):
+            base = k[: -len("w_value")]
+            legacy[base + "w"] = np.concatenate(
+                [v, flat[base + "w_gate"]], axis=-1)
+            legacy[base + "b"] = np.concatenate(
+                [flat[base + "b_value"], flat[base + "b_gate"]], axis=-1)
+        elif "pointwise_conv1" not in k:
+            legacy[k] = v
+    path = str(tmp_path / "legacy")
+    np.savez(path + ".npz", **legacy)
+    with open(path + ".json", "w") as f:
+        f.write(jax_model.cfg.to_json())
+    tree = weights.load_params_npz(path + ".npz")
+    pc1 = tree["encoder"]["layers"]["conv"]["pointwise_conv1"]
+    assert set(pc1) == {"w_value", "w_gate", "b_value", "b_gate"}
+    assert_bit_exact(jax_layout(gt.load_model(path, device="cpu")), flat)
+
+
+def test_load_model_rejects_missing_artifact(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        gt.load_model(str(tmp_path / "absent"), device="cpu")
