@@ -8,11 +8,13 @@ Phases, each fatal on failure:
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
 2. build the hand-written kernels (``gigaam_tpu_torch/csrc``, one ``nvcc``
    per source, all started together);
-3. hold each kernel (K3, K2, K1) against its plain PyTorch version at the
-   main path's shapes in bf16, show that the check fails for a kernel with a
-   planted fault (fed through its inputs: RoPE sign flipped, key mask
-   ignored, 1/sqrt(d_h) missing, q zeroed, LayerNorm skipped), and time the
-   kernel, its plain version and the library call with CUDA events;
+3. hold each kernel (K3, K2, K1, K5) against its plain PyTorch version at
+   the main path's shapes in bf16, show that the check fails for a kernel
+   with a planted fault (fed through its inputs: RoPE sign flipped, key mask
+   ignored, 1/sqrt(d_h) missing, q zeroed, LayerNorm skipped; for K5 also
+   q_u/q_v swapped, the shift reversed, the positional term dropped), and
+   time the kernel, its plain version and the library call with CUDA
+   events;
 4. drive full-width v3_ctc (16 x 768, random weights from a seed, bf16)
    through the user entry points: ``transcribe`` on a 20 s clip (batch 1:
    K2), ``_decode_batch`` on 16 clips of 10-20 s (K1) and ``encode_batch``
@@ -20,9 +22,15 @@ Phases, each fatal on failure:
    each path went through its kernel, then profiling each call
    (``torch.profiler``): device busy time, idle share, kernel launches and
    device time by kernel group;
-5. compare the card's bf16 encoder output with the port's own CPU float32
-   output on the same weights, on small inputs through each of the three
-   attention paths.
+5. compare the card's bf16 v3_ctc encoder output with the port's own CPU
+   float32 output on the same weights, on small inputs through each of the
+   three rotary attention paths;
+6. the same for the rel-pos encoder (K5): full-width v2_ctc (its
+   ``pos_bias_u``/``pos_bias_v`` drawn nonzero and apart from a seed)
+   through ``transcribe`` on 20 s and ``_decode_batch`` on 16 clips of
+   10-20 s (T' = 501), full-width emo through ``get_probs`` on 10 s
+   (T' = 251), each profiled, then the v2_ctc reference comparison at 4 s,
+   16 x 1-2 s and 42 s (T' = 1051).
 
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -79,6 +87,7 @@ D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
 
 # device-time groups of the main-path profile, matched in this order
 PROFILE_GROUPS = (
+    # sdpa_kernel matches K5's relpos_sdpa_kernel too
     ("attention kernels (csrc)", r"sdpa_kernel|qkv_kernel|out_proj_kernel"),
     ("convolution", r"conv_|convolve|cudnn|winograd|fprop"),
     ("GEMM (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
@@ -271,13 +280,61 @@ def kernel_phase(dev) -> dict:
             if (name, b) in (("K2", 1), ("K1", 16)):
                 rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                   bound_by=by, library_ms=None, max_abs_err=err)
+    rows["K5"] = relpos_kernel_phase(gen, dev)
     return rows
+
+
+def relpos_kernel_phase(gen, dev) -> dict:
+    """K5 at the v2 main path's T' = 501 (B 1 and 16) and at T' = 1126
+    (B 1, a 45 s clip); the faults and the JSON row at B 16."""
+    row = None
+    for b, t in ((1, 501), (16, 501), (1, 1126)):
+        def draw(shape, gain):
+            return (torch.randn(shape, generator=gen) * gain).to(
+                dev, torch.bfloat16)
+        # q_u.k and the positional term of one size (both at QK_GAIN), q_u
+        # and q_v drawn apart so that a swap shows
+        q_u, k, q_v = (draw((b, N_HEADS, t, D_HEAD), QK_GAIN)
+                       for _ in range(3))
+        v = draw((b, N_HEADS, t, D_HEAD), 1.0)
+        p_heads = draw((N_HEADS, 2 * t - 1, D_HEAD), QK_GAIN)
+        valid = ragged_valid(b, t, dev)
+        args = (q_u, k, v, q_v, p_heads, valid)
+        got = fa.fused_relpos_mha(*args)
+        ref = fa.relpos_mha_plain(*args)
+        root_dh = math.sqrt(D_HEAD)
+        faults = () if (b, t) != (16, 501) else (
+            ("key mask ignored", lambda: fa.fused_relpos_mha(
+                q_u, k, v, q_v, p_heads, torch.ones_like(valid))),
+            ("1/sqrt(d_h) missing", lambda: fa.fused_relpos_mha(
+                q_u * root_dh, k, v, q_v * root_dh, p_heads, valid)),
+            ("q_u/q_v swapped", lambda: fa.fused_relpos_mha(
+                q_v, k, v, q_u, p_heads, valid)),
+            ("shift reversed", lambda: fa.fused_relpos_mha(
+                q_u, k, v, q_v, p_heads.flip(1).contiguous(), valid)),
+            ("positional term dropped", lambda: fa.fused_relpos_mha(
+                q_u, k, v, q_v, torch.zeros_like(p_heads), valid)))
+        err, rel = check_kernel(f"K5 B={b} T'={t}", got, ref, valid, 2, faults)
+        ms = time_ms(lambda: fa.fused_relpos_mha(*args))
+        plain_ms = time_ms(lambda: fa.relpos_mha_plain(*args), iters=5)
+        scores = b * N_HEADS * t * t
+        bms, by = bound(
+            (5 * b * N_HEADS * t * D_HEAD + N_HEADS * (2 * t - 1) * D_HEAD) * 2
+            + b * t, 6 * scores * D_HEAD, 5 * scores)
+        print(f"K5 fused_relpos_mha B={b} T'={t}: max_abs_err {err:.3e}, "
+              f"{rel:.4f} x RMS (limit {KERNEL_REL}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        if (b, t) == (16, 501):
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=None, max_abs_err=err)
+    return row
 
 
 def counts() -> dict:
     return {"K3": fa.fused_mha.launches,
             "K2": fa.folded_rotary_attention.launches,
-            "K1": fa.folded_rotary_attention_lnres.launches}
+            "K1": fa.folded_rotary_attention_lnres.launches,
+            "K5": fa.fused_relpos_mha.launches}
 
 
 def profile_calls(label: str, fn, calls: int, wall_ms: float) -> None:
@@ -364,15 +421,69 @@ def main_path(model, rng, card: str) -> dict:
     return launches
 
 
-def reference_phase(model, rng) -> None:
+def relpos_main_path(asr, emo, rng, card: str) -> int:
+    """v2_ctc ``transcribe`` 20 s and ``_decode_batch`` 16 x 10-20 s
+    (T' = 501), emo ``get_probs`` 10 s (T' = 251): K5 in every layer, none
+    of K1-K3.  Returns K5's launches over the three paths."""
+    n_layers = asr.cfg.encoder.n_layers
+    wav20 = synth_wav(20.0, rng)
+    res, n_transcribe = run_path(
+        "v2_ctc transcribe 20 s, batch 1 (K5)",
+        lambda: asr.transcribe(wav20, word_timestamps=True), "K5", n_layers)
+    if not (isinstance(res.text, str) and isinstance(res.words, list)):
+        raise AssertionError(f"transcribe returned {res!r}")
+    print(f"  v2_ctc transcribe: {len(res.text)} chars, {len(res.words)} "
+          f"words; card {card}", flush=True)
+
+    wavs16 = [synth_wav(s, rng) for s in np.linspace(10.0, 20.0, 16)]
+    outs, n_batch = run_path(
+        "v2_ctc _decode_batch 16 x 10-20 s (K5)",
+        lambda: asr._decode_batch(wavs16, word_timestamps=True), "K5",
+        n_layers)
+    if len(outs) != 16 or not all(isinstance(t, str) for t, _ in outs):
+        raise AssertionError("_decode_batch returned a malformed batch")
+    print(f"  v2_ctc _decode_batch: 16 results; card {card}", flush=True)
+
+    wav10 = synth_wav(10.0, rng)
+    probs, n_emo = run_path("emo get_probs 10 s, T'=251 (K5)",
+                            lambda: emo.get_probs(wav10), "K5",
+                            emo.cfg.encoder.n_layers)
+    values = np.array(list(probs.values()))
+    if (list(probs) != emo.id2name or not np.isfinite(values).all()
+            or abs(values.sum() - 1.0) > 1e-3):
+        raise AssertionError(f"get_probs returned {probs}")
+    print(f"  emo get_probs: {probs}; card {card}", flush=True)
+    return n_transcribe + n_batch + n_emo
+
+
+def nonzero_pos_biases(model, seed: int) -> None:
+    """Draw ``pos_bias_u``/``pos_bias_v`` (zero in a fresh init, as in the
+    JAX package) from ``seed``, apart from each other, so that a u/v swap
+    changes the output."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.encoder.layers:
+            for name in ("pos_bias_u", "pos_bias_v"):
+                p = layer["self_attn"][name]
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+
+
+def v2_ctc(device=None):
+    model = gt.load_model("v2_ctc", init="random", seed=0, device=device)
+    nonzero_pos_biases(model, seed=1)
+    return model
+
+
+def reference_phase(model, cpu, rng, paths) -> None:
     """CUDA bf16 against the port's CPU fp32 on the same weights, on small
-    inputs through each attention path: 4 s at batch 1 (K2), 16 clips of
-    1-2 s (K1) and 42 s at batch 1 (T' = 1050: K3)."""
-    cpu = gt.load_model("v3_ctc", init="random", seed=0, device="cpu")
-    cases = (("4 s, batch 1 (K2)", [synth_wav(4.0, rng)]),
-             ("16 x 1-2 s (K1)", [synth_wav(s, rng)
-                                  for s in np.linspace(1.0, 2.0, 16)]),
-             ("42 s, batch 1 (K3)", [synth_wav(42.0, rng)]))
+    inputs through each attention path: 4 s at batch 1, 16 clips of 1-2 s
+    and 42 s at batch 1 (T' = 1050, 1051 with v2's centred frames);
+    ``paths`` names the kernel of each."""
+    cases = ((f"4 s, batch 1 ({paths[0]})", [synth_wav(4.0, rng)]),
+             (f"16 x 1-2 s ({paths[1]})", [synth_wav(s, rng)
+                                           for s in np.linspace(1.0, 2.0, 16)]),
+             (f"42 s, batch 1 ({paths[2]})", [synth_wav(42.0, rng)]))
+    name = model.cfg.model_name
     for label, wavs in cases:
         with torch.inference_mode():
             enc_g, len_g = model.encode_batch(wavs)
@@ -387,9 +498,10 @@ def reference_phase(model, rng) -> None:
         max_abs = float(diff.abs().max())
         rel = float(diff.norm() / ref.norm())
         agree = float((ids_g == ids_c)[rows].float().mean())
-        print(f"reference {label}: CUDA bf16 vs CPU fp32 encoder max_abs "
-              f"{max_abs:.4f}, relative {rel:.4f} (tol {ENCODER_RTOL}); greedy "
-              f"ids agree on {agree:.4f} of frames", flush=True)
+        print(f"reference {name} {label}, T'={enc_c.shape[1]}: CUDA bf16 vs "
+              f"CPU fp32 encoder max_abs {max_abs:.4f}, relative {rel:.4f} "
+              f"(tol {ENCODER_RTOL}); greedy ids agree on {agree:.4f} of "
+              f"frames", flush=True)
         if not rel <= ENCODER_RTOL:
             raise AssertionError(f"{label}: encoder relative error {rel} > "
                                  f"{ENCODER_RTOL}")
@@ -415,7 +527,17 @@ def main() -> int:
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
     launches = main_path(model, rng, card)
-    reference_phase(model, rng)
+    reference_phase(model, gt.load_model("v3_ctc", init="random", seed=0,
+                                         device="cpu"), rng, ("K2", "K1", "K3"))
+    del model
+    torch.cuda.empty_cache()
+
+    asr = v2_ctc()
+    emo = gt.load_model("emo", init="random", seed=0)
+    nonzero_pos_biases(emo, seed=2)
+    launches["K5"] = relpos_main_path(asr, emo, rng, card)
+    del emo
+    reference_phase(asr, v2_ctc(device="cpu"), rng, ("K5",) * 3)
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -425,9 +547,11 @@ def main() -> int:
         "K1": ("folded_rotary_attention_lnres",
                "gigaam_tpu_torch/csrc/projection.cu",
                "gigaam_tpu/ops/pallas_attention.py:414"),
+        "K5": ("fused_relpos_mha", "gigaam_tpu_torch/csrc/relpos_attention.cu",
+               "gigaam_tpu/ops/pallas_attention.py:977"),
     }
     kernels = []
-    for key in ("K3", "K2", "K1"):
+    for key in ("K3", "K2", "K1", "K5"):
         name, source, repl = replaces[key]
         r = rows[key]
         kernels.append({

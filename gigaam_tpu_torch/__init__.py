@@ -14,13 +14,14 @@ import torch
 
 from .audio import load_audio
 from .config import RU_VOCAB, SAMPLE_RATE, ModelConfig, make_preset
-from .models.model import GigaAM, GigaAMASR, model_class_for
+from .models.model import GigaAM, GigaAMASR, GigaAMEmo, model_class_for
 from .types import TranscriptionResult, Word
 from .weights import load_native, params_from_jax
 
 __all__ = [
     "GigaAM",
     "GigaAMASR",
+    "GigaAMEmo",
     "ModelConfig",
     "RU_VOCAB",
     "SAMPLE_RATE",

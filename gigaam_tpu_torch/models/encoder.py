@@ -1,5 +1,6 @@
 """Conformer encoder, inference forward (port of
-``gigaam_tpu/models/encoder.py`` for the rotary (v3) generation).
+``gigaam_tpu/models/encoder.py``): the rotary (v3) and the rel-pos (v1/v2)
+generations, with conv2d subsampling.
 
 * Parameters live in ``nn.ParameterDict``/``nn.ModuleDict`` trees keyed as in
   the JAX package; the JAX tree's per-layer leaves, stacked on a leading
@@ -13,14 +14,14 @@
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import EncoderConfig
-from ..ops.attention import rotary_mha
+from ..ops.attention import relpos_mha, rotary_mha
 from ..ops.conformer_ops import (
     conformer_conv,
     ffn,
@@ -43,42 +44,96 @@ from ..ops.rotary import rotary_tables
 _MAX_FOLD_T = 1024       # fold the attention module when T' <= this
 _LNRES_MIN_BATCH = 16    # fold LN + residual too (K1) from this batch on
 
+# the positional input of a forward: (cos, sin) [T', d_head] for rotary, the
+# [2T'-1, D] table for rel-pos; both fp32
+Pos = Union[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+class MixedDict(nn.ModuleDict):
+    """A ``ModuleDict`` that also holds tensor leaves, as parameters indexed
+    like the dict it came from (the rel-pos attention node holds
+    ``pos_bias_u``/``pos_bias_v`` beside its ``linear_*`` nodes)."""
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or super().__contains__(key)
+
 
 def as_module(tree: Dict[str, Any]) -> nn.Module:
     """A nested dict of tensors -> ``nn.ModuleDict`` of ``nn.ParameterDict``
-    leaves (inference only: no parameter requires a gradient)."""
+    leaves, ``MixedDict`` where a node holds both (inference only: no
+    parameter requires a gradient)."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict({
             k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
-    if any(isinstance(v, torch.Tensor) for v in tree.values()):
-        raise ValueError(f"mixed tensor/dict node: {sorted(tree)}")
-    return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+    if not any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+    node = MixedDict({k: as_module(v) for k, v in tree.items()
+                      if not isinstance(v, torch.Tensor)})
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor):
+            node.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return node
+
+
+def relpos_table(length: int, dim: int) -> np.ndarray:
+    """Sinusoidal relative-position table [2L-1, dim]; index i holds
+    position L-1-i (reference ``gigaam/encoder.py:312-327``)."""
+    positions = np.arange(length - 1, -length, -1, dtype=np.float64)[:, None]
+    pe = np.zeros((2 * length - 1, dim), dtype=np.float64)
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float64)
+                      * -(math.log(10000.0) / dim))
+    pe[:, 0::2] = np.sin(positions * div_term)
+    pe[:, 1::2] = np.cos(positions * div_term)
+    return pe.astype(np.float32)
 
 
 class PosTables:
-    """Rotary tables grown on demand (mirror of ``extend_pe``), with one
-    device copy per (length, device)."""
+    """Positional tables grown on demand (mirror of ``extend_pe``), with one
+    device copy per (kind, length, device).  Each kind keeps its own host
+    table and length, so growing one never hides or shrinks the other."""
 
     def __init__(self, cfg: EncoderConfig):
         self.cfg = cfg
-        self._len = 0
-        self._host: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        self._dev: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._host: Dict[str, Tuple[int, Any]] = {}
+        self._dev: Dict[Tuple[str, int, str], Pos] = {}
+
+    def _table(self, kind: str, t: int) -> Tuple[int, Any]:
+        """(length, host table) of ``kind``, grown to cover ``t``."""
+        length = max(t, self.cfg.pos_emb_max_len)
+        have = self._host.get(kind)
+        if have is None or length > have[0]:
+            table = (rotary_tables(length, self.cfg.d_head,
+                                   self.cfg.pos_emb_max_len)
+                     if kind == "rotary"
+                     else relpos_table(length, self.cfg.d_model))
+            have = self._host[kind] = (length, table)
+            for key in [k for k in self._dev if k[0] == kind]:
+                del self._dev[key]
+        return have
 
     def rotary(self, t: int, device: torch.device
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(cos, sin), each [t, d_head] fp32 on ``device``."""
-        length = max(t, self.cfg.pos_emb_max_len)
-        if length > self._len:
-            self._host = rotary_tables(length, self.cfg.d_head,
-                                       self.cfg.pos_emb_max_len)
-            self._len = length
-            self._dev.clear()
-        key = (t, str(device))
+        key = ("rotary", t, str(device))
         if key not in self._dev:
-            cos, sin = self._host
+            _, (cos, sin) = self._table("rotary", t)
             self._dev[key] = (torch.from_numpy(cos[:t]).to(device),
                               torch.from_numpy(sin[:t]).to(device))
+        return self._dev[key]
+
+    def relpos(self, t: int, device: torch.device) -> torch.Tensor:
+        """[2t-1, d_model] fp32 on ``device``: positions t-1 .. -(t-1), the
+        rows [L-t, L+t-1) of the length-L table."""
+        key = ("rel_pos", t, str(device))
+        if key not in self._dev:
+            center, rel = self._table("rel_pos", t)
+            self._dev[key] = torch.from_numpy(
+                rel[center - t: center + t - 1]).to(device)
         return self._dev[key]
 
 
@@ -105,40 +160,44 @@ class ConformerLayer(nn.ModuleDict):
 class ConformerEncoder(nn.Module):
     def __init__(self, cfg: EncoderConfig, state: Dict[str, Any]):
         super().__init__()
-        if cfg.self_attention_model != "rotary" or cfg.subsampling != "conv2d":
-            raise NotImplementedError(
-                "only the rotary / conv2d-subsampling (v3) encoder is ported")
+        if cfg.subsampling != "conv2d":
+            raise NotImplementedError("conv1d subsampling is not ported")
         self.cfg = cfg
         self.pre_encode = as_module(state["pre_encode"])
         self.layers = nn.ModuleList(
             ConformerLayer(lp, cfg.n_heads) for lp in state["layers"])
 
-    def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
-                pos: Tuple[torch.Tensor, torch.Tensor],
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor, pos: Pos,
                 compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
         return conformer_forward(self, feats, lengths, self.cfg, pos,
                                  compute_dtype)
 
 
-def _layer_forward(lp: ConformerLayer, x: torch.Tensor,
-                   pos: Tuple[torch.Tensor, torch.Tensor],
+def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
                    valid: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
     """One Conformer layer (``gigaam/encoder.py:473-498``), with the JAX
     package's attention dispatch (``encoder.py:301-347``):
 
-    * T' <= _MAX_FOLD_T and batch >= _LNRES_MIN_BATCH: K1 (LN + module +
-      residual in one fold);
-    * T' <= _MAX_FOLD_T, smaller batch: LN, then K2 (the module fold);
-    * longer T': LN, then ``rotary_mha`` with its SDPA core on K3.
+    * rel-pos: LN, then ``relpos_mha`` with its core on K5 (the folds are
+      rotary-only, as in the JAX package);
+    * rotary, T' <= _MAX_FOLD_T and batch >= _LNRES_MIN_BATCH: K1 (LN +
+      module + residual in one fold);
+    * rotary, T' <= _MAX_FOLD_T, smaller batch: LN, then K2 (the module
+      fold);
+    * rotary, longer T': LN, then ``rotary_mha`` with its SDPA core on K3.
 
     On the CPU every kernel wrapper takes its plain version.
     """
-    cos, sin = pos
     b, t, _ = x.shape
     residual = x
     residual = residual + 0.5 * ffn(lp["feed_forward1"],
                                     layer_norm(lp["norm_feed_forward1"], x))
-    if t <= _MAX_FOLD_T:
+    if cfg.self_attention_model == "rel_pos":
+        y = layer_norm(lp["norm_self_att"], residual)
+        residual = residual + relpos_mha(lp["self_attn"], y, pos, valid,
+                                         cfg.n_heads, use_fused=True)
+    elif t <= _MAX_FOLD_T:
+        cos, sin = pos
         w = lp.folded_weights(x.dtype)
         if b >= _LNRES_MIN_BATCH:
             residual = folded_rotary_attention_lnres(
@@ -149,6 +208,7 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor,
                 w, y, cos, sin, valid, cfg.n_heads)
     else:
         y = layer_norm(lp["norm_self_att"], residual)
+        cos, sin = pos
         residual = residual + rotary_mha(lp["self_attn"], y, cos, sin, valid,
                                          cfg.n_heads, use_fused=True)
 
@@ -161,12 +221,12 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor,
 
 
 def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
-                      lengths: torch.Tensor, cfg: EncoderConfig,
-                      pos: Tuple[torch.Tensor, torch.Tensor],
+                      lengths: torch.Tensor, cfg: EncoderConfig, pos: Pos,
                       compute_dtype: torch.dtype = torch.float32
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """feats [B, T, F] (time-major), lengths [B] in feature frames, pos =
-    (cos, sin) sliced to T'.  Returns (encoded [B, T', D], out_lengths [B])."""
+    (cos, sin) sliced to T' for rotary, or the [2T'-1, D] table for
+    rel-pos.  Returns (encoded [B, T', D], out_lengths [B])."""
     x, out_len = striding_subsampling_conv2d(
         encoder.pre_encode, feats.to(compute_dtype), lengths,
         cfg.num_subsampling_stages, cfg.subs_kernel_size)
@@ -185,11 +245,27 @@ def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
 
 
-def init_linear(gen: torch.Generator, d_in: int, d_out: int
-                ) -> Dict[str, torch.Tensor]:
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                bias: bool = True) -> Dict[str, torch.Tensor]:
     bound = 1.0 / math.sqrt(d_in)
-    return {"w": _uniform(gen, (d_in, d_out), bound),
-            "b": _uniform(gen, (d_out,), bound)}
+    p = {"w": _uniform(gen, (d_in, d_out), bound)}
+    if bias:
+        p["b"] = _uniform(gen, (d_out,), bound)
+    return p
+
+
+def _init_attention(gen: torch.Generator, cfg: EncoderConfig
+                    ) -> Dict[str, Any]:
+    """As ``_init_attention`` of the JAX package: rel-pos adds
+    ``linear_pos`` (no bias) and zero ``pos_bias_u``/``pos_bias_v``."""
+    d = cfg.d_model
+    p: Dict[str, Any] = {name: init_linear(gen, d, d) for name in
+                         ("linear_q", "linear_k", "linear_v", "linear_out")}
+    if cfg.self_attention_model == "rel_pos":
+        p["linear_pos"] = init_linear(gen, d, d, bias=False)
+        p["pos_bias_u"] = torch.zeros(cfg.n_heads, cfg.d_head)
+        p["pos_bias_v"] = torch.zeros(cfg.n_heads, cfg.d_head)
+    return p
 
 
 def _init_norm(d: int) -> Dict[str, torch.Tensor]:
@@ -206,8 +282,7 @@ def _init_layer(gen: torch.Generator, cfg: EncoderConfig) -> Dict[str, Any]:
         "norm_feed_forward1": _init_norm(d),
         "feed_forward1": ffn_p(),
         "norm_self_att": _init_norm(d),
-        "self_attn": {name: init_linear(gen, d, d) for name in
-                      ("linear_q", "linear_k", "linear_v", "linear_out")},
+        "self_attn": _init_attention(gen, cfg),
         "norm_conv": _init_norm(d),
         "conv": {
             "pointwise_conv1": {

@@ -1,5 +1,5 @@
-"""User-facing model classes: GigaAM (encoder) and GigaAMASR (CTC head),
-ported from ``gigaam_tpu/models/model.py``.
+"""User-facing model classes: GigaAM (encoder), GigaAMASR (CTC head) and
+GigaAMEmo (emotion head), ported from ``gigaam_tpu/models/model.py``.
 
 * Audio is padded to 1-second buckets, as in the JAX package.
 * Activations run in bfloat16 on CUDA and float32 on the CPU.
@@ -21,6 +21,7 @@ from ..config import (
     LONGFORM_THRESHOLD_SEC,
     SAMPLE_RATE,
     CTCHeadConfig,
+    EmoHeadConfig,
     ModelConfig,
 )
 from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
@@ -32,6 +33,7 @@ from ..types import TranscriptionResult, Word
 from . import heads as heads_lib
 from .encoder import (
     ConformerEncoder,
+    Pos,
     PosTables,
     as_module,
     init_encoder_state,
@@ -96,19 +98,22 @@ class GigaAM(nn.Module):
 
     # -- forward -----------------------------------------------------------
 
-    def _encode(self, wavs: torch.Tensor, lengths: torch.Tensor,
-                pos: Tuple[torch.Tensor, torch.Tensor]
+    def _encode(self, wavs: torch.Tensor, lengths: torch.Tensor, pos: Pos
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         feats, feat_lens = self.frontend(wavs, lengths)
         return self.encoder(feats.transpose(1, 2), feat_lens, pos,
                             self.compute_dtype)
 
-    def _pos_for(self, padded_samples: int):
+    def _pos_for(self, padded_samples: int) -> Pos:
+        """The positional input for a padded batch: (cos, sin) for rotary,
+        the [2T'-1, D] table for rel-pos (``_pos_for_tfeat``)."""
         t_sub = static_subsampled_length(
             num_frames(padded_samples, self.cfg.preprocessor),
             self.cfg.encoder.num_subsampling_stages,
             self.cfg.encoder.subs_kernel_size)
-        return self.pos_tables.rotary(t_sub, self.device)
+        if self.cfg.encoder.self_attention_model == "rotary":
+            return self.pos_tables.rotary(t_sub, self.device)
+        return self.pos_tables.relpos(t_sub, self.device)
 
     def _device_batch(self, wavs: List[np.ndarray]):
         batch, lens = pad_wav_batch(wavs)
@@ -153,7 +158,7 @@ class GigaAMASR(GigaAM):
         super().__init__(cfg, **kw)
 
     def _ctc_forward(self, wavs: torch.Tensor, lengths: torch.Tensor,
-                     pos: Tuple[torch.Tensor, torch.Tensor]):
+                     pos: Pos):
         encoded, enc_lens = self._encode(wavs, lengths, pos)
         log_probs = heads_lib.ctc_log_probs(self.head, encoded)
         labels, keep = ctc_greedy_mask(log_probs, enc_lens)
@@ -190,12 +195,33 @@ class GigaAMASR(GigaAM):
         return TranscriptionResult(text=text, words=words)
 
 
+class GigaAMEmo(GigaAM):
+    """Emotion recognition model (reference ``gigaam/model.py:262-317``)."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        if not isinstance(cfg.head, EmoHeadConfig):
+            raise ValueError("GigaAMEmo needs an emo head")
+        super().__init__(cfg, **kw)
+        self.id2name = cfg.id2name or [
+            str(i) for i in range(cfg.head.num_classes)]
+
+    @torch.inference_mode()
+    def get_probs(self, wav_file: Union[str, np.ndarray]) -> Dict[str, float]:
+        """Class probabilities of one clip, ``{label: prob}`` in ``id2name``
+        order."""
+        dev_batch, dev_lens, _, pos = self._device_batch(
+            [self.prepare_wav(wav_file)])
+        encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
+        probs = heads_lib.emo_probs(self.head, encoded, enc_lens)[0].cpu()
+        return {name: float(p) for name, p in zip(self.id2name, probs)}
+
+
 def init_state(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
     """Random weights for ``cfg`` from a ``torch.Generator`` seeded with
     ``seed`` (CPU tensors, fp32)."""
     gen = torch.Generator().manual_seed(seed)
     state: Dict[str, Any] = {"encoder": init_encoder_state(gen, cfg.encoder)}
-    if isinstance(cfg.head, CTCHeadConfig):
+    if isinstance(cfg.head, (CTCHeadConfig, EmoHeadConfig)):
         state["head"] = {"proj": init_linear(gen, cfg.head.feat_in,
                                              cfg.head.num_classes)}
     return state
@@ -206,4 +232,6 @@ def model_class_for(cfg: ModelConfig):
         return GigaAMASR
     if cfg.model_class == "ssl":
         return GigaAM
+    if cfg.model_class == "emo":
+        return GigaAMEmo
     raise NotImplementedError(f"model class {cfg.model_class!r} is not ported")

@@ -1,8 +1,10 @@
-"""Rotary multi-head self-attention (port of
-``gigaam_tpu/ops/attention.py::rotary_mha``).
+"""Multi-head self-attention (port of ``gigaam_tpu/ops/attention.py``).
 
-RoPE is applied to the *pre-projection* input for Q and K (faithful to
-``gigaam/encoder.py:244-256``); V projects the un-rotated input.
+* ``rotary_mha`` (v3): RoPE is applied to the *pre-projection* input for Q
+  and K (faithful to ``gigaam/encoder.py:244-256``); V projects the
+  un-rotated input.
+* ``relpos_mha`` (v1/v2): Transformer-XL relative-position attention with
+  the pad/reshape ``rel_shift`` (``gigaam/encoder.py:202-206``).
 
 Masking: a boolean *valid* mask [B, T] (True = real frame); invalid score
 entries get a finite -1e9 before the softmax, so padded query rows are
@@ -17,6 +19,7 @@ import math
 from typing import Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 
 from .conformer_ops import Params, linear
 from .rotary import apply_rotary_wide
@@ -84,6 +87,63 @@ def rotary_mha(
 
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+    attn = _masked_softmax(scores, valid).to(v.dtype)
+    out = (attn.float() @ v.float()).to(x.dtype)
+    return _out_proj(params["linear_out"], out)
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL relative shift (``gigaam/encoder.py:202-206``).
+
+    x: [B, H, Tq, P] with P = 2*Tq - 1 -> shifted [B, H, Tq, P].
+    """
+    b, h, q, p = x.shape
+    x = F.pad(x, (1, 0)).reshape(b, h, p + 1, q)
+    return x[:, :, 1:].reshape(b, h, q, p)
+
+
+def relpos_mha(
+    params: Mapping[str, Params],
+    x: torch.Tensor,
+    pos_emb: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    n_heads: int,
+    use_fused: bool = False,
+) -> torch.Tensor:
+    """Relative-position self-attention (v1/v2).  x [B, T, D]; pos_emb
+    [2T-1, D] fp32 (positions T-1 .. -(T-1)).
+
+    ``use_fused`` routes the scores, the shift and the softmax through the
+    hand-written kernel ``ops.fused_attention.fused_relpos_mha`` (K5); the
+    Q/K/V/position and output projections stay ``torch.matmul``, as they
+    were XLA ops around the Pallas kernel.  The composed branch is the
+    JAX package's: fp32 ``matrix_ac + rel_shift(matrix_bd)``, pair mask.
+    """
+    b, t, d = x.shape
+    q = _split_heads(linear(params["linear_q"], x), n_heads)
+    k = _split_heads(linear(params["linear_k"], x), n_heads)
+    v = _split_heads(linear(params["linear_v"], x), n_heads)
+
+    p = linear(params["linear_pos"], pos_emb.to(x.dtype))          # [P, D]
+    p = p.reshape(-1, n_heads, d // n_heads).transpose(0, 1)       # [H, P, d]
+
+    q_u = q + params["pos_bias_u"].to(x.dtype)[None, :, None, :]
+    q_v = q + params["pos_bias_v"].to(x.dtype)[None, :, None, :]
+
+    if use_fused:
+        from .fused_attention import fused_relpos_mha
+
+        valid_b = (torch.ones((b, t), dtype=torch.bool, device=x.device)
+                   if valid is None else valid)
+        out = fused_relpos_mha(q_u.contiguous(), k.contiguous(),
+                               v.contiguous(), q_v.contiguous(),
+                               p.contiguous(), valid_b)
+        return _out_proj(params["linear_out"], out)
+
+    scale = 1.0 / math.sqrt(d // n_heads)
+    matrix_bd = rel_shift(q_v.float() @ p.float().transpose(-1, -2))[..., :t]
+    matrix_ac = q_u.float() @ k.float().transpose(-1, -2)
+    scores = (matrix_ac + matrix_bd) * scale
     attn = _masked_softmax(scores, valid).to(v.dtype)
     out = (attn.float() @ v.float()).to(x.dtype)
     return _out_proj(params["linear_out"], out)

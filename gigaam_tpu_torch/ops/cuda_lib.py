@@ -34,6 +34,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_qkv_proj": [_P] * 14 + [_I] * 4 + [_P],
         "gigaam_out_proj": [_P] * 5 + [_I] * 4 + [_P],
     },
+    "relpos_attention": {
+        "gigaam_relpos_sdpa": [_P] * 7 + [_I] * 3 + [_F, _P],
+    },
 }
 
 

@@ -1,4 +1,4 @@
-"""The three attention kernels of the main path, written by hand for Hopper.
+"""The encoder's attention kernels, written by hand for Hopper.
 
 Each public wrapper replaces one Pallas kernel of
 ``gigaam_tpu/ops/pallas_attention.py``:
@@ -13,6 +13,10 @@ Each public wrapper replaces one Pallas kernel of
 * ``folded_rotary_attention_lnres`` (K1) replaces ``_folded_lnres_pallas``
   (``_fold_rotary_lnres_kernel``): K2 with the LayerNorm in its prologue and
   the residual add in its epilogue, on the pre-LN residual stream.
+* ``fused_relpos_mha`` (K5) replaces ``fused_relpos_mha`` ->
+  ``_relpos_pallas`` (``_attn_relpos_kernel``): Transformer-XL
+  relative-position SDPA for the v1/v2 encoder.  CUDA:
+  ``csrc/relpos_attention.cu``.
 
 What bounds each on the card, and what its design does about it, is in the
 note at the top of each ``.cu`` file.
@@ -22,14 +26,15 @@ numerics (RoPE in fp32 then cast, fp32 accumulation, P cast to the compute
 dtype before P.V, the division after it).  A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
-card: one CUDA launch for K3, three (QKV, SDPA core, output) for K2 and K1.
+card: one CUDA launch for K3 and K5, three (QKV, SDPA core, output) for K2
+and K1.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -89,11 +94,17 @@ def prepare_folded_weights(attn: Mapping[str, Params], ln: Params,
 # ---------------------------------------------------------------------------
 
 def _sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                valid: torch.Tensor, scale: float) -> torch.Tensor:
+                valid: torch.Tensor, scale: float,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The math of ``_attn_kernel``: fp32 scores and softmax with the key
-    mask added as (mask-1)*1e9, P cast to v's dtype, division after P.V."""
+    mask added as (mask-1)*1e9, P cast to v's dtype, division after P.V.
+    An fp32 ``bias`` [B, H, T, T] joins the scores before the scale, as in
+    ``_attn_relpos_kernel``."""
     with full_fp32():
-        s = (q.float() @ k.float().transpose(-1, -2)) * scale
+        s = q.float() @ k.float().transpose(-1, -2)
+        if bias is not None:
+            s = s + bias
+        s = s * scale
         s = s + (valid[:, None, None, :].float() - 1.0) * (-NEG_INF)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         denom = p.sum(dim=-1, keepdim=True)
@@ -105,6 +116,23 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               valid: torch.Tensor) -> torch.Tensor:
     """Plain version of K3."""
     return _sdpa_plain(q, k, v, valid, 1.0 / math.sqrt(q.shape[-1]))
+
+
+def relpos_mha_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_v: torch.Tensor, p_heads: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: the positional term ``q_v . p_heads^T`` in fp32,
+    sheared to relative position i - j (``bias[i, j] = raw[i, T-1-i+j]``)
+    and rounded to the inputs' dtype, as ``_attn_relpos_kernel`` rounds it
+    before the shear; then ``_sdpa_plain`` with that bias."""
+    b, h, t, d = q_u.shape
+    with full_fp32():
+        raw = q_v.float() @ p_heads.float().transpose(-1, -2)   # [B, H, T, P]
+        ar = torch.arange(t, device=q_u.device)
+        idx = (t - 1) - ar[:, None] + ar[None, :]                # [T, T]
+        bias = raw.gather(-1, idx.expand(b, h, t, t))
+    return _sdpa_plain(q_u, k, v, valid, 1.0 / math.sqrt(d),
+                       bias.to(q_u.dtype).float())
 
 
 def _rotate_half_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -290,7 +318,51 @@ def folded_rotary_attention_lnres(w: FoldedWeights, x: torch.Tensor,
 
 folded_rotary_attention_lnres.launches = 0
 
-KERNELS = (fused_mha, folded_rotary_attention, folded_rotary_attention_lnres)
+
+def _check_relpos_args(q_u, k, v, q_v, p_heads, valid) -> None:
+    _check_sdpa_args(q_u, k, v, valid)
+    b, h, t, d = q_u.shape
+    _check_tensor("q_v", q_v, q_u.device, torch.bfloat16, (b, h, t, d))
+    _check_tensor("p_heads", p_heads, q_u.device, torch.bfloat16,
+                  (h, 2 * t - 1, d))
+    _require(not any(x.requires_grad for x in (q_u, k, v, q_v, p_heads)),
+             "fused_relpos_mha has no backward on the card yet: call it "
+             "under torch.no_grad() or torch.inference_mode()")
+
+
+def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_v: torch.Tensor, p_heads: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """K5: Transformer-XL relative-position SDPA.  q_u/k/v/q_v [B, H, T, d]
+    (q_u = q + pos_bias_u, q_v = q + pos_bias_v); p_heads [H, 2T-1, d], the
+    projected position table of positions T-1 .. -(T-1), one copy for the
+    whole batch; valid [B, T] bool -> [B, H, T, d].  Output rows of invalid
+    query positions are garbage, as in the JAX package.  CUDA: bf16,
+    d = 48, any T.
+
+    Inference only: the CUDA path has no gradient (its backward, the port
+    of ``_relpos_bwd_pallas``, comes with training) and refuses inputs that
+    require one."""
+    if q_u.device.type == "cpu":
+        return relpos_mha_plain(q_u, k, v, q_v, p_heads, valid)
+    _check_relpos_args(q_u, k, v, q_v, p_heads, valid)
+    b, h, t, _ = q_u.shape
+    out = torch.empty_like(q_u)
+    lib = cuda_lib.library("relpos_attention")
+    with torch.cuda.device(q_u.device):
+        cuda_lib.check(lib.gigaam_relpos_sdpa(
+            q_u.data_ptr(), k.data_ptr(), v.data_ptr(), q_v.data_ptr(),
+            p_heads.data_ptr(), valid.data_ptr(), out.data_ptr(), b, h, t,
+            1.0 / math.sqrt(D_HEAD), _stream(q_u.device)),
+            "gigaam_relpos_sdpa")
+    fused_relpos_mha.launches += 1
+    return out
+
+
+fused_relpos_mha.launches = 0
+
+KERNELS = (fused_mha, folded_rotary_attention, folded_rotary_attention_lnres,
+           fused_relpos_mha)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,6 @@
 """The port's attention kernels (K3 ``fused_mha``, K2
-``folded_rotary_attention``, K1 ``folded_rotary_attention_lnres``).
+``folded_rotary_attention``, K1 ``folded_rotary_attention_lnres``; K5
+``fused_relpos_mha`` has its CPU tests in ``test_torch_relpos.py``).
 
 On the CPU each wrapper runs its plain version, which is held against the
 JAX package's Pallas kernel in interpret mode on valid rows, in fp32
@@ -275,3 +276,28 @@ def test_cuda_folds_match_plain(cuda, lnres, b, tt):
     assert_within_output_scale(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), valid,
                                xb.float().cpu().numpy() if lnres else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,tt", [(1, 501), (16, 501), (1, 1126), (3, 77)])
+def test_cuda_k5_matches_plain(cuda, b, tt):
+    """K5 on inputs where both score terms matter: q_u, k, q_v and the
+    position table at QK_GAIN, so q_u.k and the positional term are of one
+    size and the softmax is peaked; q_u and q_v drawn apart."""
+    rng = np.random.default_rng(b * tt + 1)
+
+    def draw(shape, gain):
+        a = rng.standard_normal(shape).astype(np.float32) * gain
+        return torch.from_numpy(a).to(cuda, torch.bfloat16)
+
+    q_u, k, q_v = (draw((b, 16, tt, 48), QK_GAIN) for _ in range(3))
+    v = draw((b, 16, tt, 48), 1.0)
+    p_heads = draw((16, 2 * tt - 1, 48), QK_GAIN)
+    valid = ragged_valid(b, tt)
+    valid_d = t(valid).to(cuda)
+    before = fa.fused_relpos_mha.launches
+    got = fa.fused_relpos_mha(q_u, k, v, q_v, p_heads, valid_d)
+    assert fa.fused_relpos_mha.launches == before + 1
+    ref = fa.relpos_mha_plain(q_u, k, v, q_v, p_heads, valid_d)
+    assert_within_output_scale(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), valid)

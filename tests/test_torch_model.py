@@ -174,25 +174,32 @@ def test_cast_encoder_keeps_the_head_and_reprepares_the_folds():
 
 
 def test_port_runs_without_jax_or_the_jax_package():
-    """A fresh interpreter imports the port, runs a CPU forward, and has
-    imported neither ``jax`` nor ``gigaam_tpu``."""
+    """A fresh interpreter imports the port, runs CPU forwards of the rotary
+    (v3_ctc) and the rel-pos (v2_ctc, emo) models, and has imported neither
+    ``jax`` nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
         "import gigaam_tpu_torch as gt\n"
         "from gigaam_tpu_torch.config import EncoderConfig\n"
-        "cfg = gt.make_preset('v3_ctc')\n"
-        "cfg.encoder = EncoderConfig(n_layers=1, d_model=64, n_heads=4,\n"
-        "                            ff_expansion_factor=2)\n"
-        "cfg.head.feat_in = 64\n"
-        "m = gt.GigaAMASR(cfg, device='cpu')\n"
-        "print(type(m.transcribe(np.zeros(16000, np.float32)).text))\n"
+        "wav = np.zeros(16000, np.float32)\n"
+        "for name in ('v3_ctc', 'v2_ctc', 'emo'):\n"
+        "    cfg = gt.make_preset(name)\n"
+        "    cfg.encoder = EncoderConfig(\n"
+        "        n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2,\n"
+        "        self_attention_model=cfg.encoder.self_attention_model)\n"
+        "    cfg.head.feat_in = 64\n"
+        "    m = gt.model_class_for(cfg)(cfg, device='cpu')\n"
+        "    out = m.get_probs(wav) if name == 'emo' else m.transcribe(wav).text\n"
+        "    print(name, type(out))\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "<class 'str'>" in out.stdout
+    assert "v3_ctc <class 'str'>" in out.stdout
+    assert "v2_ctc <class 'str'>" in out.stdout
+    assert "emo <class 'dict'>" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
