@@ -30,9 +30,30 @@ Phases, each fatal on failure:
    through ``transcribe`` on 20 s and ``_decode_batch`` on 16 clips of
    10-20 s (T' = 501), full-width emo through ``get_probs`` on 10 s
    (T' = 251), each profiled, then the v2_ctc reference comparison at 4 s,
-   16 x 1-2 s and 42 s (T' = 1051).
+   16 x 1-2 s and 42 s (T' = 1051);
+7. the backward kernels: K4 and K6 against their plain backward in bf16 at
+   B 16 T' 500/501 (the training shape), B 8 T' 750 and B 2 T' 1000, per
+   gradient, with ``do`` zero on padded rows; the plain backward against
+   ``torch.autograd.grad`` through the plain forward in fp32; planted faults
+   (key mask ignored, scale missing from ds, the rowsum term dropped; for K6
+   also P without the bias, the unshear reversed, dp from the last batch
+   element only), each of which must land above the limit; times, bounds,
+   and for K6 the spread of dp over two runs (its batch sum uses atomics);
+8. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
+   10-20 s clips written as WAVs with a TSV manifest to a temporary
+   directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
+   (4 steps, SpecAugment, validation on the first batch), then
+   ``FineTuner.train_step`` directly for v2_ctc, for v3_ctc, and for v3_ctc
+   with activation checkpointing (3 steps each), asserting from the launch counts that
+   every layer's backward went through K4 / K6 and no train step through
+   K1/K2, that every trainable leaf and every BatchNorm buffer moved, that
+   the positional parameters got a gradient, and that ``eval_step`` after
+   the steps sees the new weights; per step wall time, peak memory, the
+   forward/backward/optimizer split and a profile;
+9. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
+   bf16 loss and gradients against the port's CPU fp32 ones.
 
-The last two lines are a JSON object with every kernel's numbers and
+The last two lines of output are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device.
 """
@@ -42,9 +63,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -54,11 +77,16 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import gigaam_tpu_torch as gt
-from gigaam_tpu_torch.config import SAMPLE_RATE
+from gigaam_tpu_torch.audio import save_wav
+from gigaam_tpu_torch.config import RU_VOCAB, SAMPLE_RATE, make_preset
+from gigaam_tpu_torch.data import AudioDataset, write_manifest
 from gigaam_tpu_torch.models.heads import ctc_log_probs
 from gigaam_tpu_torch.ops import cuda_lib
 from gigaam_tpu_torch.ops import fused_attention as fa
+from gigaam_tpu_torch.ops.precision import full_fp32
 from gigaam_tpu_torch.ops.rotary import rotary_tables
+from gigaam_tpu_torch.train import train as train_cli
+from gigaam_tpu_torch.train.finetune import FineTuner, TrainConfig
 
 # A kernel passes where, on every valid query row,
 #   |got - ref| <= KERNEL_REL * RMS(attention output of ref) + KERNEL_RTOL * |ref|:
@@ -76,6 +104,18 @@ QK_GAIN = 1.5
 # 8 bits of mantissa (~0.4% per rounding) and every layer ends in a LayerNorm,
 # so 16 layers stay well inside 10%
 ENCODER_RTOL = 0.1
+# One train step, CUDA bf16 vs CPU fp32 on the same weights and batch, at 2
+# layers.  The loss is a mean of fp32 log-probabilities over bf16 encodings
+# that are within ~1% of the fp32 ones: 2%.  A gradient passes through every
+# bf16 rounding of the forward and again through those of the backward (P and
+# ds rounded in K4/K6, bf16 matmul outputs), each ~0.4%, and sums over
+# B x T' positions whose errors partly add: a leaf group's relative Frobenius
+# error stays inside 10%, the encoder's own limit
+TRAIN_LOSS_RTOL = 0.02
+TRAIN_GRAD_RTOL = 0.1
+# the plain backward on fp32 inputs (its rounding points are then no-ops)
+# against autograd through the plain forward: the same math in another order
+PLAIN_BWD_REL = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores, fp32
 # outside them, HBM3 bandwidth
@@ -88,7 +128,9 @@ D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
 # device-time groups of the main-path profile, matched in this order
 PROFILE_GROUPS = (
     # sdpa_kernel matches K5's relpos_sdpa_kernel too
-    ("attention kernels (csrc)", r"sdpa_kernel|qkv_kernel|out_proj_kernel"),
+    # and the backward kernels: sdpa_bwd_*, relpos_bwd_*
+    ("attention kernels (csrc)",
+     r"sdpa_kernel|qkv_kernel|out_proj_kernel|bwd_dq_kernel|bwd_dkv_kernel"),
     ("convolution", r"conv_|convolve|cudnn|winograd|fprop"),
     ("GEMM (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
     ("host-device copies", r"^Memcpy|^Memset"),
@@ -330,11 +372,187 @@ def relpos_kernel_phase(gen, dev) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# The backward kernels
+# ---------------------------------------------------------------------------
+
+def bwd_inputs(gen, b: int, t: int, dev, relpos: bool):
+    """Peaked inputs as the forward checks use, and a ``do`` that is zero on
+    padded query rows, as in a train step."""
+    def draw(shape, gain):
+        return (torch.randn(shape, generator=gen) * gain).to(
+            dev, torch.bfloat16)
+
+    shape = (b, N_HEADS, t, D_HEAD)
+    valid = ragged_valid(b, t, dev)
+    q, k = draw(shape, QK_GAIN), draw(shape, QK_GAIN)
+    v = draw(shape, 1.0)
+    do = draw(shape, 1.0) * valid[:, None, :, None]
+    if not relpos:
+        return (q, k, v, do, valid)
+    q_v = draw(shape, QK_GAIN)
+    p_heads = draw((N_HEADS, 2 * t - 1, D_HEAD), QK_GAIN)
+    return (q, k, v, q_v, p_heads, do, valid)
+
+
+def faulty_backward(args, fault: str, relpos: bool):
+    """The attention backward in fp32 with one fault planted: what a kernel
+    with that fault would return, up to rounding."""
+    if relpos:
+        q, k, v, q_v, p, do, valid = args
+        q_v, p = q_v.float(), p.float()
+    else:
+        q, k, v, do, valid = args
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    b, h, t, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    with full_fp32():
+        s = q @ k.transpose(-1, -2)
+        if relpos:
+            ar = torch.arange(t, device=q.device)
+            idx = ((t - 1) - ar[:, None] + ar[None, :]).expand(b, h, t, t)
+            if fault != "P without the bias":
+                raw = q_v @ p.transpose(-1, -2)
+                s = s + raw.gather(-1, idx).bfloat16().float()
+        s = s * scale
+        if fault != "key mask ignored":
+            s = s + (valid[:, None, None, :].float() - 1.0) * 1e9
+        prob = torch.softmax(s, dim=-1)
+        dv = prob.transpose(-1, -2) @ do
+        dprob = do @ v.transpose(-1, -2)
+        row = (dprob * prob).sum(-1, keepdim=True)
+        if fault == "rowsum term dropped":
+            row = torch.zeros_like(row)
+        ds = prob * (dprob - row)
+        if fault != "scale missing from ds":
+            ds = ds * scale
+        out = [ds @ k, ds.transpose(-1, -2) @ q, dv]
+        if relpos:
+            if fault == "unshear reversed":
+                idx = (2 * t - 2) - idx
+            d_raw = ds.new_zeros((b, h, t, 2 * t - 1)).scatter_(-1, idx, ds)
+            out.append(d_raw @ p)
+            if fault == "dp from the last batch element":
+                d_raw, q_v = d_raw[-1:], q_v[-1:]
+            out.append(torch.einsum("bhtp,bhtd->hpd", d_raw, q_v))
+    return out
+
+
+def grad_distances(names, got, ref, valid):
+    """Per gradient (max_abs_err, error in that gradient's RMS), over the
+    valid rows (query rows for dq*, key rows for dk and dv, all of dp)."""
+    out = {}
+    for name, g, r in zip(names, got, ref):
+        if name == "dp":
+            g, r = g[None], r[None]
+            rows = torch.ones((1, g.shape[2]), dtype=torch.bool,
+                              device=g.device)
+        else:
+            rows = valid
+        out[name] = distance(g, r, rows, 2)
+    return out
+
+
+def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
+    key = "K6" if relpos else "K4"
+    kernel, plain, fwd_plain = (
+        (fa.relpos_mha_bwd, fa.relpos_mha_bwd_plain, fa.relpos_mha_plain)
+        if relpos else (fa.mha_bwd, fa.mha_bwd_plain, fa.mha_plain))
+    names = (("dq_u", "dk", "dv", "dq_v", "dp") if relpos
+             else ("dq", "dk", "dv"))
+    faults = ("key mask ignored", "scale missing from ds",
+              "rowsum term dropped") + ((
+                  "P without the bias", "unshear reversed",
+                  "dp from the last batch element") if relpos else ())
+    row = None                 # the JSON row: the training shape, B 16
+    t_train = 501 if relpos else 500
+    for b, t in ((16, t_train), (8, 750), (2, 1000)):
+        args = bwd_inputs(gen, b, t, dev, relpos)
+        valid = args[-1]
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        dist = grad_distances(names, got, plain(*args), valid)
+        worst = max(rel for _, rel in dist.values())
+        err = max(e for e, _ in dist.values())
+        print(f"{key} {kernel.__name__} B={b} T'={t}: " + ", ".join(
+            f"{n} {rel:.4f} x RMS (max_abs_err {e:.3e})"
+            for n, (e, rel) in dist.items()) + f" (limit {KERNEL_REL})",
+            flush=True)
+        if not worst <= KERNEL_REL:
+            raise AssertionError(f"{key} B={b} T'={t}: {dist}")
+
+        # the plain backward itself, on fp32 inputs, against autograd
+        # through the plain forward
+        wide = [x.float() for x in args[:-1]]
+        do32 = wide.pop(-1)
+        leaves = [x.clone().requires_grad_() for x in wide]
+        auto = torch.autograd.grad(fwd_plain(*leaves, valid), leaves, do32)
+        pdist = grad_distances(names, plain(*wide, do32, valid), auto, valid)
+        pworst = max(rel for _, rel in pdist.values())
+        print(f"  {key} plain backward vs autograd of the plain forward, "
+              f"fp32: worst {pworst:.2e} x RMS (limit {PLAIN_BWD_REL})",
+              flush=True)
+        if not pworst <= PLAIN_BWD_REL:
+            raise AssertionError(f"{key} plain backward: {pdist}")
+        del leaves, auto, wide
+
+        for fault in faults if b == 16 else ():
+            fdist = grad_distances(names, got,
+                                   faulty_backward(args, fault, relpos), valid)
+            name, (_, rel) = max(fdist.items(), key=lambda kv: kv[1][1])
+            print(f"  {key} planted fault, {fault}: {name} {rel:.4f} x RMS "
+                  f"(limit {KERNEL_REL})", flush=True)
+            if not rel > KERNEL_REL:
+                raise AssertionError(f"{key}: the check misses {fault}")
+        if relpos and b == 16:
+            again = kernel(*args)
+            spread = float((again[4].float() - got[4].float()).abs().max())
+            same = all(torch.equal(a, g) for a, g in zip(again[:4], got[:4]))
+            print(f"  K6 two runs: dp differs by at most {spread:.3e} (max "
+                  f"|dp| {float(got[4].float().abs().max()):.3e}); dq_u, dk, "
+                  f"dv, dq_v bit-equal: {same}", flush=True)
+            if not same:
+                raise AssertionError("K6: a deterministic output changed")
+        ms = time_ms(lambda: kernel(*args))
+        plain_ms = time_ms(lambda: plain(*args), iters=5)
+        scores = b * N_HEADS * t * t
+        tile = b * N_HEADS * t * D_HEAD * 2
+        if relpos:
+            table = N_HEADS * (2 * t - 1) * D_HEAD * 2
+            bms, by = bound(10 * tile + 2 * table + b * t,
+                            16 * scores * D_HEAD, 10 * scores)
+            lib_ms = None
+        else:
+            bms, by = bound(7 * tile + b * t, 10 * scores * D_HEAD,
+                            8 * scores)
+            mask4 = valid[:, None, None, :]
+            q, k, v, do = (x for x in args[:4])
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+
+            def lib_both():
+                torch.autograd.grad(lib_fwd(), leaves, do)
+
+            lib_ms = time_ms(lib_both) - time_ms(lib_fwd)
+        print(f"  {key} B={b} T'={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, library "
+              f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}"
+              f", bound {bms:.4f} ms ({by})", flush=True)
+        if b == 16:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=lib_ms, max_abs_err=err)
+    return row
+
+
 def counts() -> dict:
     return {"K3": fa.fused_mha.launches,
             "K2": fa.folded_rotary_attention.launches,
             "K1": fa.folded_rotary_attention_lnres.launches,
-            "K5": fa.fused_relpos_mha.launches}
+            "K5": fa.fused_relpos_mha.launches,
+            "K4": fa.mha_bwd.launches,
+            "K6": fa.relpos_mha_bwd.launches}
 
 
 def profile_calls(label: str, fn, calls: int, wall_ms: float) -> None:
@@ -348,7 +566,12 @@ def profile_calls(label: str, fn, calls: int, wall_ms: float) -> None:
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # the optimizer's own range is mirrored on the device timeline: it
+        # is a span over kernels counted already, not a kernel
+        span = (getattr(evt, "is_user_annotation", False)
+                or evt.key.startswith("Optimizer."))
+        if (us > 0 and not span
+                and evt.device_type == torch.autograd.DeviceType.CUDA):
             kernels[evt.key] = (us / 1e3 / calls, evt.count // calls)
     groups = defaultdict(float)
     for name, (ms, _) in kernels.items():
@@ -507,6 +730,241 @@ def reference_phase(model, cpu, rng, paths) -> None:
                                  f"{ENCODER_RTOL}")
 
 
+# ---------------------------------------------------------------------------
+# Fine-tuning
+# ---------------------------------------------------------------------------
+
+def write_train_set(root: str, rng, n: int, lo: float, hi: float) -> str:
+    """``n`` synthetic clips of ``lo``-``hi`` seconds as 16-bit WAVs with
+    random transcripts over the model's characters; returns the manifest."""
+    rows = []
+    for i, seconds in enumerate(np.linspace(lo, hi, n)):
+        path = os.path.join(root, f"clip{i:02d}.wav")
+        save_wav(path, synth_wav(float(seconds), rng))
+        n_chars = int(rng.integers(int(2 * seconds), int(4 * seconds)))
+        text = "".join(rng.choice(RU_VOCAB, size=n_chars))
+        rows.append((path, float(seconds), " ".join(text.split()) or "а"))
+    manifest = os.path.join(root, "train.tsv")
+    write_manifest(manifest, rows)
+    return manifest
+
+
+def snapshot(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def assert_training_moved(label: str, ft, before: dict) -> None:
+    """Every trainable leaf and every BatchNorm buffer differs from
+    ``before``; the positional parameters hold a nonzero gradient."""
+    stuck = [n for n, p in ft.model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if stuck:
+        raise AssertionError(f"{label}: {len(stuck)} leaves did not move, "
+                             f"e.g. {stuck[:3]}")
+    n_pos = 0
+    for name, p in ft.model.named_parameters():
+        if any(k in name for k in ("pos_bias_u", "pos_bias_v", "linear_pos")):
+            n_pos += 1
+            if p.grad is None or not float(p.grad.abs().max()) > 0.0:
+                raise AssertionError(f"{label}: {name} got no gradient")
+    print(f"  {label}: all {len(before)} leaves moved (BatchNorm mean/var "
+          f"included); {n_pos} positional leaves hold a nonzero gradient",
+          flush=True)
+
+
+def drive_train_steps(label: str, ft, batch, steps: int, want: dict,
+                      card: str) -> dict:
+    """``steps`` calls of ``train_step`` from zeroed counts, each timed and
+    held to ``want`` launches; returns the launches over all steps."""
+    total = defaultdict(int)
+    marks = []
+
+    def mark(name: str) -> None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+    ft.on_phase = mark
+    for step in range(steps):
+        marks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ft.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        for k, n in got.items():
+            total[k] += n
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        phases = {b_[0]: a[1].elapsed_time(b_[1])
+                  for a, b_ in zip(marks, marks[1:])}
+        print(f"train {label} step {step + 1}: {wall_ms:.1f} ms wall, "
+              f"forward {phases['forward']:.1f} backward "
+              f"{phases['backward']:.1f} optimizer {phases['optimizer']:.1f} "
+              f"ms (CUDA events), loss {loss:.4f}, grad_norm {gnorm:.3f}, "
+              f"lr {m['lr']:.2e}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"launches {got}; card {card}", flush=True)
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        if not (math.isfinite(loss) and loss > 0 and math.isfinite(gnorm)
+                and gnorm > 0):
+            raise AssertionError(f"{label}: loss {loss}, grad_norm {gnorm}")
+    ft.on_phase = None
+    profile_calls(f"train_step {label}", lambda: ft.train_step(batch), 1,
+                  wall_ms)
+    return total
+
+
+def first_batch(manifest: str, tokenizer, batch_size: int, stride: int = 1):
+    """The first duration-sorted batch of every ``stride``-th clip."""
+    ds = AudioDataset(manifest, tokenizer=tokenizer, return_tokens=True)
+    ds.samples = ds.samples[::stride]
+    return next(iter(ds.batches(batch_size, sort_by_duration=True)))
+
+
+def training_path(model_v3, model_v2, manifest: str, card: str) -> dict:
+    """The CLI for v3_ctc, then ``FineTuner`` directly for v2_ctc, for v3_ctc
+    and for v3_ctc with activation checkpointing; returns the launches."""
+    n_layers = model_v3.cfg.encoder.n_layers
+    save_dir = os.path.join(os.path.dirname(manifest), "exp")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_cli.main([
+        "--model_name", "v3_ctc", "--init", "random", "--seed", "0",
+        "--train_manifest", manifest, "--val_manifest", manifest,
+        "--batch_size", "16", "--precision", "bf16", "--max_steps", "4",
+        "--spec_augment", "--val_first_batches", "1", "--save_top_k", "0",
+        "--log_every_n_steps", "1", "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    got = counts()
+    # 4 train steps (K3 forward, K4 backward), one validation batch at the
+    # end of the first epoch and one at the end (K1)
+    want = {"K3": 4 * n_layers, "K4": 4 * n_layers, "K1": 2 * n_layers}
+    print(f"main path train CLI v3_ctc, 4 steps + 2 validation batches: "
+          f"{cli_s:.1f} s, launches {got}; card {card}", flush=True)
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"train CLI: launches {got}, expected {want}")
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train_recs = [r for r in recs if r["kind"] == "train"]
+    if len(train_recs) != 4 or not all(
+            math.isfinite(r["loss"]) and r["loss"] > 0
+            and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+            for r in train_recs):
+        raise AssertionError(f"train CLI: metrics {train_recs}")
+    if not os.path.exists(os.path.join(save_dir, "final.npz")):
+        raise AssertionError("train CLI wrote no final.npz")
+    print("  CLI losses " + ", ".join(f"{r['loss']:.4f}" for r in train_recs)
+          + "; val " + ", ".join(f"{r['loss']:.4f}" for r in recs
+                                  if r["kind"] == "val"), flush=True)
+    launches = defaultdict(int, got)
+    torch.cuda.empty_cache()
+
+    tc = TrainConfig(total_steps=4, precision="bf16")
+    # every other of the 32 clips: 16 clips that span 10-20 s (T' = 500)
+    batch = first_batch(manifest, model_v2.tokenizer, 16, stride=2)
+    ft = FineTuner(model_v2, tc)
+    before = snapshot(model_v2)
+    total = drive_train_steps("v2_ctc", ft, batch, 3,
+                              {"K5": n_layers, "K6": n_layers}, card)
+    assert_training_moved("v2_ctc", ft, before)
+    for k, n in total.items():
+        launches[k] += n
+    del ft, before
+    torch.cuda.empty_cache()
+
+    ft = FineTuner(model_v3, tc)
+    before = snapshot(model_v3)
+    fa.reset_launch_counts()
+    loss0, _ = ft.eval_step(batch)
+    if counts()["K1"] != n_layers:
+        raise AssertionError(f"eval_step: launches {counts()}")
+    total = drive_train_steps("v3_ctc", ft, batch, 3,
+                              {"K3": n_layers, "K4": n_layers}, card)
+    assert_training_moved("v3_ctc", ft, before)
+    for k, n in total.items():
+        launches[k] += n
+    del before
+    ft = FineTuner(model_v3, dataclasses.replace(
+        tc, activation_checkpointing=True))
+    total = drive_train_steps("v3_ctc, activation checkpointing", ft, batch,
+                              3, {"K3": 2 * n_layers, "K4": n_layers}, card)
+    for k, n in total.items():
+        launches[k] += n
+    # eval_step goes through K1, whose prepared weights must follow the
+    # optimizer's updates
+    fa.reset_launch_counts()
+    loss1, hyps = ft.eval_step(batch)
+    got = counts()
+    for layer in model_v3.encoder.layers:
+        layer.clear_prepared()
+    loss2, _ = ft.eval_step(batch)
+    print(f"eval_step v3_ctc: loss {loss0:.4f} before training, {loss1:.4f} "
+          f"after, {loss2:.4f} with freshly prepared folded weights; "
+          f"launches {got}", flush=True)
+    if got != {k: (n_layers if k == "K1" else 0) for k in got}:
+        raise AssertionError(f"eval_step: launches {got}")
+    if loss1 == loss0 or loss1 != loss2 or len(hyps) != 16:
+        raise AssertionError("eval_step does not see the updated weights")
+    return launches
+
+
+GRAD_GROUPS = (
+    ("pos biases and linear_pos", r"pos_bias_|linear_pos"),
+    ("attention projections", r"self_attn\.linear_"),
+    ("FFN", r"feed_forward"),
+    ("conv module", r"\.conv\."),
+    ("head", r"^head\."),
+    ("norms and subsampling", r""),
+)
+
+
+def training_reference_phase(name: str, manifest: str) -> None:
+    """One train step at full width, 2 layers, batch 4: the card's bf16 loss
+    and gradients against the CPU's fp32 ones on the same weights."""
+    cfg = make_preset(name)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, n_layers=2))
+    grads, losses = {}, {}
+    batch = None
+    for device, precision in (("cuda", "bf16"), ("cpu", "fp32")):
+        model = gt.GigaAMASR(cfg, device=device, seed=0)
+        if name == "v2_ctc":
+            nonzero_pos_biases(model, seed=1)
+        if batch is None:
+            batch = first_batch(manifest, model.tokenizer, 4)
+        # no clipping, and the first update has lr 0: the gradients stay in
+        # .grad as the backward left them
+        ft = FineTuner(model, TrainConfig(total_steps=4, precision=precision,
+                                          grad_clip=1e30))
+        losses[device] = float(ft.train_step(batch)["loss"])
+        grads[device] = {n: p.grad.float().cpu()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    groups = defaultdict(lambda: [0.0, 0.0])
+    for n, g_ref in grads["cpu"].items():
+        group = next(g for g, pattern in GRAD_GROUPS if re.search(pattern, n))
+        groups[group][0] += float((grads["cuda"][n] - g_ref).pow(2).sum())
+        groups[group][1] += float(g_ref.pow(2).sum())
+    rels = {g: math.sqrt(num / den) for g, (num, den) in groups.items()
+            if den > 0}
+    print(f"training reference {name}, 2 layers, batch 4, T' from "
+          f"{batch[0].shape[1] / SAMPLE_RATE:.0f} s: loss CUDA bf16 "
+          f"{losses['cuda']:.4f} vs CPU fp32 {losses['cpu']:.4f} (relative "
+          f"{loss_rel:.4f}, tol {TRAIN_LOSS_RTOL}); gradient relative "
+          f"Frobenius error by group (tol {TRAIN_GRAD_RTOL}): "
+          + ", ".join(f"{g} {r:.4f}" for g, r in rels.items()), flush=True)
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{name}: loss relative error {loss_rel}")
+    if not all(r <= TRAIN_GRAD_RTOL for r in rels.values()):
+        raise AssertionError(f"{name}: gradient error {rels}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -524,20 +982,34 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s", flush=True)
 
     rows = kernel_phase(dev)
+    gen = torch.Generator().manual_seed(1)
+    rows["K4"] = bwd_kernel_phase(gen, dev, relpos=False)
+    rows["K6"] = bwd_kernel_phase(gen, dev, relpos=True)
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
     launches = main_path(model, rng, card)
     reference_phase(model, gt.load_model("v3_ctc", init="random", seed=0,
                                          device="cpu"), rng, ("K2", "K1", "K3"))
-    del model
-    torch.cuda.empty_cache()
-
     asr = v2_ctc()
     emo = gt.load_model("emo", init="random", seed=0)
     nonzero_pos_biases(emo, seed=2)
     launches["K5"] = relpos_main_path(asr, emo, rng, card)
     del emo
     reference_phase(asr, v2_ctc(device="cpu"), rng, ("K5",) * 3)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        manifest = write_train_set(root, rng, 32, 10.0, 20.0)
+        train_launches = training_path(model, asr, manifest, card)
+        del model, asr
+        torch.cuda.empty_cache()
+        small = os.path.join(root, "small")
+        os.makedirs(small)
+        manifest = write_train_set(small, rng, 4, 2.0, 4.0)
+        for name in ("v3_ctc", "v2_ctc"):
+            training_reference_phase(name, manifest)
+    launches["K4"], launches["K6"] = train_launches["K4"], train_launches["K6"]
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -549,9 +1021,14 @@ def main() -> int:
                "gigaam_tpu/ops/pallas_attention.py:414"),
         "K5": ("fused_relpos_mha", "gigaam_tpu_torch/csrc/relpos_attention.cu",
                "gigaam_tpu/ops/pallas_attention.py:977"),
+        "K4": ("mha_bwd", "gigaam_tpu_torch/csrc/attention_bwd.cu",
+               "gigaam_tpu/ops/pallas_attention.py:573"),
+        "K6": ("relpos_mha_bwd",
+               "gigaam_tpu_torch/csrc/relpos_attention_bwd.cu",
+               "gigaam_tpu/ops/pallas_attention.py:731"),
     }
     kernels = []
-    for key in ("K3", "K2", "K1", "K5"):
+    for key in ("K3", "K2", "K1", "K5", "K4", "K6"):
         name, source, repl = replaces[key]
         r = rows[key]
         kernels.append({

@@ -123,3 +123,14 @@ def load_audio(audio_path: str, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
             )
         return _decode_ffmpeg(audio_path, sample_rate)
     return resample(wav, sr, sample_rate)
+
+
+def save_wav(path: str, wav: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
+    """Write a float32 mono waveform as 16-bit PCM WAV (test/tool helper)."""
+    data = np.clip(wav, -1.0, 1.0)
+    pcm = (data * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sample_rate)
+        wf.writeframes(pcm.tobytes())

@@ -18,7 +18,13 @@ class Tokenizer:
             raise NotImplementedError(
                 "SentencePiece tokenizers are not ported yet; only the "
                 "char-wise vocabularies (v1/v2/v3 ctc) are supported")
+        self.charwise = True
         self.vocab = vocab
+        self._c2i = {c: i for i, c in enumerate(vocab)}
+
+    def encode(self, text: str) -> List[int]:
+        """Characters outside the vocabulary are dropped."""
+        return [self._c2i[c] for c in text if c in self._c2i]
 
     def decode(self, tokens: List[int]) -> str:
         return "".join(self.vocab[t] for t in tokens)

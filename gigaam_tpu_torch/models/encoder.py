@@ -1,4 +1,4 @@
-"""Conformer encoder, inference forward (port of
+"""Conformer encoder, inference and training forward (port of
 ``gigaam_tpu/models/encoder.py``): the rotary (v3) and the rel-pos (v1/v2)
 generations, with conv2d subsampling.
 
@@ -14,11 +14,12 @@ generations, with conv2d subsampling.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import EncoderConfig
 from ..ops.attention import relpos_mha, rotary_mha
@@ -65,8 +66,8 @@ class MixedDict(nn.ModuleDict):
 
 def as_module(tree: Dict[str, Any]) -> nn.Module:
     """A nested dict of tensors -> ``nn.ModuleDict`` of ``nn.ParameterDict``
-    leaves, ``MixedDict`` where a node holds both (inference only: no
-    parameter requires a gradient)."""
+    leaves, ``MixedDict`` where a node holds both.  No parameter requires a
+    gradient: a trainer switches that on for the leaves it updates."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict({
             k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
@@ -122,8 +123,11 @@ class PosTables:
         key = ("rotary", t, str(device))
         if key not in self._dev:
             _, (cos, sin) = self._table("rotary", t)
-            self._dev[key] = (torch.from_numpy(cos[:t]).to(device),
-                              torch.from_numpy(sin[:t]).to(device))
+            # a table first asked for under inference_mode is later saved
+            # for backward by a train step: keep it an ordinary tensor
+            with torch.inference_mode(False):
+                self._dev[key] = (torch.from_numpy(cos[:t]).to(device),
+                                  torch.from_numpy(sin[:t]).to(device))
         return self._dev[key]
 
     def relpos(self, t: int, device: torch.device) -> torch.Tensor:
@@ -132,26 +136,51 @@ class PosTables:
         key = ("rel_pos", t, str(device))
         if key not in self._dev:
             center, rel = self._table("rel_pos", t)
-            self._dev[key] = torch.from_numpy(
-                rel[center - t: center + t - 1]).to(device)
+            with torch.inference_mode(False):
+                self._dev[key] = torch.from_numpy(
+                    rel[center - t: center + t - 1]).to(device)
         return self._dev[key]
 
 
 class ConformerLayer(nn.ModuleDict):
     """One Conformer layer's parameters, plus the attention weights prepared
-    once for the folded kernels (per dtype and device)."""
+    for the folded kernels (per dtype and device) and prepared again
+    whenever one of their source parameters has changed."""
+
+    _FOLDED_SOURCES = tuple(("self_attn", lin, leaf)
+                            for lin in ("linear_q", "linear_k", "linear_v",
+                                        "linear_out")
+                            for leaf in ("w", "b")) + (
+        ("norm_self_att", "scale"), ("norm_self_att", "bias"))
 
     def __init__(self, tree: Dict[str, Any], n_heads: int):
         super().__init__({k: as_module(v) for k, v in tree.items()})
         self.n_heads = n_heads
-        self._folded: Dict[Tuple[torch.dtype, str], FoldedWeights] = {}
+        self._folded: Dict[Tuple[torch.dtype, str],
+                           Tuple[tuple, FoldedWeights]] = {}
+
+    def _folded_stamp(self) -> tuple:
+        """Storage and version of every parameter the fold reads: an
+        in-place update (an optimizer step, a checkpoint restore) bumps the
+        version, a cast replaces the storage."""
+        stamp = []
+        for path in self._FOLDED_SOURCES:
+            node = self
+            for key in path:
+                node = node[key]
+            stamp.append((node.data_ptr(), node._version))
+        return tuple(stamp)
 
     def folded_weights(self, dtype: torch.dtype) -> FoldedWeights:
         key = (dtype, str(self["self_attn"]["linear_q"]["w"].device))
-        if key not in self._folded:
-            self._folded[key] = prepare_folded_weights(
-                self["self_attn"], self["norm_self_att"], self.n_heads, dtype)
-        return self._folded[key]
+        stamp = self._folded_stamp()
+        have = self._folded.get(key)
+        if have is None or have[0] != stamp:
+            with torch.no_grad():
+                have = self._folded[key] = (stamp, prepare_folded_weights(
+                    self["self_attn"], self["norm_self_att"], self.n_heads,
+                    dtype))
+        return have[1]
 
     def clear_prepared(self) -> None:
         self._folded.clear()
@@ -169,24 +198,33 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor, pos: Pos,
                 compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The inference forward: (encoded, out_lengths)."""
         return conformer_forward(self, feats, lengths, self.cfg, pos,
-                                 compute_dtype)
+                                 compute_dtype)[:2]
+
+
+BNStats = Optional[Dict[str, torch.Tensor]]
 
 
 def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
-                   valid: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+                   valid: torch.Tensor, cfg: EncoderConfig, train: bool,
+                   bn_train: bool) -> Tuple[torch.Tensor, BNStats]:
     """One Conformer layer (``gigaam/encoder.py:473-498``), with the JAX
     package's attention dispatch (``encoder.py:301-347``):
 
     * rel-pos: LN, then ``relpos_mha`` with its core on K5 (the folds are
-      rotary-only, as in the JAX package);
+      rotary-only, as in the JAX package); K6 is K5's gradient;
+    * rotary, ``train``: LN, then ``rotary_mha`` with its SDPA core on K3
+      at every T', whose gradient is K4 (the folds are inference kernels);
     * rotary, T' <= _MAX_FOLD_T and batch >= _LNRES_MIN_BATCH: K1 (LN +
       module + residual in one fold);
     * rotary, T' <= _MAX_FOLD_T, smaller batch: LN, then K2 (the module
       fold);
     * rotary, longer T': LN, then ``rotary_mha`` with its SDPA core on K3.
 
-    On the CPU every kernel wrapper takes its plain version.
+    ``bn_train`` makes the conv module's BatchNorm use batch statistics; a
+    trainer with a frozen encoder passes ``train`` without it.  Returns (x, that BatchNorm's new running stats or None).  On the CPU
+    every kernel wrapper takes its plain version.
     """
     b, t, _ = x.shape
     residual = x
@@ -196,7 +234,7 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
         y = layer_norm(lp["norm_self_att"], residual)
         residual = residual + relpos_mha(lp["self_attn"], y, pos, valid,
                                          cfg.n_heads, use_fused=True)
-    elif t <= _MAX_FOLD_T:
+    elif t <= _MAX_FOLD_T and not train:
         cos, sin = pos
         w = lp.folded_weights(x.dtype)
         if b >= _LNRES_MIN_BATCH:
@@ -213,28 +251,58 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
                                          cfg.n_heads, use_fused=True)
 
     y = layer_norm(lp["norm_conv"], residual)
-    residual = residual + conformer_conv(lp["conv"], y, valid,
-                                         cfg.conv_norm_type)
+    y, new_stats = conformer_conv(lp["conv"], y, valid, cfg.conv_norm_type,
+                                  train=bn_train)
+    residual = residual + y
     y = ffn(lp["feed_forward2"], layer_norm(lp["norm_feed_forward2"], residual))
     residual = residual + 0.5 * y
-    return layer_norm(lp["norm_out"], residual)
+    return layer_norm(lp["norm_out"], residual), new_stats
 
 
 def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
                       lengths: torch.Tensor, cfg: EncoderConfig, pos: Pos,
-                      compute_dtype: torch.dtype = torch.float32
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      compute_dtype: torch.dtype = torch.float32,
+                      train: bool = False, bn_train: Optional[bool] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, BNStats]:
     """feats [B, T, F] (time-major), lengths [B] in feature frames, pos =
     (cos, sin) sliced to T' for rotary, or the [2T'-1, D] table for
-    rel-pos.  Returns (encoded [B, T', D], out_lengths [B])."""
+    rel-pos.  ``train`` takes the differentiable attention path;
+    ``bn_train`` (``train`` unless given) switches BatchNorm to batch
+    statistics.  Returns (encoded [B, T', D], out_lengths [B], new BatchNorm
+    stats): with ``bn_train`` and a batch-norm conv module the stats are
+    ``{"mean", "var"}``, each [n_layers, D], stacked on a layer axis as the
+    JAX package's layer scan returns them; else None.
+
+    ``cfg.activation_checkpointing`` (under ``train``) recomputes each
+    layer's forward in the backward pass instead of keeping its
+    activations: ``remat_policy="full"`` only."""
     x, out_len = striding_subsampling_conv2d(
         encoder.pre_encode, feats.to(compute_dtype), lengths,
         cfg.num_subsampling_stages, cfg.subs_kernel_size)
     t = x.shape[1]
     valid = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
+    remat = cfg.activation_checkpointing and train
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported: "
+            "torch.utils.checkpoint has no counterpart of "
+            "dots_with_no_batch_dims_saveable (ROADMAP Queue 1 item 13); "
+            "use remat_policy='full'")
+    bn_train = train if bn_train is None else bn_train
+    stats = []
     for lp in encoder.layers:
-        x = _layer_forward(lp, x, pos, valid, cfg)
-    return x, out_len
+        if remat:
+            x, new_stats = checkpoint(_layer_forward, lp, x, pos, valid, cfg,
+                                      train, bn_train, use_reentrant=False)
+        else:
+            x, new_stats = _layer_forward(lp, x, pos, valid, cfg, train,
+                                          bn_train)
+        stats.append(new_stats)
+    bn_stats = None
+    if bn_train and cfg.conv_norm_type == "batch_norm":
+        bn_stats = {k: torch.stack([s[k] for s in stats])
+                    for k in ("mean", "var")}
+    return x, out_len, bn_stats
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """CTC and emotion heads (port of ``gigaam_tpu/models/heads.py``:
-``ctc_log_probs``, ``emo_probs``).
+``ctc_log_probs``, ``ctc_logits``, ``emo_probs``).
 
 The reference's 1x1 Conv1d (``gigaam/decoder.py:7-21``) is a plain matmul.
 """
@@ -18,6 +18,13 @@ def ctc_log_probs(params: Mapping[str, Params],
     """encoded [B, T, D] -> log_probs [B, T, V] (fp32 log-softmax)."""
     logits = linear(params["proj"], encoded).float()
     return torch.log_softmax(logits, dim=-1)
+
+
+def ctc_logits(params: Mapping[str, Params],
+               encoded: torch.Tensor) -> torch.Tensor:
+    """encoded [B, T, D] -> raw head outputs [B, T, V] in fp32, for the
+    loss (which normalizes them itself)."""
+    return linear(params["proj"], encoded).float()
 
 
 def emo_probs(params: Mapping[str, Params], encoded: torch.Tensor,

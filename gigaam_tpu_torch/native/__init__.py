@@ -2,7 +2,7 @@
 
 A copy of ``gigaam_tpu/native`` trimmed to what the port's audio path uses
 (``s16_to_f32``, ``s16_interleaved_to_mono``, ``collate``,
-``resample_poly``).  Builds ``_native.so`` with g++ on first use if missing;
+``resample_poly``) and what its WER metric uses (``levenshtein_seqs``).  Builds ``_native.so`` with g++ on first use if missing;
 every entry point has a pure-numpy fallback, so the package works without a
 compiler.
 """
@@ -79,6 +79,10 @@ def _load_locked() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+    lib.levenshtein_i32.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]
+    lib.levenshtein_i32.restype = ctypes.c_int64
     _lib = lib
     return lib
 
@@ -155,3 +159,26 @@ def resample_poly(x: np.ndarray, up: int, down: int,
     lib.resample_poly_f32(_fptr(x), len(x), _fptr(out), n_out,
                           _fptr(taps), len(taps), up, down, offset)
     return out
+
+
+def levenshtein_ids(a: Sequence[int], b: Sequence[int]) -> int:
+    lib = _load()
+    aa = np.asarray(list(a), dtype=np.int32)
+    bb = np.asarray(list(b), dtype=np.int32)
+    if lib is None:
+        from ..metrics import levenshtein as py_lev
+
+        return py_lev(aa.tolist(), bb.tolist())
+    return int(lib.levenshtein_i32(
+        aa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), aa.size,
+        bb.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), bb.size))
+
+
+def levenshtein_seqs(a: Sequence, b: Sequence) -> int:
+    """Edit distance over arbitrary hashable items (e.g. words)."""
+    ids = {}
+    enc = [[], []]
+    for out, seq in zip(enc, (a, b)):
+        for item in seq:
+            out.append(ids.setdefault(item, len(ids)))
+    return levenshtein_ids(enc[0], enc[1])

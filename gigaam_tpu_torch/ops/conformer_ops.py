@@ -14,7 +14,7 @@ Weights layout (``weights.py`` converts from the JAX package):
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +49,31 @@ def batch_norm_infer(p: Params, x: torch.Tensor,
     return x * scale.to(x.dtype) + bias.to(x.dtype)
 
 
+def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-5,
+                     momentum: float = 0.1
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training BatchNorm over (batch, time) for x [B, T, C], with
+    ``BatchNorm1d``'s semantics: statistics in fp32 over all B*T positions,
+    the zeroed padding included; the biased variance normalizes, the unbiased
+    one (``var * n / (n - 1)``) goes into the running stat.  Returns the
+    output and the new running ``{"mean", "var"}`` (detached: they are
+    buffers, not part of the graph).  Statistics across data-parallel
+    replicas (the JAX package's ``axis_name``) are not ported."""
+    xf = x.float()
+    n = x.shape[0] * x.shape[1]
+    mean = xf.mean(dim=(0, 1))
+    var = ((xf - mean) ** 2).mean(dim=(0, 1))
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_stats = {
+            "mean": (1 - momentum) * p["mean"] + momentum * mean,
+            "var": (1 - momentum) * p["var"] + momentum * unbiased,
+        }
+    return y.to(x.dtype), new_stats
+
+
 def ffn(p: Mapping[str, Params], x: torch.Tensor) -> torch.Tensor:
     """Linear -> SiLU -> Linear (``gigaam/encoder.py:412-424``)."""
     return linear(p["linear2"], F.silu(linear(p["linear1"], x)))
@@ -65,12 +90,17 @@ def depthwise_conv1d(w: torch.Tensor, b: Optional[torch.Tensor],
 
 
 def conformer_conv(p: Mapping[str, Params], x: torch.Tensor,
-                   valid: Optional[torch.Tensor],
-                   norm_type: str) -> torch.Tensor:
-    """Conformer convolution module, inference (``gigaam/encoder.py:364-409``).
+                   valid: Optional[torch.Tensor], norm_type: str,
+                   train: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Conformer convolution module (``gigaam/encoder.py:364-409``).
 
     GLU(value, gate) -> zero padded tail -> depthwise(k=31) -> BN/LN ->
-    SiLU -> pointwise.  x [B, T, C]; valid [B, T] True=real frame.
+    SiLU -> pointwise.  x [B, T, C]; valid [B, T] True=real frame.  Returns
+    (y, new BatchNorm running stats or None); the stats come only from
+    ``train`` with ``norm_type == "batch_norm"``.  The padded tail is zeroed
+    before the depthwise conv, so the garbage that attention leaves in padded
+    rows never reaches a batch statistic.
     """
     pc1 = p["pointwise_conv1"]
 
@@ -88,11 +118,14 @@ def conformer_conv(p: Mapping[str, Params], x: torch.Tensor,
                                                           device=y.device))
     dw = p["depthwise_conv"]
     y = depthwise_conv1d(dw["w"], dw.get("b"), y)
-    if norm_type == "batch_norm":
-        y = batch_norm_infer(p["batch_norm"], y)
-    else:
+    new_stats = None
+    if norm_type != "batch_norm":
         y = layer_norm(p["batch_norm"], y)
-    return linear(p["pointwise_conv2"], F.silu(y))
+    elif train:
+        y, new_stats = batch_norm_train(p["batch_norm"], y)
+    else:
+        y = batch_norm_infer(p["batch_norm"], y)
+    return linear(p["pointwise_conv2"], F.silu(y)), new_stats
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "relpos_attention": {
         "gigaam_relpos_sdpa": [_P] * 7 + [_I] * 3 + [_F, _P],
     },
+    "attention_bwd": {
+        "gigaam_sdpa_bwd": [_P] * 9 + [_I] * 3 + [_F, _P],
+    },
+    "relpos_attention_bwd": {
+        "gigaam_relpos_sdpa_bwd": [_P] * 13 + [_I] * 3 + [_F, _P],
+    },
 }
 
 

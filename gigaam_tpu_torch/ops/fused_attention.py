@@ -17,6 +17,17 @@ Each public wrapper replaces one Pallas kernel of
   ``_relpos_pallas`` (``_attn_relpos_kernel``): Transformer-XL
   relative-position SDPA for the v1/v2 encoder.  CUDA:
   ``csrc/relpos_attention.cu``.
+* ``mha_bwd`` (K4) replaces ``_mha_bwd_pallas`` (``_attn_bwd_kernel``), the
+  gradient of K3: dq, dk, dv from q, k, v and the output gradient.  CUDA:
+  ``csrc/attention_bwd.cu``.  ``fused_mha`` reaches it through autograd.
+* ``relpos_mha_bwd`` (K6) replaces ``_relpos_bwd_pallas``
+  (``_attn_relpos_bwd_kernel``), the gradient of K5: dq_u, dk, dv, dq_v and
+  the position table's gradient dp, summed over the batch.  CUDA:
+  ``csrc/relpos_attention_bwd.cu``.  ``fused_relpos_mha`` reaches it through
+  autograd.
+
+K1 and K2 are inference kernels, as in the JAX package: they refuse inputs
+that require a gradient while gradients are recorded.
 
 What bounds each on the card, and what its design does about it, is in the
 note at the top of each ``.cu`` file.
@@ -27,7 +38,7 @@ dtype before P.V, the division after it).  A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
 card: one CUDA launch for K3 and K5, three (QKV, SDPA core, output) for K2
-and K1.
+and K1, two (dq, then dk and dv) for K4 and K6.
 """
 
 from __future__ import annotations
@@ -93,6 +104,17 @@ def prepare_folded_weights(attn: Mapping[str, Params], ln: Params,
 # Plain versions
 # ---------------------------------------------------------------------------
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """fp32 for the arithmetic, as the kernels accumulate; float64 inputs
+    (gradient checks) stay float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _key_mask(valid: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The additive key mask (mask - 1) * 1e9, [B, 1, 1, T]."""
+    return (valid[:, None, None, :].to(like.dtype) - 1.0) * (-NEG_INF)
+
+
 def _sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 valid: torch.Tensor, scale: float,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -101,14 +123,14 @@ def _sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     An fp32 ``bias`` [B, H, T, T] joins the scores before the scale, as in
     ``_attn_relpos_kernel``."""
     with full_fp32():
-        s = q.float() @ k.float().transpose(-1, -2)
+        s = _wide(q) @ _wide(k).transpose(-1, -2)
         if bias is not None:
             s = s + bias
         s = s * scale
-        s = s + (valid[:, None, None, :].float() - 1.0) * (-NEG_INF)
+        s = s + _key_mask(valid, s)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         denom = p.sum(dim=-1, keepdim=True)
-        o = p.to(v.dtype).float() @ v.float()
+        o = _wide(p.to(v.dtype)) @ _wide(v)
     return (o / denom).to(q.dtype)
 
 
@@ -125,14 +147,74 @@ def relpos_mha_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sheared to relative position i - j (``bias[i, j] = raw[i, T-1-i+j]``)
     and rounded to the inputs' dtype, as ``_attn_relpos_kernel`` rounds it
     before the shear; then ``_sdpa_plain`` with that bias."""
-    b, h, t, d = q_u.shape
+    return _sdpa_plain(q_u, k, v, valid, 1.0 / math.sqrt(q_u.shape[-1]),
+                       _relpos_bias(q_v, p_heads))
+
+
+def _shear_index(b: int, h: int, t: int, device) -> torch.Tensor:
+    """[B, H, T, T] index of relative position i - j in the table:
+    ``bias[i, j] = raw[i, T-1-i+j]``."""
+    ar = torch.arange(t, device=device)
+    return ((t - 1) - ar[:, None] + ar[None, :]).expand(b, h, t, t)
+
+
+def _relpos_bias(q_v: torch.Tensor, p_heads: torch.Tensor) -> torch.Tensor:
+    """The sheared positional term [B, H, T, T], rounded to the inputs'
+    dtype as K5 rounds it, widened again for the scores."""
+    b, h, t, _ = q_v.shape
     with full_fp32():
-        raw = q_v.float() @ p_heads.float().transpose(-1, -2)   # [B, H, T, P]
-        ar = torch.arange(t, device=q_u.device)
-        idx = (t - 1) - ar[:, None] + ar[None, :]                # [T, T]
-        bias = raw.gather(-1, idx.expand(b, h, t, t))
-    return _sdpa_plain(q_u, k, v, valid, 1.0 / math.sqrt(d),
-                       bias.to(q_u.dtype).float())
+        raw = _wide(q_v) @ _wide(p_heads).transpose(-1, -2)     # [B, H, T, P]
+        bias = raw.gather(-1, _shear_index(b, h, t, q_v.device))
+    return _wide(bias.to(q_v.dtype))
+
+
+def _sdpa_bwd_plain(q, k, v, do, valid, scale, bias=None):
+    """The math of ``_attn_bwd_kernel``: recompute the fp32 probabilities,
+    ``dv`` from P cast to the compute dtype, ``ds = P (dP - rowsum(dP P))
+    scale`` cast to the compute dtype before ``dq`` and ``dk``.  Returns
+    (dq, dk, dv, ds) with ds [B, H, T, T] still wide, for the rel-pos
+    unshear."""
+    dt = q.dtype
+    with full_fp32():
+        s = _wide(q) @ _wide(k).transpose(-1, -2)
+        if bias is not None:
+            s = s + bias
+        s = s * scale + _key_mask(valid, s)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        prob = p / p.sum(dim=-1, keepdim=True)
+        dv = _wide(prob.to(dt)).transpose(-1, -2) @ _wide(do)
+        dprob = _wide(do) @ _wide(v).transpose(-1, -2)
+        row = (dprob * prob).sum(dim=-1, keepdim=True)
+        ds = _wide(((prob * (dprob - row)) * scale).to(dt))
+        dq = ds @ _wide(k)
+        dk = ds.transpose(-1, -2) @ _wide(q)
+    return dq.to(dt), dk.to(dt), dv.to(dt), ds
+
+
+def mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, valid: torch.Tensor):
+    """Plain version of K4: (dq, dk, dv) of ``mha_plain`` for the output
+    gradient ``do``."""
+    return _sdpa_bwd_plain(q, k, v, do, valid,
+                           1.0 / math.sqrt(q.shape[-1]))[:3]
+
+
+def relpos_mha_bwd_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_v: torch.Tensor, p_heads: torch.Tensor,
+                         do: torch.Tensor, valid: torch.Tensor):
+    """Plain version of K6: (dq_u, dk, dv, dq_v, dp) of ``relpos_mha_plain``.
+    The score gradient dz is unsheared into the table's coordinates
+    (``d_raw[i, T-1-i+j] = dz[i, j]``, zero elsewhere); ``dp`` is summed over
+    the batch in the wide type and cast once."""
+    b, h, t, d = q_u.shape
+    dq_u, dk, dv, dz = _sdpa_bwd_plain(
+        q_u, k, v, do, valid, 1.0 / math.sqrt(d), _relpos_bias(q_v, p_heads))
+    with full_fp32():
+        d_raw = dz.new_zeros((b, h, t, p_heads.shape[1]))
+        d_raw.scatter_(-1, _shear_index(b, h, t, q_u.device), dz)
+        dq_v = d_raw @ _wide(p_heads)
+        dp = torch.einsum("bhtp,bhtd->hpd", d_raw, _wide(q_v))
+    return dq_u, dk, dv, dq_v.to(q_u.dtype), dp.to(p_heads.dtype)
 
 
 def _rotate_half_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -228,11 +310,7 @@ def _check_sdpa_args(q, k, v, valid) -> None:
     _check_tensor("valid", valid, q.device, torch.bool, (b, t))
 
 
-def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
-    """K3: masked SDPA.  q/k/v [B, H, T, d]; valid [B, T] bool ->
-    [B, H, T, d].  Output rows of invalid query positions are garbage, as in
-    the JAX package.  CUDA: bf16, d = 48, any T."""
+def _mha_forward(q, k, v, valid) -> torch.Tensor:
     if q.device.type == "cpu":
         return mha_plain(q, k, v, valid)
     _check_sdpa_args(q, k, v, valid)
@@ -243,7 +321,76 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _bwd_stats(q: torch.Tensor) -> torch.Tensor:
+    """Scratch for the backward kernels' per-row (max, 1 / sum, D)."""
+    b, h, t, _ = q.shape
+    return torch.empty((3, b, h, t), dtype=torch.float32, device=q.device)
+
+
+def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            do: torch.Tensor, valid: torch.Tensor):
+    """K4: the gradient of ``fused_mha``.  q/k/v/do [B, H, T, d]; valid
+    [B, T] bool -> (dq, dk, dv).  Rows of padded queries hold garbage in dq
+    unless ``do`` is zero there, as it is in a train step.  CUDA: bf16,
+    d = 48, any T."""
+    if q.device.type == "cpu":
+        return mha_bwd_plain(q, k, v, do, valid)
+    _check_sdpa_args(q, k, v, valid)
+    _check_tensor("do", do, q.device, torch.bfloat16, q.shape)
+    b, h, t, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = _bwd_stats(q)
+    lib = cuda_lib.library("attention_bwd")
+    with torch.cuda.device(q.device):
+        cuda_lib.check(lib.gigaam_sdpa_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            valid.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, h, t, 1.0 / math.sqrt(D_HEAD),
+            _stream(q.device)), "gigaam_sdpa_bwd")
+    mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+mha_bwd.launches = 0
+
+
+class _FusedMHA(torch.autograd.Function):
+    """K3 with K4 as its gradient; the residuals are the inputs, as in the
+    JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid):
+        ctx.save_for_backward(q, k, v, valid)
+        return _mha_forward(q, k, v, valid)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, valid = ctx.saved_tensors
+        # autograd hands over whatever layout the consumer's backward made
+        dq, dk, dv = mha_bwd(q, k, v, do.contiguous(), valid)
+        return dq, dk, dv, None
+
+
+def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """K3: masked SDPA.  q/k/v [B, H, T, d]; valid [B, T] bool ->
+    [B, H, T, d].  Output rows of invalid query positions are garbage, as in
+    the JAX package.  Differentiable in q, k and v: the backward is K4
+    (``mha_bwd``).  CUDA: bf16, d = 48, any T."""
+    return _FusedMHA.apply(q, k, v, valid)
+
+
 fused_mha.launches = 0
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    """K1 and K2 are inference kernels (the JAX package trains through the
+    composed path): refuse to cut a gradient silently."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or "
+            f"torch.inference_mode(); training goes through rotary_mha("
+            f"use_fused=True)")
 
 
 def _folded_cuda(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
@@ -292,6 +439,8 @@ def folded_rotary_attention(w: FoldedWeights, x: torch.Tensor,
     """K2: the rotary attention module on the post-LN input x [B, T, D];
     cos/sin [T, d_head] fp32; valid [B, T] bool.  Padded query rows are
     garbage, as in the JAX package."""
+    _refuse_grad("folded_rotary_attention",
+                 (x, *vars(w).values()))
     if x.device.type == "cpu":
         return folded_rotary_attention_plain(w, x, cos, sin, valid, n_heads)
     out = _folded_cuda(w, x, cos, sin, valid, n_heads, lnres=False)
@@ -308,6 +457,8 @@ def folded_rotary_attention_lnres(w: FoldedWeights, x: torch.Tensor,
                                   ) -> torch.Tensor:
     """K1: ``x + attention(layer_norm(x))`` on the pre-LN residual stream
     x [B, T, D]; LN statistics in fp32, the residual added in x's dtype."""
+    _refuse_grad("folded_rotary_attention_lnres",
+                 (x, *vars(w).values()))
     if x.device.type == "cpu":
         return folded_rotary_attention_lnres_plain(w, x, cos, sin, valid,
                                                    n_heads)
@@ -325,24 +476,9 @@ def _check_relpos_args(q_u, k, v, q_v, p_heads, valid) -> None:
     _check_tensor("q_v", q_v, q_u.device, torch.bfloat16, (b, h, t, d))
     _check_tensor("p_heads", p_heads, q_u.device, torch.bfloat16,
                   (h, 2 * t - 1, d))
-    _require(not any(x.requires_grad for x in (q_u, k, v, q_v, p_heads)),
-             "fused_relpos_mha has no backward on the card yet: call it "
-             "under torch.no_grad() or torch.inference_mode()")
 
 
-def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_v: torch.Tensor, p_heads: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
-    """K5: Transformer-XL relative-position SDPA.  q_u/k/v/q_v [B, H, T, d]
-    (q_u = q + pos_bias_u, q_v = q + pos_bias_v); p_heads [H, 2T-1, d], the
-    projected position table of positions T-1 .. -(T-1), one copy for the
-    whole batch; valid [B, T] bool -> [B, H, T, d].  Output rows of invalid
-    query positions are garbage, as in the JAX package.  CUDA: bf16,
-    d = 48, any T.
-
-    Inference only: the CUDA path has no gradient (its backward, the port
-    of ``_relpos_bwd_pallas``, comes with training) and refuses inputs that
-    require one."""
+def _relpos_forward(q_u, k, v, q_v, p_heads, valid) -> torch.Tensor:
     if q_u.device.type == "cpu":
         return relpos_mha_plain(q_u, k, v, q_v, p_heads, valid)
     _check_relpos_args(q_u, k, v, q_v, p_heads, valid)
@@ -359,10 +495,70 @@ def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def relpos_mha_bwd(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_v: torch.Tensor, p_heads: torch.Tensor,
+                   do: torch.Tensor, valid: torch.Tensor):
+    """K6: the gradient of ``fused_relpos_mha`` -> (dq_u, dk, dv, dq_v, dp);
+    dp [H, 2T-1, d] is summed over the batch in fp32 and cast once.  On CUDA
+    (bf16, d = 48, any T) that sum uses fp32 atomics, so dp's low bits
+    depend on the order of the blocks; the other four are deterministic."""
+    if q_u.device.type == "cpu":
+        return relpos_mha_bwd_plain(q_u, k, v, q_v, p_heads, do, valid)
+    _check_relpos_args(q_u, k, v, q_v, p_heads, valid)
+    _check_tensor("do", do, q_u.device, torch.bfloat16, q_u.shape)
+    b, h, t, _ = q_u.shape
+    dq_u, dk, dv, dq_v = (torch.empty_like(q_u) for _ in range(4))
+    dp = torch.zeros(p_heads.shape, dtype=torch.float32, device=q_u.device)
+    stats = _bwd_stats(q_u)
+    lib = cuda_lib.library("relpos_attention_bwd")
+    with torch.cuda.device(q_u.device):
+        cuda_lib.check(lib.gigaam_relpos_sdpa_bwd(
+            q_u.data_ptr(), k.data_ptr(), v.data_ptr(), q_v.data_ptr(),
+            p_heads.data_ptr(), do.data_ptr(), valid.data_ptr(),
+            dq_u.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_v.data_ptr(),
+            dp.data_ptr(), stats.data_ptr(), b, h, t,
+            1.0 / math.sqrt(D_HEAD), _stream(q_u.device)),
+            "gigaam_relpos_sdpa_bwd")
+    relpos_mha_bwd.launches += 1
+    return dq_u, dk, dv, dq_v, dp.to(p_heads.dtype)
+
+
+relpos_mha_bwd.launches = 0
+
+
+class _FusedRelposMHA(torch.autograd.Function):
+    """K5 with K6 as its gradient; the residuals are the inputs, as in the
+    JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q_u, k, v, q_v, p_heads, valid):
+        ctx.save_for_backward(q_u, k, v, q_v, p_heads, valid)
+        return _relpos_forward(q_u, k, v, q_v, p_heads, valid)
+
+    @staticmethod
+    def backward(ctx, do):
+        q_u, k, v, q_v, p_heads, valid = ctx.saved_tensors
+        return relpos_mha_bwd(q_u, k, v, q_v, p_heads, do.contiguous(),
+                              valid) + (None,)
+
+
+def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_v: torch.Tensor, p_heads: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """K5: Transformer-XL relative-position SDPA.  q_u/k/v/q_v [B, H, T, d]
+    (q_u = q + pos_bias_u, q_v = q + pos_bias_v); p_heads [H, 2T-1, d], the
+    projected position table of positions T-1 .. -(T-1), one copy for the
+    whole batch; valid [B, T] bool -> [B, H, T, d].  Output rows of invalid
+    query positions are garbage, as in the JAX package.  Differentiable in
+    all five: the backward is K6 (``relpos_mha_bwd``).  CUDA: bf16, d = 48,
+    any T."""
+    return _FusedRelposMHA.apply(q_u, k, v, q_v, p_heads, valid)
+
+
 fused_relpos_mha.launches = 0
 
 KERNELS = (fused_mha, folded_rotary_attention, folded_rotary_attention_lnres,
-           fused_relpos_mha)
+           fused_relpos_mha, mha_bwd, relpos_mha_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -35,17 +35,12 @@ def apply_rotary_wide(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     """RoPE on the flat [B, T, H*d] layout, in x's dtype; the same values
     as ``apply_rotary`` on the [B, T, H, d] view."""
     b, t, dd = x.shape
-    d = dd // n_heads
-    half = d // 2
     cos_w = cos.repeat(1, n_heads).to(x.dtype)          # [T, H*d]
     sin_w = sin.repeat(1, n_heads).to(x.dtype)
-    block = np.concatenate([np.arange(half, d), np.arange(0, half)])
-    perm = torch.from_numpy(
-        np.concatenate([block + d * i for i in range(n_heads)])).to(x.device)
-    signs = torch.from_numpy(
-        np.tile(np.concatenate([-np.ones(half), np.ones(half)]), n_heads)
-    ).to(device=x.device, dtype=x.dtype)
-    return x * cos_w + x[..., perm] * (sin_w * signs)
+    # rotate_half within each head, as slices of the [B, T, H, d] view (a
+    # gather by index would cost an index_put in the backward pass)
+    rot = rotate_half(x.reshape(b, t, n_heads, dd // n_heads))
+    return x * cos_w + rot.reshape(b, t, dd) * sin_w
 
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,

@@ -87,7 +87,7 @@ def test_conformer_conv_matches_jax():
     lp = jax.tree.map(lambda a: a[0], params["layers"])
     ref, _ = jops.conformer_conv(lp["conv"], jnp.asarray(x),
                                  jnp.asarray(valid), "batch_norm")
-    got = tops.conformer_conv(enc.layers[0]["conv"], t(x), t(valid),
+    got, _ = tops.conformer_conv(enc.layers[0]["conv"], t(x), t(valid),
                               "batch_norm")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
@@ -141,7 +141,7 @@ def run_both(cfg, params, enc, feats, lengths):
     ref, ref_len, _ = jenc.conformer_forward(
         params, jnp.asarray(feats), jnp.asarray(lengths), cfg, (cos, sin))
     pos = tenc.PosTables(enc.cfg).rotary(t_sub, torch.device("cpu"))
-    got, got_len = tenc.conformer_forward(enc, t(feats), t(lengths),
+    got, got_len, _ = tenc.conformer_forward(enc, t(feats), t(lengths),
                                           enc.cfg, pos)
     np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
     return got.numpy(), np.asarray(ref), np.asarray(ref_len)

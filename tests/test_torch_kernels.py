@@ -301,3 +301,93 @@ def test_cuda_k5_matches_plain(cuda, b, tt):
     ref = fa.relpos_mha_plain(q_u, k, v, q_v, p_heads, valid_d)
     assert_within_output_scale(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), valid)
+
+
+# The backward kernels (K4, K6) against their plain versions, per gradient:
+# the same limit, with the RMS that of the plain gradient on its valid rows
+# (query rows for dq, dq_u and dq_v; key rows for dk and dv; every row of dp).
+# ``do`` is zero on padded query rows, as in a train step.
+
+def draw_bwd_case(rng, b, tt, cuda, relpos):
+    def draw(shape, gain):
+        a = rng.standard_normal(shape).astype(np.float32) * gain
+        return torch.from_numpy(a).to(cuda, torch.bfloat16)
+
+    shape = (b, 16, tt, 48)
+    valid = ragged_valid(b, tt)
+    valid_d = t(valid).to(cuda)
+    q, k = draw(shape, QK_GAIN), draw(shape, QK_GAIN)
+    v = draw(shape, 1.0)
+    do = draw(shape, 1.0) * valid_d[:, None, :, None]
+    if not relpos:
+        return (q, k, v, do, valid_d), valid
+    q_v = draw(shape, QK_GAIN)
+    p_heads = draw((16, 2 * tt - 1, 48), QK_GAIN)
+    return (q, k, v, q_v, p_heads, do, valid_d), valid
+
+
+def assert_grads_within_scale(names, got, ref, valid):
+    for name, g, r in zip(names, got, ref):
+        g, r = g.float().cpu().numpy(), r.float().cpu().numpy()
+        if name == "dp":
+            g, r = g[None], r[None]
+            rows = np.ones((1, g.shape[2]), bool)
+        else:
+            rows = valid
+        try:
+            assert_within_output_scale(g, r, rows)
+        except AssertionError as exc:
+            raise AssertionError(f"{name}: {exc}") from None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,tt", [(16, 500), (8, 750), (2, 1000), (3, 77)])
+def test_cuda_k4_matches_plain(cuda, b, tt):
+    args, valid = draw_bwd_case(np.random.default_rng(b * tt + 2), b, tt,
+                                cuda, relpos=False)
+    before = fa.mha_bwd.launches
+    got = fa.mha_bwd(*args)
+    assert fa.mha_bwd.launches == before + 1
+    assert_grads_within_scale(("dq", "dk", "dv"), got,
+                              fa.mha_bwd_plain(*args), valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,tt", [(16, 501), (8, 750), (2, 1000), (3, 77)])
+def test_cuda_k6_matches_plain(cuda, b, tt):
+    args, valid = draw_bwd_case(np.random.default_rng(b * tt + 3), b, tt,
+                                cuda, relpos=True)
+    before = fa.relpos_mha_bwd.launches
+    got = fa.relpos_mha_bwd(*args)
+    assert fa.relpos_mha_bwd.launches == before + 1
+    assert_grads_within_scale(("dq_u", "dk", "dv", "dq_v", "dp"), got,
+                              fa.relpos_mha_bwd_plain(*args), valid)
+
+
+@pytest.mark.gpu
+def test_cuda_autograd_reaches_the_backward_kernels(cuda):
+    """``fused_mha`` / ``fused_relpos_mha`` on CUDA tensors that require a
+    gradient launch K4 / K6 from ``backward``, also for a ``do`` that is not
+    contiguous."""
+    (q, k, v, do, valid_d), valid = draw_bwd_case(
+        np.random.default_rng(7), 2, 130, cuda, relpos=False)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.mha_bwd.launches
+    out = fa.fused_mha(*leaves, valid_d)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    got = torch.autograd.grad(out, leaves, strided)
+    assert fa.mha_bwd.launches == before + 1
+    assert_grads_within_scale(("dq", "dk", "dv"), got,
+                              fa.mha_bwd_plain(q, k, v, do, valid_d), valid)
+
+    (q_u, k, v, q_v, p, do, valid_d), valid = draw_bwd_case(
+        np.random.default_rng(8), 2, 130, cuda, relpos=True)
+    leaves = [x.clone().requires_grad_() for x in (q_u, k, v, q_v, p)]
+    before = fa.relpos_mha_bwd.launches
+    out = fa.fused_relpos_mha(*leaves, valid_d)
+    got = torch.autograd.grad(out, leaves, do)
+    assert fa.relpos_mha_bwd.launches == before + 1
+    assert_grads_within_scale(
+        ("dq_u", "dk", "dv", "dq_v", "dp"), got,
+        fa.relpos_mha_bwd_plain(q_u, k, v, q_v, p, do, valid_d), valid)

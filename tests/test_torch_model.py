@@ -175,7 +175,8 @@ def test_cast_encoder_keeps_the_head_and_reprepares_the_folds():
 
 def test_port_runs_without_jax_or_the_jax_package():
     """A fresh interpreter imports the port, runs CPU forwards of the rotary
-    (v3_ctc) and the rel-pos (v2_ctc, emo) models, and has imported neither
+    (v3_ctc) and the rel-pos (v2_ctc, emo) models, imports the training CLI
+    and takes one CPU train step, and has imported neither
     ``jax`` nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
@@ -191,6 +192,18 @@ def test_port_runs_without_jax_or_the_jax_package():
         "    m = gt.model_class_for(cfg)(cfg, device='cpu')\n"
         "    out = m.get_probs(wav) if name == 'emo' else m.transcribe(wav).text\n"
         "    print(name, type(out))\n"
+        "from gigaam_tpu_torch.train import train, eval as eval_cli\n"
+        "from gigaam_tpu_torch.train.finetune import FineTuner, TrainConfig\n"
+        "cfg = gt.make_preset('v2_ctc')\n"
+        "cfg.encoder = EncoderConfig(\n"
+        "    n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2,\n"
+        "    self_attention_model='rel_pos')\n"
+        "cfg.head.feat_in = 64\n"
+        "ft = FineTuner(gt.GigaAMASR(cfg, device='cpu'),\n"
+        "               TrainConfig(precision='fp32'))\n"
+        "batch = (wav[None], np.array([16000], np.int32),\n"
+        "         np.array([[1, 2, 3]], np.int32), np.array([3], np.int32))\n"
+        "print('train step', float(ft.train_step(batch)['loss']) > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -200,6 +213,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "v3_ctc <class 'str'>" in out.stdout
     assert "v2_ctc <class 'str'>" in out.stdout
     assert "emo <class 'dict'>" in out.stdout
+    assert "train step True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():

@@ -179,8 +179,15 @@ def test_k5_cuda_path_rejects_what_the_kernel_does_not_take():
         fa._check_relpos_args(q_u, k, v, q_v, p_heads, valid)
     with pytest.raises(ValueError, match="p_heads has shape"):
         fa._check_relpos_args(*bf[:4], bf[4][:, :-1].contiguous(), valid)
-    with pytest.raises(ValueError, match="backward"):
-        fa._check_relpos_args(bf[0].requires_grad_(), *bf[1:], valid)
+    # inputs that require a gradient are taken: K5 carries one (K6)
+    fa._check_relpos_args(bf[0].requires_grad_(), *bf[1:], valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._check_relpos_args(bf[0].transpose(1, 2).contiguous()
+                              .transpose(1, 2), *bf[1:], valid)
+    leaves = [a.clone().requires_grad_() for a in (q_u, k, v, q_v, p_heads)]
+    grads = torch.autograd.grad(
+        fa.fused_relpos_mha(*leaves, valid).sum(), leaves)
+    assert all(float(g.abs().max()) > 0 for g in grads)
 
 
 def test_k5_cpu_calls_do_not_count_launches():
@@ -248,7 +255,7 @@ def test_relpos_encoder_matches_jax(monkeypatch, d_model, n_heads, batch,
     ref, ref_len, _ = jenc.conformer_forward(
         params, jnp.asarray(feats), jnp.asarray(lengths), cfg,
         jenc.PosTables(cfg).relpos(t_sub))
-    got, got_len = tenc.conformer_forward(
+    got, got_len, _ = tenc.conformer_forward(
         enc, t(feats), t(lengths), enc.cfg,
         tenc.PosTables(enc.cfg).relpos(t_sub, torch.device("cpu")))
     assert len(calls) == cfg.n_layers
@@ -434,6 +441,6 @@ def test_layer_norm_conv_module_matches_jax():
     lp = jax.tree.map(lambda a: a[0], params["layers"])
     ref, _ = jops.conformer_conv(lp["conv"], jnp.asarray(x),
                                  jnp.asarray(valid), "layer_norm")
-    got = tops.conformer_conv(enc.layers[0]["conv"], t(x), t(valid),
+    got, _ = tops.conformer_conv(enc.layers[0]["conv"], t(x), t(valid),
                               "layer_norm")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
