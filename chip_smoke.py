@@ -7,14 +7,15 @@ Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
 2. build the hand-written kernels (``gigaam_tpu_torch/csrc``, one ``nvcc``
-   per source, all started together);
+   per source, all started together) and print each kernel's registers,
+   spills and static shared memory;
 3. hold each kernel (K3, K2, K1, K5) against its plain PyTorch version at
    the main path's shapes in bf16, show that the check fails for a kernel
    with a planted fault (fed through its inputs: RoPE sign flipped, key mask
    ignored, 1/sqrt(d_h) missing, q zeroed, LayerNorm skipped; for K5 also
    q_u/q_v swapped, the shift reversed, the positional term dropped), and
    time the kernel, its plain version and the library call with CUDA
-   events;
+   events; K3 also returns its log-sum-exp, held against the plain one;
 4. drive full-width v3_ctc (16 x 768, random weights from a seed, bf16)
    through the user entry points: ``transcribe`` on a 20 s clip (batch 1:
    K2), ``_decode_batch`` on 16 clips of 10-20 s (K1) and ``encode_batch``
@@ -35,10 +36,14 @@ Phases, each fatal on failure:
    B 16 T' 500/501 (the training shape), B 8 T' 750 and B 2 T' 1000, per
    gradient, with ``do`` zero on padded rows; the plain backward against
    ``torch.autograd.grad`` through the plain forward in fp32; planted faults
-   (key mask ignored, scale missing from ds, the rowsum term dropped; for K6
-   also P without the bias, the unshear reversed, dp from the last batch
-   element only), each of which must land above the limit; times, bounds,
-   and for K6 the spread of dp over two runs (its batch sum uses atomics);
+   (key mask ignored, scale missing from ds, the rowsum term dropped; for K4
+   also, fed through its inputs, the log-sum-exp of another batch element
+   and D from a zeroed forward output; for K6 also P without the bias, the
+   unshear reversed, dp from the last batch element only), each of which
+   must land above the limit; K4 from the forward's saved (out, lse) and
+   without them, the same bits; times (K4's with the pair given), bounds,
+   two runs of K4 bit-equal, and for K6 the spread of dp over two runs (its
+   batch sum uses atomics);
 8. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
@@ -53,8 +58,9 @@ Phases, each fatal on failure:
 9. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
    bf16 loss and gradients against the port's CPU fp32 ones.
 
-The last two lines of output are a JSON object with every kernel's numbers and
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
+The last two lines of output are a JSON object with every kernel's numbers
+(``shape`` names the shape of a row's numbers, ``also`` holds the same
+numbers at the kernel's other shapes) and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device.
 """
 
@@ -236,11 +242,25 @@ def attention_input(gen, b: int, t: int, dev) -> torch.Tensor:
     return x.to(dev, torch.bfloat16)
 
 
+# lse is fp32 on both sides, from the same bf16 inputs: another order of
+# accumulation and the kernel's exp2/log2 approximations (relative 2^-22)
+LSE_ATOL = 1e-3
+
+
+def shaped_row(readings: dict, main) -> dict:
+    """The JSON row of a kernel timed at several shapes: the numbers at
+    ``main`` (b, t), the others under ``also``."""
+    def named(shape):
+        return dict(readings[shape], shape=f"B {shape[0]}, T' {shape[1]}")
+    return dict(named(main), also=[named(s) for s in readings if s != main])
+
+
 def kernel_phase(dev) -> dict:
     """Each kernel against its plain version; returns the JSON rows.  The
     planted faults run at the shape the JSON row reports."""
     gen = torch.Generator().manual_seed(0)
     rows = {}
+    k3 = {}
     # K3 at T' = 500 (B 1 and 16) and at the main path's T' = 1125 (B 1)
     for b, t in ((1, 500), (16, 500), (1, 1125)):
         q, k, v = (torch.randn(b, N_HEADS, t, D_HEAD, generator=gen)
@@ -248,7 +268,12 @@ def kernel_phase(dev) -> dict:
         q, k, v = (a.to(dev, torch.bfloat16) for a in (q, k, v))
         valid = ragged_valid(b, t, dev)
         got = fa.fused_mha(q, k, v, valid)
-        ref = fa.mha_plain(q, k, v, valid)
+        ref, lse_ref = fa.mha_plain(q, k, v, valid, return_lse=True)
+        out2, lse = fa._mha_forward(q, k, v, valid, want_lse=True)
+        lse_err = float((lse - lse_ref).abs().max())
+        if not (torch.equal(out2, got) and lse_err <= LSE_ATOL):
+            raise AssertionError(f"K3 B={b} T'={t}: lse off by {lse_err} "
+                                 f"(limit {LSE_ATOL}) or the output changed")
         faults = () if (b, t) != (1, 1125) else (
             ("key mask ignored",
              lambda: fa.fused_mha(q, k, v, torch.ones_like(valid))),
@@ -258,6 +283,8 @@ def kernel_phase(dev) -> dict:
              lambda: fa.fused_mha(torch.zeros_like(q), k, v, valid)))
         err, rel = check_kernel(f"K3 B={b} T'={t}", got, ref, valid, 2, faults)
         ms = time_ms(lambda: fa.fused_mha(q, k, v, valid))
+        lse_ms = time_ms(lambda: fa._mha_forward(q, k, v, valid,
+                                                 want_lse=True))
         plain_ms = time_ms(lambda: fa.mha_plain(q, k, v, valid), iters=5)
         mask4 = valid[:, None, None, :]
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -266,12 +293,13 @@ def kernel_phase(dev) -> dict:
         bms, by = bound(4 * b * N_HEADS * t * D_HEAD * 2 + b * t,
                         4 * scores * D_HEAD, 4 * scores)
         print(f"K3 fused_mha B={b} T'={t}: max_abs_err {err:.3e}, "
-              f"{rel:.4f} x RMS (limit {KERNEL_REL}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, F.sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})",
-              flush=True)
-        if (b, t) == (1, 1125):
-            rows["K3"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                              bound_by=by, library_ms=lib_ms, max_abs_err=err)
+              f"{rel:.4f} x RMS (limit {KERNEL_REL}), lse within {lse_err:.2e} "
+              f"(limit {LSE_ATOL}); kernel {ms:.4f} ms ({lse_ms:.4f} writing "
+              f"lse), plain {plain_ms:.4f} ms, F.sdpa {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        k3[(b, t)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=lib_ms, max_abs_err=err)
+    rows["K3"] = shaped_row(k3, (1, 1125))
 
     w = attention_weights(gen, dev)
     root_dh = math.sqrt(D_HEAD)
@@ -321,7 +349,8 @@ def kernel_phase(dev) -> dict:
                   f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
             if (name, b) in (("K2", 1), ("K1", 16)):
                 rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                  bound_by=by, library_ms=None, max_abs_err=err)
+                                  bound_by=by, library_ms=None,
+                                  max_abs_err=err, shape=f"B {b}, T' {t}")
     rows["K5"] = relpos_kernel_phase(gen, dev)
     return rows
 
@@ -368,7 +397,8 @@ def relpos_kernel_phase(gen, dev) -> dict:
               f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
         if (b, t) == (16, 501):
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=None, max_abs_err=err)
+                       library_ms=None, max_abs_err=err,
+                       shape=f"B {b}, T' {t}")
     return row
 
 
@@ -464,14 +494,21 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
               "rowsum term dropped") + ((
                   "P without the bias", "unshear reversed",
                   "dp from the last batch element") if relpos else ())
-    row = None                 # the JSON row: the training shape, B 16
-    t_train = 501 if relpos else 500
+    readings = {}
+    t_train = 501 if relpos else 500   # the JSON row: the training shape
     for b, t in ((16, t_train), (8, 750), (2, 1000)):
         args = bwd_inputs(gen, b, t, dev, relpos)
         valid = args[-1]
-        got = kernel(*args)
+        # K4 starts from what the forward saved: the kernel from K3's own
+        # (out, lse), the plain backward from the plain forward's
+        pair = plain_pair = ()
+        if not relpos:
+            pair = fa._mha_forward(*args[:3], valid, want_lse=True)
+            plain_pair = fa.mha_plain(*args[:3], valid, return_lse=True)
+        got = kernel(*args, *pair)
         torch.cuda.synchronize()
-        dist = grad_distances(names, got, plain(*args), valid)
+        ref = plain(*args, *plain_pair)
+        dist = grad_distances(names, got, ref, valid)
         worst = max(rel for _, rel in dist.values())
         err = max(e for e, _ in dist.values())
         print(f"{key} {kernel.__name__} B={b} T'={t}: " + ", ".join(
@@ -480,6 +517,21 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
             flush=True)
         if not worst <= KERNEL_REL:
             raise AssertionError(f"{key} B={b} T'={t}: {dist}")
+        if not relpos:
+            # without the pair K4 runs the forward kernel for it first: the
+            # same bits; and the plain backward's other form (row statistics
+            # recomputed, D = rowsum(dP P), as the Pallas kernel) stays close
+            unsaved = kernel(*args)
+            if not all(torch.equal(a, g) for a, g in zip(unsaved, got)):
+                raise AssertionError("K4: without the saved pair the "
+                                     "gradients differ")
+            odist = grad_distances(names, got, plain(*args), valid)
+            oworst = max(rel for _, rel in odist.values())
+            print(f"  K4 without the saved pair: bit-equal; against the "
+                  f"plain backward that recomputes the row statistics: worst "
+                  f"{oworst:.4f} x RMS (limit {KERNEL_REL})", flush=True)
+            if not oworst <= KERNEL_REL:
+                raise AssertionError(f"K4 B={b} T'={t}: {odist}")
 
         # the plain backward itself, on fp32 inputs, against autograd
         # through the plain forward
@@ -489,6 +541,12 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
         auto = torch.autograd.grad(fwd_plain(*leaves, valid), leaves, do32)
         pdist = grad_distances(names, plain(*wide, do32, valid), auto, valid)
         pworst = max(rel for _, rel in pdist.values())
+        if not relpos:
+            with torch.no_grad():
+                pair32 = fwd_plain(*wide, valid, return_lse=True)
+            pdist = grad_distances(
+                names, plain(*wide, do32, valid, *pair32), auto, valid)
+            pworst = max(pworst, *(rel for _, rel in pdist.values()))
         print(f"  {key} plain backward vs autograd of the plain forward, "
               f"fp32: worst {pworst:.2e} x RMS (limit {PLAIN_BWD_REL})",
               flush=True)
@@ -504,6 +562,24 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
                   f"(limit {KERNEL_REL})", flush=True)
             if not rel > KERNEL_REL:
                 raise AssertionError(f"{key}: the check misses {fault}")
+        if not relpos and b == 16:
+            out_k, lse_k = pair
+            for fault, fn in (
+                    ("lse of another batch element", lambda: kernel(
+                        *args, out_k, lse_k.roll(1, 0).contiguous())),
+                    ("D from a zeroed out", lambda: kernel(
+                        *args, torch.zeros_like(out_k), lse_k))):
+                fdist = grad_distances(names, fn(), ref, valid)
+                name, (_, rel) = max(fdist.items(), key=lambda kv: kv[1][1])
+                print(f"  K4 planted fault, {fault}: {name} {rel:.4f} x RMS "
+                      f"(limit {KERNEL_REL})", flush=True)
+                if not rel > KERNEL_REL:
+                    raise AssertionError(f"K4: the check misses {fault}")
+            again = kernel(*args, *pair)
+            same = all(torch.equal(a, g) for a, g in zip(again, got))
+            print(f"  K4 two runs: dq, dk, dv bit-equal: {same}", flush=True)
+            if not same:
+                raise AssertionError("K4: an output changed between two runs")
         if relpos and b == 16:
             again = kernel(*args)
             spread = float((again[4].float() - got[4].float()).abs().max())
@@ -513,8 +589,8 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
                   f"dv, dq_v bit-equal: {same}", flush=True)
             if not same:
                 raise AssertionError("K6: a deterministic output changed")
-        ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: plain(*args), iters=5)
+        ms = time_ms(lambda: kernel(*args, *pair))
+        plain_ms = time_ms(lambda: plain(*args, *plain_pair), iters=5)
         scores = b * N_HEADS * t * t
         tile = b * N_HEADS * t * D_HEAD * 2
         if relpos:
@@ -523,8 +599,12 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
                             16 * scores * D_HEAD, 10 * scores)
             lib_ms = None
         else:
-            bms, by = bound(7 * tile + b * t, 10 * scores * D_HEAD,
-                            8 * scores)
+            # q, k, v, do, out in, dq, dk, dv out, lse, the mask
+            bms, by = bound(8 * tile + b * N_HEADS * t * 4 + b * t,
+                            10 * scores * D_HEAD, 8 * scores)
+            unsaved_ms = time_ms(lambda: kernel(*args))
+            print(f"  K4 B={b} T'={t} without the saved pair (K3's kernel "
+                  f"first): {unsaved_ms:.4f} ms", flush=True)
             mask4 = valid[:, None, None, :]
             q, k, v, do = (x for x in args[:4])
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -540,10 +620,10 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
               f" ms, library "
               f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}"
               f", bound {bms:.4f} ms ({by})", flush=True)
-        if b == 16:
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=lib_ms, max_abs_err=err)
-    return row
+        readings[(b, t)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                bound_by=by, library_ms=lib_ms,
+                                max_abs_err=err)
+    return shaped_row(readings, (16, t_train))
 
 
 def counts() -> dict:
@@ -978,8 +1058,14 @@ def main() -> int:
     print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    build_s = cuda_lib.build(verbose=True)
+    logs = []
+    build_s = cuda_lib.build(verbose=True, logs=logs)
     print(f"kernel build: {build_s:.1f} s", flush=True)
+    resources = cuda_lib.kernel_resources("\n".join(logs))
+    print("kernel resources " + json.dumps(resources), flush=True)
+    if not {"sdpa_kernel", "sdpa_bwd_dq_kernel",
+            "sdpa_bwd_dkv_kernel"} <= set(resources):
+        raise AssertionError(f"the build reported {sorted(resources)}")
 
     rows = kernel_phase(dev)
     gen = torch.Generator().manual_seed(1)
@@ -1036,7 +1122,8 @@ def main() -> int:
             "replaces": repl, "launches": launches[key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], "also": r.get("also", [])})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

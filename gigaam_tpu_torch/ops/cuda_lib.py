@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``gigaam_tpu_torch/csrc``).
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
+Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` are headers
+they share) and is compiled at first use
 by ``nvcc`` for ``sm_90a`` into ``gigaam_tpu_torch/_build/lib<name>.so``,
 then loaded with ``ctypes``.  Nothing here runs at import: this module is
 imported on hosts without a card or a CUDA toolkit, where only the kernels'
@@ -12,10 +13,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -28,7 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # returns the cudaGetLastError() code after its launch
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "attention": {
-        "gigaam_sdpa": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "gigaam_sdpa": [_P] * 6 + [_I] * 3 + [_F, _P],
     },
     "projection": {
         "gigaam_qkv_proj": [_P] * 14 + [_I] * 4 + [_P],
@@ -38,7 +40,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_relpos_sdpa": [_P] * 7 + [_I] * 3 + [_F, _P],
     },
     "attention_bwd": {
-        "gigaam_sdpa_bwd": [_P] * 9 + [_I] * 3 + [_F, _P],
+        "gigaam_sdpa_bwd": [_P] * 11 + [_I] * 3 + [_F, _P],
     },
     "relpos_attention_bwd": {
         "gigaam_relpos_sdpa_bwd": [_P] * 13 + [_I] * 3 + [_F, _P],
@@ -62,16 +64,24 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+               if f.endswith(".cuh")]
+    return max(map(os.path.getmtime, [src, *headers])) > os.path.getmtime(so)
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False
-          ) -> float:
+def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False,
+          logs: Optional[List[str]] = None) -> float:
     """Compile every stale source in ``names``, one ``nvcc`` process each,
     all started together.  Returns the wall seconds spent; raises with the
     compiler's output if any build fails.  ``verbose`` adds ``-Xptxas -v``
-    and prints what the compiler reports (registers, shared memory, spills).
+    and prints what the compiler reports (registers, shared memory, spills);
+    each compiler's output is also appended to ``logs`` when given, for
+    ``kernel_resources``.
     """
     todo = [n for n in names if _stale(n)]
     if not todo:
@@ -90,6 +100,8 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False
     failed = []
     for name, so, tmp, proc in procs:
         out, _ = proc.communicate()
+        if logs is not None:
+            logs.append(out)
         if verbose and out:
             print(f"[nvcc {name}]\n{out}", flush=True)
         if proc.returncode == 0:
@@ -101,6 +113,28 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """Per ``__global__`` function in the output of a verbose build:
+    registers, spill bytes (stores + loads) and static shared memory, as
+    ptxas reports them."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = re.compile(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers(?:[^\n]*?"
+        r"(\d+) bytes smem)?", re.S)
+    for mangled, st, ld, regs, smem in entry.findall(log):
+        # ..._<file>_cu_<hash><len><name>[I<template arguments>E]E...: the
+        # kernels' names are lower-case words ending in _kernel
+        name = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)E)?E", mangled)
+        key = mangled if not name else name.group(1) + {
+            None: "", "Lb0": "<false>", "Lb1": "<true>"}.get(
+                name.group(2), f"<{name.group(2)}>")
+        out[key] = {
+            "registers": int(regs), "spill_bytes": int(st) + int(ld),
+            "static_smem_bytes": int(smem or 0)}
+    return out
 
 
 @functools.lru_cache(maxsize=None)

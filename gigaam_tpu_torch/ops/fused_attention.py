@@ -5,7 +5,8 @@ Each public wrapper replaces one Pallas kernel of
 
 * ``fused_mha`` (K3) replaces ``fused_mha`` -> ``_mha_pallas``
   (``_attn_kernel``): masked SDPA on [B, H, T, 48] q/k/v.  CUDA:
-  ``csrc/attention.cu``.
+  ``csrc/attention.cu``.  When a gradient is recorded it also returns the
+  rows' log-sum-exp, which the backward starts from.
 * ``folded_rotary_attention`` (K2) replaces ``_folded_rotary_pallas``
   (``_fold_rotary_kernel``): RoPE -> Q/K/V projections -> masked SDPA ->
   output projection, on the post-LN input.  CUDA: ``csrc/projection.cu``
@@ -18,7 +19,8 @@ Each public wrapper replaces one Pallas kernel of
   relative-position SDPA for the v1/v2 encoder.  CUDA:
   ``csrc/relpos_attention.cu``.
 * ``mha_bwd`` (K4) replaces ``_mha_bwd_pallas`` (``_attn_bwd_kernel``), the
-  gradient of K3: dq, dk, dv from q, k, v and the output gradient.  CUDA:
+  gradient of K3: dq, dk, dv from q, k, v, the output gradient and the
+  forward's saved pair (output, log-sum-exp).  CUDA:
   ``csrc/attention_bwd.cu``.  ``fused_mha`` reaches it through autograd.
 * ``relpos_mha_bwd`` (K6) replaces ``_relpos_bwd_pallas``
   (``_attn_relpos_bwd_kernel``), the gradient of K5: dq_u, dk, dv, dq_v and
@@ -38,7 +40,8 @@ dtype before P.V, the division after it).  A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
 card: one CUDA launch for K3 and K5, three (QKV, SDPA core, output) for K2
-and K1, two (dq, then dk and dv) for K4 and K6.
+and K1, two (dq, then dk and dv) for K4 and K6 (K4 called without the saved
+pair first runs K3's kernel for it: three).
 """
 
 from __future__ import annotations
@@ -117,27 +120,34 @@ def _key_mask(valid: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 valid: torch.Tensor, scale: float,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                return_lse: bool = False):
     """The math of ``_attn_kernel``: fp32 scores and softmax with the key
     mask added as (mask-1)*1e9, P cast to v's dtype, division after P.V.
     An fp32 ``bias`` [B, H, T, T] joins the scores before the scale, as in
-    ``_attn_relpos_kernel``."""
+    ``_attn_relpos_kernel``.  With ``return_lse`` also the rows' log-sum-exp
+    of the scaled and masked scores, [B, H, T] in the wide type."""
     with full_fp32():
         s = _wide(q) @ _wide(k).transpose(-1, -2)
         if bias is not None:
             s = s + bias
         s = s * scale
         s = s + _key_mask(valid, s)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
         denom = p.sum(dim=-1, keepdim=True)
         o = _wide(p.to(v.dtype)) @ _wide(v)
-    return (o / denom).to(q.dtype)
+    out = (o / denom).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(denom)).squeeze(-1)
+    return out
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3."""
-    return _sdpa_plain(q, k, v, valid, 1.0 / math.sqrt(q.shape[-1]))
+              valid: torch.Tensor, return_lse: bool = False):
+    """Plain version of K3; with ``return_lse`` -> (out, lse [B, H, T])."""
+    return _sdpa_plain(q, k, v, valid, 1.0 / math.sqrt(q.shape[-1]),
+                       return_lse=return_lse)
 
 
 def relpos_mha_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,35 +178,52 @@ def _relpos_bias(q_v: torch.Tensor, p_heads: torch.Tensor) -> torch.Tensor:
     return _wide(bias.to(q_v.dtype))
 
 
-def _sdpa_bwd_plain(q, k, v, do, valid, scale, bias=None):
+def _sdpa_bwd_plain(q, k, v, do, valid, scale, bias=None, out=None,
+                    lse=None):
     """The math of ``_attn_bwd_kernel``: recompute the fp32 probabilities,
     ``dv`` from P cast to the compute dtype, ``ds = P (dP - rowsum(dP P))
-    scale`` cast to the compute dtype before ``dq`` and ``dk``.  Returns
-    (dq, dk, dv, ds) with ds [B, H, T, T] still wide, for the rel-pos
-    unshear."""
+    scale`` cast to the compute dtype before ``dq`` and ``dk``.  Given the
+    forward's pair it follows K4's arithmetic instead: ``P = exp(s - lse)``
+    and ``rowsum(dP P) = rowsum(do out)``, which differs by ``out``'s
+    rounding.  Returns (dq, dk, dv, ds) with ds [B, H, T, T] still wide, for
+    the rel-pos unshear."""
     dt = q.dtype
     with full_fp32():
         s = _wide(q) @ _wide(k).transpose(-1, -2)
         if bias is not None:
             s = s + bias
         s = s * scale + _key_mask(valid, s)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        prob = p / p.sum(dim=-1, keepdim=True)
-        dv = _wide(prob.to(dt)).transpose(-1, -2) @ _wide(do)
         dprob = _wide(do) @ _wide(v).transpose(-1, -2)
-        row = (dprob * prob).sum(dim=-1, keepdim=True)
+        if out is None:
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            prob = p / p.sum(dim=-1, keepdim=True)
+            row = (dprob * prob).sum(dim=-1, keepdim=True)
+        else:
+            prob = torch.exp(s - _wide(lse)[..., None])
+            row = (_wide(do) * _wide(out)).sum(dim=-1, keepdim=True)
+        dv = _wide(prob.to(dt)).transpose(-1, -2) @ _wide(do)
         ds = _wide(((prob * (dprob - row)) * scale).to(dt))
         dq = ds @ _wide(k)
         dk = ds.transpose(-1, -2) @ _wide(q)
     return dq.to(dt), dk.to(dt), dv.to(dt), ds
 
 
+def _require_pair(out, lse) -> None:
+    _require((out is None) == (lse is None),
+             "out and lse come from one forward: give both or neither")
+
+
 def mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  do: torch.Tensor, valid: torch.Tensor):
+                  do: torch.Tensor, valid: torch.Tensor,
+                  out: Optional[torch.Tensor] = None,
+                  lse: Optional[torch.Tensor] = None):
     """Plain version of K4: (dq, dk, dv) of ``mha_plain`` for the output
-    gradient ``do``."""
-    return _sdpa_bwd_plain(q, k, v, do, valid,
-                           1.0 / math.sqrt(q.shape[-1]))[:3]
+    gradient ``do``.  With the forward's ``(out, lse)`` it follows the
+    kernel's arithmetic (P from lse, D = rowsum(do out)); without, the
+    Pallas kernel's (row statistics recomputed, D = rowsum(dP P))."""
+    _require_pair(out, lse)
+    return _sdpa_bwd_plain(q, k, v, do, valid, 1.0 / math.sqrt(q.shape[-1]),
+                           out=out, lse=lse)[:3]
 
 
 def relpos_mha_bwd_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -293,12 +320,15 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_sdpa(q, k, v, valid, out, scale: float) -> None:
+def _launch_sdpa(q, k, v, valid, out, scale: float,
+                 lse: Optional[torch.Tensor] = None) -> None:
+    """The SDPA core; ``lse`` [B, H, T] fp32 is written when given."""
     b, h, t, d = q.shape
     lib = cuda_lib.library("attention")
     cuda_lib.check(lib.gigaam_sdpa(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), b, h, t, scale, _stream(q.device)), "gigaam_sdpa")
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t,
+        scale, _stream(q.device)), "gigaam_sdpa")
 
 
 def _check_sdpa_args(q, k, v, valid) -> None:
@@ -310,42 +340,61 @@ def _check_sdpa_args(q, k, v, valid) -> None:
     _check_tensor("valid", valid, q.device, torch.bool, (b, t))
 
 
-def _mha_forward(q, k, v, valid) -> torch.Tensor:
+def _new_lse(q: torch.Tensor) -> torch.Tensor:
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
+def _mha_forward(q, k, v, valid, want_lse: bool):
+    """K3 -> (out, lse or None)."""
     if q.device.type == "cpu":
-        return mha_plain(q, k, v, valid)
+        return (mha_plain(q, k, v, valid, return_lse=True) if want_lse
+                else (mha_plain(q, k, v, valid), None))
     _check_sdpa_args(q, k, v, valid)
     out = torch.empty_like(q)
+    lse = _new_lse(q) if want_lse else None
     with torch.cuda.device(q.device):
-        _launch_sdpa(q, k, v, valid, out, 1.0 / math.sqrt(D_HEAD))
+        _launch_sdpa(q, k, v, valid, out, 1.0 / math.sqrt(D_HEAD), lse)
     fused_mha.launches += 1
-    return out
+    return out, lse
 
 
-def _bwd_stats(q: torch.Tensor) -> torch.Tensor:
-    """Scratch for the backward kernels' per-row (max, 1 / sum, D)."""
+def _bwd_stats(q: torch.Tensor, n: int) -> torch.Tensor:
+    """Scratch for ``n`` per-row statistics that a backward's first launch
+    leaves for its second."""
     b, h, t, _ = q.shape
-    return torch.empty((3, b, h, t), dtype=torch.float32, device=q.device)
+    return torch.empty((n, b, h, t), dtype=torch.float32, device=q.device)
 
 
 def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            do: torch.Tensor, valid: torch.Tensor):
+            do: torch.Tensor, valid: torch.Tensor,
+            out: Optional[torch.Tensor] = None,
+            lse: Optional[torch.Tensor] = None):
     """K4: the gradient of ``fused_mha``.  q/k/v/do [B, H, T, d]; valid
-    [B, T] bool -> (dq, dk, dv).  Rows of padded queries hold garbage in dq
-    unless ``do`` is zero there, as it is in a train step.  CUDA: bf16,
-    d = 48, any T."""
+    [B, T] bool; ``out`` [B, H, T, d] and ``lse`` [B, H, T] fp32 are what the
+    forward returned for these inputs -> (dq, dk, dv).  Without the pair the
+    forward's kernel runs first to make it.  Rows of padded queries hold
+    garbage in dq unless ``do`` is zero there, as it is in a train step.
+    CUDA: bf16, d = 48, any T."""
+    _require_pair(out, lse)
     if q.device.type == "cpu":
-        return mha_bwd_plain(q, k, v, do, valid)
+        return mha_bwd_plain(q, k, v, do, valid, out, lse)
     _check_sdpa_args(q, k, v, valid)
     _check_tensor("do", do, q.device, torch.bfloat16, q.shape)
     b, h, t, _ = q.shape
+    scale = 1.0 / math.sqrt(D_HEAD)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = _bwd_stats(q)
+    stats = _bwd_stats(q, 2)
     lib = cuda_lib.library("attention_bwd")
     with torch.cuda.device(q.device):
+        if out is None:
+            out, lse = torch.empty_like(q), _new_lse(q)
+            _launch_sdpa(q, k, v, valid, out, scale, lse)
+        _check_tensor("out", out, q.device, torch.bfloat16, q.shape)
+        _check_tensor("lse", lse, q.device, torch.float32, (b, h, t))
         cuda_lib.check(lib.gigaam_sdpa_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            valid.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), b, h, t, 1.0 / math.sqrt(D_HEAD),
+            out.data_ptr(), lse.data_ptr(), valid.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, t, scale,
             _stream(q.device)), "gigaam_sdpa_bwd")
     mha_bwd.launches += 1
     return dq, dk, dv
@@ -355,20 +404,23 @@ mha_bwd.launches = 0
 
 
 class _FusedMHA(torch.autograd.Function):
-    """K3 with K4 as its gradient; the residuals are the inputs, as in the
-    JAX package's custom VJP."""
+    """K3 with K4 as its gradient.  The residuals are the inputs, as in the
+    JAX package's custom VJP, and the forward's output and log-sum-exp: K4
+    starts from them instead of recomputing the row statistics."""
 
     @staticmethod
-    def forward(ctx, q, k, v, valid):
-        ctx.save_for_backward(q, k, v, valid)
-        return _mha_forward(q, k, v, valid)
+    def forward(ctx, q, k, v, valid, want_lse):
+        out, lse = _mha_forward(q, k, v, valid, want_lse)
+        if want_lse:
+            ctx.save_for_backward(q, k, v, valid, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, valid = ctx.saved_tensors
+        q, k, v, valid, out, lse = ctx.saved_tensors
         # autograd hands over whatever layout the consumer's backward made
-        dq, dk, dv = mha_bwd(q, k, v, do.contiguous(), valid)
-        return dq, dk, dv, None
+        dq, dk, dv = mha_bwd(q, k, v, do.contiguous(), valid, out, lse)
+        return dq, dk, dv, None, None
 
 
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -376,8 +428,13 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K3: masked SDPA.  q/k/v [B, H, T, d]; valid [B, T] bool ->
     [B, H, T, d].  Output rows of invalid query positions are garbage, as in
     the JAX package.  Differentiable in q, k and v: the backward is K4
-    (``mha_bwd``).  CUDA: bf16, d = 48, any T."""
-    return _FusedMHA.apply(q, k, v, valid)
+    (``mha_bwd``), which starts from the output and the rows' log-sum-exp;
+    the log-sum-exp is computed only when a gradient is being recorded.
+    CUDA: bf16, d = 48, any T."""
+    # grad mode is off inside Function.forward, so it is read here
+    want_lse = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    return _FusedMHA.apply(q, k, v, valid, want_lse)
 
 
 fused_mha.launches = 0
@@ -509,7 +566,7 @@ def relpos_mha_bwd(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, t, _ = q_u.shape
     dq_u, dk, dv, dq_v = (torch.empty_like(q_u) for _ in range(4))
     dp = torch.zeros(p_heads.shape, dtype=torch.float32, device=q_u.device)
-    stats = _bwd_stats(q_u)
+    stats = _bwd_stats(q_u, 3)
     lib = cuda_lib.library("relpos_attention_bwd")
     with torch.cuda.device(q_u.device):
         cuda_lib.check(lib.gigaam_relpos_sdpa_bwd(

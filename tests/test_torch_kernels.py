@@ -6,7 +6,8 @@ On the CPU each wrapper runs its plain version, which is held against the
 JAX package's Pallas kernel in interpret mode on valid rows, in fp32
 (atol 1e-4: the same math summed in another order).  The tests marked
 ``gpu`` hold the CUDA kernels against their plain versions on the card in
-bf16; they skip without one.  The JAX package is imported inside the CPU
+bf16 (K3 also its log-sum-exp; K4 from the forward's saved pair and without
+it; two runs of each bit-equal); they skip without one.  The JAX package is imported inside the CPU
 tests only, so that the card's host, which has no JAX, runs the ``gpu``
 tests with ``pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 """
@@ -187,6 +188,29 @@ def test_cuda_path_rejects_what_the_kernels_do_not_take():
                         4, lnres=False)
 
 
+def test_kernel_resources_reads_the_compilers_report():
+    """``cuda_lib.kernel_resources`` on ptxas output as ``-Xptxas -v`` prints
+    it: a kernel in an unnamed namespace and a template instance."""
+    from gigaam_tpu_torch.ops import cuda_lib
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__baf6e285_12_attention_cu_1bef16dc11sdpa_kernelEPK13__nv_bfloat16S2_S2_PKhPS0_Pfiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__baf6e285_12_attention_cu_1bef16dc11sdpa_kernelEPK13__nv_bfloat16S2_S2_PKhPS0_Pfiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 98 registers, used 1 barriers, 31232 bytes smem
+ptxas info    : Compile time = 199.085 ms
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0a1b2c3d_13_projection_cu_4e5f6a7b10qkv_kernelILb1EEEvNS_7QkvArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0a1b2c3d_13_projection_cu_4e5f6a7b10qkv_kernelILb1EEEvNS_7QkvArgsE
+    16 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+    assert cuda_lib.kernel_resources(log) == {
+        "sdpa_kernel": {"registers": 98, "spill_bytes": 0,
+                        "static_smem_bytes": 31232},
+        "qkv_kernel<true>": {"registers": 128, "spill_bytes": 12,
+                             "static_smem_bytes": 0}}
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version, bf16
 # ---------------------------------------------------------------------------
@@ -236,21 +260,50 @@ def cuda():
     return torch.device("cuda")
 
 
+def nearly_masked_valid(b, tt):
+    """Ragged lengths; the last of several batch elements keeps 3 frames."""
+    valid = ragged_valid(b, tt)
+    if b > 1:
+        valid[-1, 3:] = False
+    return valid
+
+
+# T' below, at, and just past one 64-row tile, the training shape, and the
+# long clip; several T' are no multiple of 64 or of 8
+K3_K4_SHAPES = [(3, 37), (3, 64), (3, 130), (1, 500), (16, 500), (2, 1125)]
+# lse is fp32 on both sides, from the same bf16 inputs: the products
+# accumulate in another order and the kernel uses exp2/log2 approximations
+# (relative 2^-22), so 1e-3 on values of 4 to 12 is wide
+LSE_ATOL = 1e-3
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,tt", [(1, 500), (16, 500), (2, 1125)])
+@pytest.mark.parametrize("b,tt", K3_K4_SHAPES)
 def test_cuda_k3_matches_plain(cuda, b, tt):
     rng = np.random.default_rng(b * tt)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, 16, tt, 48))
                                 .astype(np.float32) * g)
                .to(cuda, torch.bfloat16) for g in (QK_GAIN, QK_GAIN, 1.0))
-    valid = ragged_valid(b, tt)
+    valid = nearly_masked_valid(b, tt)
     valid_d = t(valid).to(cuda)
     before = fa.fused_mha.launches
     got = fa.fused_mha(q, k, v, valid_d)
     assert fa.fused_mha.launches == before + 1
-    ref = fa.mha_plain(q, k, v, valid_d)
+    ref, lse_ref = fa.mha_plain(q, k, v, valid_d, return_lse=True)
     assert_within_output_scale(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), valid)
+    # the same launch with the log-sum-exp asked for: the same output bits,
+    # and lse on every row below T (a padded query row has one too)
+    out, lse = fa._mha_forward(q, k, v, valid_d, want_lse=True)
+    assert torch.equal(out, got)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, 16, tt)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               atol=LSE_ATOL, rtol=0)
+    # repeated runs give the same bits (a tile read before its copy landed
+    # would not)
+    for _ in range(3):
+        again, lse2 = fa._mha_forward(q, k, v, valid_d, want_lse=True)
+        assert torch.equal(again, got) and torch.equal(lse2, lse)
 
 
 @pytest.mark.gpu
@@ -314,7 +367,7 @@ def draw_bwd_case(rng, b, tt, cuda, relpos):
         return torch.from_numpy(a).to(cuda, torch.bfloat16)
 
     shape = (b, 16, tt, 48)
-    valid = ragged_valid(b, tt)
+    valid = ragged_valid(b, tt) if relpos else nearly_masked_valid(b, tt)
     valid_d = t(valid).to(cuda)
     q, k = draw(shape, QK_GAIN), draw(shape, QK_GAIN)
     v = draw(shape, 1.0)
@@ -341,15 +394,29 @@ def assert_grads_within_scale(names, got, ref, valid):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,tt", [(16, 500), (8, 750), (2, 1000), (3, 77)])
-def test_cuda_k4_matches_plain(cuda, b, tt):
+@pytest.mark.parametrize("saved_pair", [True, False])
+@pytest.mark.parametrize("b,tt", K3_K4_SHAPES + [(8, 750), (2, 1000)])
+def test_cuda_k4_matches_plain(cuda, b, tt, saved_pair):
+    """K4 from the forward kernel's own (out, lse), and without the pair
+    (it then runs the forward kernel first), against the plain backward in
+    both of its forms."""
     args, valid = draw_bwd_case(np.random.default_rng(b * tt + 2), b, tt,
                                 cuda, relpos=False)
-    before = fa.mha_bwd.launches
-    got = fa.mha_bwd(*args)
+    q, k, v, do, valid_d = args
+    pair = fa._mha_forward(q, k, v, valid_d, want_lse=True) if saved_pair else ()
+    k3_before, before = fa.fused_mha.launches, fa.mha_bwd.launches
+    got = fa.mha_bwd(*args, *pair)
     assert fa.mha_bwd.launches == before + 1
-    assert_grads_within_scale(("dq", "dk", "dv"), got,
-                              fa.mha_bwd_plain(*args), valid)
+    assert fa.fused_mha.launches == k3_before
+    names = ("dq", "dk", "dv")
+    assert_grads_within_scale(names, got, fa.mha_bwd_plain(*args), valid)
+    assert_grads_within_scale(
+        names, got, fa.mha_bwd_plain(
+            *args, *fa.mha_plain(q, k, v, valid_d, return_lse=True)), valid)
+    # no atomics: the same bits every run
+    for _ in range(3):
+        again = fa.mha_bwd(*args, *pair)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.gpu

@@ -4,7 +4,9 @@ fp32, from the same numpy-seeded inputs and bridged weights.
 * K4 and K6: the plain backward versions against the Pallas backward
   kernels in interpret mode and against ``jax.vjp`` of their XLA twins, on
   valid rows at atol 2e-3 / rtol 1e-3 (the tolerance
-  ``tests/test_pallas_attention.py`` holds the Pallas kernels to);
+  ``tests/test_pallas_attention.py`` holds the Pallas kernels to); K4 also
+  in the form its kernel computes, from the forward's saved output and
+  log-sum-exp, in fp32 and in bf16 (tolerance at ``BF16_ATOL``);
   the two ``autograd.Function``s against autograd through the plain forward
   (atol 1e-5) and ``gradcheck`` in float64.
 * ``batch_norm_train``, ``ctc_loss``, ``ctc_logits``, SpecAugment from JAX's
@@ -158,6 +160,120 @@ def test_relpos_bwd_plain_matches_jax(tt, oracle):
                                                             "q_v")),
                                   t(c["p"]), t(c["do"][-1:]), t(valid[-1:]))
     assert not np.allclose(one[4].numpy(), got[4].numpy(), atol=KERNEL_ATOL)
+
+
+def test_mha_plain_lse_is_the_log_sum_exp_of_the_jax_scores():
+    """``mha_plain(..., return_lse=True)`` against ``logsumexp`` of
+    ``_xla_mha``'s scores (scaled, key mask added as (mask-1)*1e9), fp32,
+    T no multiple of 64; atol 1e-5: the same sum in another order."""
+    c, valid = attention_case(130, relpos=False)
+    q, k = jnp.asarray(c["q"]), jnp.asarray(c["k"])
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k,
+                   preferred_element_type=jnp.float32) / np.sqrt(48)
+    mask = jnp.asarray(valid)[:, None, None, :].astype(jnp.float32)
+    ref = jax.nn.logsumexp(s + (mask - 1.0) * (-pa.NEG_INF), axis=-1)
+    out, lse = fa.mha_plain(t(c["q"]), t(c["k"]), t(c["v"]), t(valid),
+                            return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (3, 2, 130)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref), atol=1e-5)
+    assert torch.equal(out, fa.mha_plain(t(c["q"]), t(c["k"]), t(c["v"]),
+                                         t(valid)))
+
+
+# bf16 on both sides: every output is a bf16 value (one rounding, 2^-8
+# relative, covered by rtol 2^-7) of sums whose terms were rounded at the
+# same points; beyond that the pair form takes D from the bf16 ``out``
+# (sum_c do out, each ``out`` entry rounded by up to 2^-9) where the Pallas
+# kernel takes it from its fp32 probabilities.  On these gradients (largest
+# entries 1.5 to 5.4) that leaves at most 0.007 over the rtol; atol 0.02
+BF16_ATOL, BF16_RTOL = 2e-2, 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("oracle", ["pallas", "xla"])
+@pytest.mark.parametrize("tt", [128, 130])
+def test_mha_bwd_plain_from_the_saved_pair_matches_jax(tt, oracle, dtype):
+    """K4's arithmetic (P = exp(s - lse), D = rowsum(do out)) from the plain
+    forward's (out, lse), against the Pallas backward in interpret mode and
+    against ``jax.vjp`` of ``_xla_mha``, on ragged ``valid``."""
+    c, valid = attention_case(tt, relpos=False)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    j = {k: jnp.asarray(v).astype(jdt) for k, v in c.items()}
+    if oracle == "pallas":
+        ref = pa._mha_bwd_pallas(j["q"], j["k"], j["v"], j["do"],
+                                 jnp.asarray(valid), True)
+    else:
+        _, vjp = jax.vjp(lambda q, k, v: pa._xla_mha(
+            q, k, v, jnp.asarray(valid), 1.0 / np.sqrt(48)),
+            j["q"], j["k"], j["v"])
+        ref = vjp(j["do"])
+    q, k, v, do = (t(c[n]).to(tdt) for n in ("q", "k", "v", "do"))
+    out, lse = fa.mha_plain(q, k, v, t(valid), return_lse=True)
+    got = fa.mha_bwd(q, k, v, do, t(valid), out, lse)
+    assert all(g.dtype == tdt for g in got)
+    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if dtype == "fp32"
+                  else (BF16_ATOL, BF16_RTOL))
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        g = g.float().numpy()
+        r = np.asarray(r.astype(jnp.float32))
+        for i, n in enumerate(valid.sum(1)):
+            np.testing.assert_allclose(g[i, :, :n], r[i, :, :n], atol=atol,
+                                       rtol=rtol, err_msg=f"{name} row {i}")
+
+
+@pytest.mark.parametrize("tt", [40, 130])
+def test_both_forms_of_the_plain_backward_agree_in_fp32(tt):
+    """With an fp32 ``out`` D = rowsum(do out) is rowsum(dP P) up to the
+    order of the sums: atol 1e-5 on gradients of size ~1."""
+    c, valid = attention_case(tt, relpos=False)
+    q, k, v, do = (t(c[n]) for n in ("q", "k", "v", "do"))
+    pair = fa.mha_plain(q, k, v, t(valid), return_lse=True)
+    for g, r in zip(fa.mha_bwd_plain(q, k, v, do, t(valid), *pair),
+                    fa.mha_bwd_plain(q, k, v, do, t(valid))):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="both or neither"):
+        fa.mha_bwd(q, k, v, do, t(valid), out=pair[0])
+
+
+def test_fused_mha_saves_the_pair_and_its_backward_uses_it(monkeypatch):
+    """Under autograd ``fused_mha`` saves (q, k, v, valid, out, lse) and
+    hands the pair to ``mha_bwd``; without a gradient it asks for no lse and
+    saves nothing."""
+    args, valid, do = function_case(False, torch.float32, 2, 2, 40, 16)
+    leaves = [x.clone().requires_grad_() for x in args]
+    out = fa.fused_mha(*leaves, valid)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 6
+    ref_out, ref_lse = fa.mha_plain(*args, valid, return_lse=True)
+    assert torch.equal(saved[4], ref_out) and torch.equal(saved[5], ref_lse)
+
+    seen = {}
+    real = fa.mha_bwd
+
+    def spy(q, k, v, do, valid, out=None, lse=None):
+        seen["pair"] = (out, lse)
+        return real(q, k, v, do, valid, out, lse)
+
+    monkeypatch.setattr(fa, "mha_bwd", spy)
+    got = torch.autograd.grad(out, leaves, do)
+    assert seen["pair"][0] is not None and torch.equal(seen["pair"][1], ref_lse)
+    ref = fa.mha_bwd_plain(*args, do, valid, ref_out, ref_lse)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    asked = {}
+    real_forward = fa._mha_forward
+
+    def spy_forward(q, k, v, valid, want_lse):
+        asked["want_lse"] = want_lse
+        return real_forward(q, k, v, valid, want_lse)
+
+    monkeypatch.setattr(fa, "_mha_forward", spy_forward)
+    with torch.no_grad():
+        plain_out = fa.fused_mha(*leaves, valid)
+    assert asked["want_lse"] is False and plain_out.grad_fn is None
+    fa.fused_mha(*args, valid)
+    assert asked["want_lse"] is False
 
 
 def function_case(relpos, dtype, b, h, tt, d):
