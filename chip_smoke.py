@@ -8,14 +8,15 @@ Phases, each fatal on failure:
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
 2. build the hand-written kernels (``gigaam_tpu_torch/csrc``, one ``nvcc``
    per source, all started together) and print each kernel's registers,
-   spills and static shared memory;
+   spills and shared memory (none of the ``wgmma`` kernels may spill);
 3. hold each kernel (K3, K2, K1, K5) against its plain PyTorch version at
    the main path's shapes in bf16, show that the check fails for a kernel
    with a planted fault (fed through its inputs: RoPE sign flipped, key mask
    ignored, 1/sqrt(d_h) missing, q zeroed, LayerNorm skipped; for K5 also
    q_u/q_v swapped, the shift reversed, the positional term dropped), and
    time the kernel, its plain version and the library call with CUDA
-   events; K3 also returns its log-sum-exp, held against the plain one;
+   events; K3 and K5 also return their log-sum-exp, held against the plain
+   one and timed with and without;
 4. drive full-width v3_ctc (16 x 768, random weights from a seed, bf16)
    through the user entry points: ``transcribe`` on a 20 s clip (batch 1:
    K2), ``_decode_batch`` on 16 clips of 10-20 s (K1) and ``encode_batch``
@@ -36,14 +37,14 @@ Phases, each fatal on failure:
    B 16 T' 500/501 (the training shape), B 8 T' 750 and B 2 T' 1000, per
    gradient, with ``do`` zero on padded rows; the plain backward against
    ``torch.autograd.grad`` through the plain forward in fp32; planted faults
-   (key mask ignored, scale missing from ds, the rowsum term dropped; for K4
-   also, fed through its inputs, the log-sum-exp of another batch element
-   and D from a zeroed forward output; for K6 also P without the bias, the
-   unshear reversed, dp from the last batch element only), each of which
-   must land above the limit; K4 from the forward's saved (out, lse) and
-   without them, the same bits; times (K4's with the pair given), bounds,
-   two runs of K4 bit-equal, and for K6 the spread of dp over two runs (its
-   batch sum uses atomics);
+   (key mask ignored, scale missing from ds, the rowsum term dropped and, fed
+   through the inputs, the log-sum-exp of another batch element and D from
+   a zeroed forward output; for K6 also P without the bias, the unshear
+   reversed, dp from the last batch element only), each of which must land
+   above the limit; each kernel from its forward's saved (out, lse) and
+   without them, the same bits; times (with the pair given, and without),
+   bounds, two runs bit-equal, but for K6's dp, whose spread over two runs
+   is printed (its batch sum uses atomics);
 8. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
@@ -245,6 +246,9 @@ def attention_input(gen, b: int, t: int, dev) -> torch.Tensor:
 # lse is fp32 on both sides, from the same bf16 inputs: another order of
 # accumulation and the kernel's exp2/log2 approximations (relative 2^-22)
 LSE_ATOL = 1e-3
+# K5's lse: the share of rows held to LSE_ATOL (relpos_kernel_phase says why
+# not all)
+LSE_SHARE = 0.999
 
 
 def shaped_row(readings: dict, main) -> dict:
@@ -358,7 +362,7 @@ def kernel_phase(dev) -> dict:
 def relpos_kernel_phase(gen, dev) -> dict:
     """K5 at the v2 main path's T' = 501 (B 1 and 16) and at T' = 1126
     (B 1, a 45 s clip); the faults and the JSON row at B 16."""
-    row = None
+    k5 = {}
     for b, t in ((1, 501), (16, 501), (1, 1126)):
         def draw(shape, gain):
             return (torch.randn(shape, generator=gen) * gain).to(
@@ -372,7 +376,24 @@ def relpos_kernel_phase(gen, dev) -> dict:
         valid = ragged_valid(b, t, dev)
         args = (q_u, k, v, q_v, p_heads, valid)
         got = fa.fused_relpos_mha(*args)
-        ref = fa.relpos_mha_plain(*args)
+        ref, lse_ref = fa.relpos_mha_plain(*args, return_lse=True)
+        out2, lse = fa._relpos_forward(*args, want_lse=True)
+        # The kernel and the plain version round the same fp32 positional
+        # product, summed in two orders, to bf16: where they round apart a
+        # score moves by one bf16 step of the bias, and the row's lse by that
+        # times the key's probability.  Every row within LSE_ATOL plus one
+        # step at the largest bias, LSE_SHARE of the rows within LSE_ATOL.
+        lse_diff = (lse - lse_ref).abs()
+        lse_err = float(lse_diff.max())
+        lse_share = float((lse_diff <= LSE_ATOL).float().mean())
+        step = (float(fa._relpos_bias(q_v, p_heads).abs().max()) * 2.0 ** -7
+                / math.sqrt(D_HEAD))
+        if not (torch.equal(out2, got) and lse_err <= LSE_ATOL + step
+                and lse_share >= LSE_SHARE):
+            raise AssertionError(
+                f"K5 B={b} T'={t}: lse off by {lse_err} (limit {LSE_ATOL} + "
+                f"{step}), within {LSE_ATOL} on {lse_share} of the rows "
+                f"(limit {LSE_SHARE}), or the output changed")
         root_dh = math.sqrt(D_HEAD)
         faults = () if (b, t) != (16, 501) else (
             ("key mask ignored", lambda: fa.fused_relpos_mha(
@@ -387,19 +408,21 @@ def relpos_kernel_phase(gen, dev) -> dict:
                 q_u, k, v, q_v, torch.zeros_like(p_heads), valid)))
         err, rel = check_kernel(f"K5 B={b} T'={t}", got, ref, valid, 2, faults)
         ms = time_ms(lambda: fa.fused_relpos_mha(*args))
+        lse_ms = time_ms(lambda: fa._relpos_forward(*args, want_lse=True))
         plain_ms = time_ms(lambda: fa.relpos_mha_plain(*args), iters=5)
         scores = b * N_HEADS * t * t
         bms, by = bound(
             (5 * b * N_HEADS * t * D_HEAD + N_HEADS * (2 * t - 1) * D_HEAD) * 2
             + b * t, 6 * scores * D_HEAD, 5 * scores)
         print(f"K5 fused_relpos_mha B={b} T'={t}: max_abs_err {err:.3e}, "
-              f"{rel:.4f} x RMS (limit {KERNEL_REL}); kernel {ms:.4f} ms, "
+              f"{rel:.4f} x RMS (limit {KERNEL_REL}), lse within {lse_err:.2e} "
+              f"(limit {LSE_ATOL} + a bf16 step of the bias, {step:.2e}) and "
+              f"within {LSE_ATOL} on {lse_share:.5f} of the rows (limit "
+              f"{LSE_SHARE}); kernel {ms:.4f} ms ({lse_ms:.4f} writing lse), "
               f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-        if (b, t) == (16, 501):
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=None, max_abs_err=err,
-                       shape=f"B {b}, T' {t}")
-    return row
+        k5[(b, t)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None, max_abs_err=err)
+    return shaped_row(k5, (16, 501))
 
 
 # ---------------------------------------------------------------------------
@@ -485,11 +508,15 @@ def grad_distances(names, got, ref, valid):
 
 def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
     key = "K6" if relpos else "K4"
-    kernel, plain, fwd_plain = (
-        (fa.relpos_mha_bwd, fa.relpos_mha_bwd_plain, fa.relpos_mha_plain)
-        if relpos else (fa.mha_bwd, fa.mha_bwd_plain, fa.mha_plain))
+    kernel, plain, fwd_kernel, fwd_plain = (
+        (fa.relpos_mha_bwd, fa.relpos_mha_bwd_plain, fa._relpos_forward,
+         fa.relpos_mha_plain) if relpos else
+        (fa.mha_bwd, fa.mha_bwd_plain, fa._mha_forward, fa.mha_plain))
     names = (("dq_u", "dk", "dv", "dq_v", "dp") if relpos
              else ("dq", "dk", "dv"))
+    # dp's sum over the batch uses atomics; the others give the same bits
+    n_exact = 4 if relpos else 3
+    exact = ", ".join(names[:n_exact])
     faults = ("key mask ignored", "scale missing from ds",
               "rowsum term dropped") + ((
                   "P without the bias", "unshear reversed",
@@ -499,12 +526,12 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
     for b, t in ((16, t_train), (8, 750), (2, 1000)):
         args = bwd_inputs(gen, b, t, dev, relpos)
         valid = args[-1]
-        # K4 starts from what the forward saved: the kernel from K3's own
-        # (out, lse), the plain backward from the plain forward's
-        pair = plain_pair = ()
-        if not relpos:
-            pair = fa._mha_forward(*args[:3], valid, want_lse=True)
-            plain_pair = fa.mha_plain(*args[:3], valid, return_lse=True)
+        fwd_args = args[:-2] + (valid,)
+        # the backward starts from what the forward saved: the kernel from
+        # the forward kernel's own (out, lse), the plain backward from the
+        # plain forward's
+        pair = fwd_kernel(*fwd_args, want_lse=True)
+        plain_pair = fwd_plain(*fwd_args, return_lse=True)
         got = kernel(*args, *pair)
         torch.cuda.synchronize()
         ref = plain(*args, *plain_pair)
@@ -517,94 +544,93 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
             flush=True)
         if not worst <= KERNEL_REL:
             raise AssertionError(f"{key} B={b} T'={t}: {dist}")
-        if not relpos:
-            # without the pair K4 runs the forward kernel for it first: the
-            # same bits; and the plain backward's other form (row statistics
-            # recomputed, D = rowsum(dP P), as the Pallas kernel) stays close
-            unsaved = kernel(*args)
-            if not all(torch.equal(a, g) for a, g in zip(unsaved, got)):
-                raise AssertionError("K4: without the saved pair the "
-                                     "gradients differ")
-            odist = grad_distances(names, got, plain(*args), valid)
-            oworst = max(rel for _, rel in odist.values())
-            print(f"  K4 without the saved pair: bit-equal; against the "
-                  f"plain backward that recomputes the row statistics: worst "
-                  f"{oworst:.4f} x RMS (limit {KERNEL_REL})", flush=True)
-            if not oworst <= KERNEL_REL:
-                raise AssertionError(f"K4 B={b} T'={t}: {odist}")
+        # without the pair the backward runs the forward kernel for it first:
+        # the same bits; and the plain backward's other form (row statistics
+        # recomputed, D = rowsum(dP P), as the Pallas kernel) stays close
+        unsaved = kernel(*args)
+        if not all(torch.equal(a, g) for a, g in
+                   zip(unsaved[:n_exact], got[:n_exact])):
+            raise AssertionError(f"{key}: without the saved pair the "
+                                 f"gradients differ")
+        odist = grad_distances(names, unsaved, plain(*args), valid)
+        oworst = max(rel for _, rel in odist.values())
+        print(f"  {key} without the saved pair: {exact} bit-equal; against "
+              f"the plain backward that recomputes the row statistics: worst "
+              f"{oworst:.4f} x RMS (limit {KERNEL_REL})", flush=True)
+        if not oworst <= KERNEL_REL:
+            raise AssertionError(f"{key} B={b} T'={t}: {odist}")
 
-        # the plain backward itself, on fp32 inputs, against autograd
-        # through the plain forward
+        # the plain backward itself, in both forms, on fp32 inputs, against
+        # autograd through the plain forward
         wide = [x.float() for x in args[:-1]]
         do32 = wide.pop(-1)
         leaves = [x.clone().requires_grad_() for x in wide]
         auto = torch.autograd.grad(fwd_plain(*leaves, valid), leaves, do32)
         pdist = grad_distances(names, plain(*wide, do32, valid), auto, valid)
         pworst = max(rel for _, rel in pdist.values())
-        if not relpos:
-            with torch.no_grad():
-                pair32 = fwd_plain(*wide, valid, return_lse=True)
-            pdist = grad_distances(
-                names, plain(*wide, do32, valid, *pair32), auto, valid)
-            pworst = max(pworst, *(rel for _, rel in pdist.values()))
+        with torch.no_grad():
+            pair32 = fwd_plain(*wide, valid, return_lse=True)
+        pdist = grad_distances(
+            names, plain(*wide, do32, valid, *pair32), auto, valid)
+        pworst = max(pworst, *(rel for _, rel in pdist.values()))
         print(f"  {key} plain backward vs autograd of the plain forward, "
               f"fp32: worst {pworst:.2e} x RMS (limit {PLAIN_BWD_REL})",
               flush=True)
         if not pworst <= PLAIN_BWD_REL:
             raise AssertionError(f"{key} plain backward: {pdist}")
-        del leaves, auto, wide
+        del leaves, auto, wide, pair32
 
-        for fault in faults if b == 16 else ():
-            fdist = grad_distances(names, got,
-                                   faulty_backward(args, fault, relpos), valid)
-            name, (_, rel) = max(fdist.items(), key=lambda kv: kv[1][1])
-            print(f"  {key} planted fault, {fault}: {name} {rel:.4f} x RMS "
-                  f"(limit {KERNEL_REL})", flush=True)
-            if not rel > KERNEL_REL:
-                raise AssertionError(f"{key}: the check misses {fault}")
-        if not relpos and b == 16:
-            out_k, lse_k = pair
-            for fault, fn in (
-                    ("lse of another batch element", lambda: kernel(
-                        *args, out_k, lse_k.roll(1, 0).contiguous())),
-                    ("D from a zeroed out", lambda: kernel(
-                        *args, torch.zeros_like(out_k), lse_k))):
-                fdist = grad_distances(names, fn(), ref, valid)
+        if b == 16:
+            def must_show(fault, fdist):
                 name, (_, rel) = max(fdist.items(), key=lambda kv: kv[1][1])
-                print(f"  K4 planted fault, {fault}: {name} {rel:.4f} x RMS "
-                      f"(limit {KERNEL_REL})", flush=True)
+                print(f"  {key} planted fault, {fault}: {name} {rel:.4f} x "
+                      f"RMS (limit {KERNEL_REL})", flush=True)
                 if not rel > KERNEL_REL:
-                    raise AssertionError(f"K4: the check misses {fault}")
+                    raise AssertionError(f"{key}: the check misses {fault}")
+
+            # faults in the arithmetic: the kernel against a faulty reference
+            for fault in faults:
+                must_show(fault, grad_distances(
+                    names, got, faulty_backward(args, fault, relpos), valid))
+            # faults in what the forward handed over: fed through the inputs
+            out_k, lse_k = pair
+            must_show("lse of another batch element", grad_distances(
+                names, kernel(*args, out_k, lse_k.roll(1, 0).contiguous()),
+                ref, valid))
+            must_show("D from a zeroed out", grad_distances(
+                names, kernel(*args, torch.zeros_like(out_k), lse_k), ref,
+                valid))
             again = kernel(*args, *pair)
-            same = all(torch.equal(a, g) for a, g in zip(again, got))
-            print(f"  K4 two runs: dq, dk, dv bit-equal: {same}", flush=True)
+            same = all(torch.equal(a, g) for a, g in
+                       zip(again[:n_exact], got[:n_exact]))
+            spread = "" if not relpos else (
+                f"; dp differs by at most "
+                f"{float((again[4].float() - got[4].float()).abs().max()):.3e}"
+                f" (max |dp| {float(got[4].float().abs().max()):.3e})")
+            print(f"  {key} two runs: {exact} bit-equal: {same}{spread}",
+                  flush=True)
             if not same:
-                raise AssertionError("K4: an output changed between two runs")
-        if relpos and b == 16:
-            again = kernel(*args)
-            spread = float((again[4].float() - got[4].float()).abs().max())
-            same = all(torch.equal(a, g) for a, g in zip(again[:4], got[:4]))
-            print(f"  K6 two runs: dp differs by at most {spread:.3e} (max "
-                  f"|dp| {float(got[4].float().abs().max()):.3e}); dq_u, dk, "
-                  f"dv, dq_v bit-equal: {same}", flush=True)
-            if not same:
-                raise AssertionError("K6: a deterministic output changed")
+                raise AssertionError(f"{key}: a deterministic output changed "
+                                     f"between two runs")
         ms = time_ms(lambda: kernel(*args, *pair))
+        unsaved_ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args, *plain_pair), iters=5)
+        print(f"  {key} B={b} T'={t} without the saved pair (the forward's "
+              f"kernel first): {unsaved_ms:.4f} ms", flush=True)
         scores = b * N_HEADS * t * t
         tile = b * N_HEADS * t * D_HEAD * 2
+        lse_bytes = b * N_HEADS * t * 4
         if relpos:
+            # q_u, k, v, q_v, do, out in, dq_u, dk, dv, dq_v out, the table in
+            # and its gradient out, lse, the mask
             table = N_HEADS * (2 * t - 1) * D_HEAD * 2
-            bms, by = bound(10 * tile + 2 * table + b * t,
+            bms, by = bound(10 * tile + 2 * table + lse_bytes + b * t,
                             16 * scores * D_HEAD, 10 * scores)
             lib_ms = None
         else:
             # q, k, v, do, out in, dq, dk, dv out, lse, the mask
-            bms, by = bound(8 * tile + b * N_HEADS * t * 4 + b * t,
+            bms, by = bound(8 * tile + lse_bytes + b * t,
                             10 * scores * D_HEAD, 8 * scores)
-            unsaved_ms = time_ms(lambda: kernel(*args))
-            print(f"  K4 B={b} T'={t} without the saved pair (K3's kernel "
-                  f"first): {unsaved_ms:.4f} ms", flush=True)
             mask4 = valid[:, None, None, :]
             q, k, v, do = (x for x in args[:4])
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -1063,9 +1089,17 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s", flush=True)
     resources = cuda_lib.kernel_resources("\n".join(logs))
     print("kernel resources " + json.dumps(resources), flush=True)
-    if not {"sdpa_kernel", "sdpa_bwd_dq_kernel",
-            "sdpa_bwd_dkv_kernel"} <= set(resources):
+    wgmma_kernels = ("sdpa_kernel", "sdpa_bwd_dq_kernel", "sdpa_bwd_dkv_kernel",
+                     "relpos_sdpa_kernel", "relpos_bwd_dq_kernel",
+                     "relpos_bwd_dkv_kernel")
+    if not set(wgmma_kernels) <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
+    spilled = [k for k in wgmma_kernels if resources[k]["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"register spills in {spilled}")
+    # the rel-pos kernels size their shared memory at launch
+    print("kernel dynamic resources "
+          + json.dumps(cuda_lib.dynamic_resources()), flush=True)
 
     rows = kernel_phase(dev)
     gen = torch.Generator().manual_seed(1)

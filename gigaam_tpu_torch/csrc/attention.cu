@@ -101,44 +101,8 @@ sdpa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait_all();
     fence_regs(s);
 
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 mk = *reinterpret_cast<const float2*>(&madd[st][8 * j + 2 * l]);
-      s[4 * j] = fmaf(s[4 * j], scale2, mk.x);
-      s[4 * j + 1] = fmaf(s[4 * j + 1], scale2, mk.y);
-      s[4 * j + 2] = fmaf(s[4 * j + 2], scale2, mk.x);
-      s[4 * j + 3] = fmaf(s[4 * j + 3], scale2, mk.y);
-      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    // every tile holds a key below T, so the new max is finite
-    const float new_lo = fmaxf(m_lo, quad_max(mx_lo));
-    const float new_hi = fmaxf(m_hi, quad_max(mx_hi));
-    const float corr_lo = exp2f(m_lo - new_lo), corr_hi = exp2f(m_hi - new_hi);
-    m_lo = new_lo;
-    m_hi = new_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[4 * j] = exp2f(s[4 * j] - m_lo);
-      s[4 * j + 1] = exp2f(s[4 * j + 1] - m_lo);
-      s[4 * j + 2] = exp2f(s[4 * j + 2] - m_hi);
-      s[4 * j + 3] = exp2f(s[4 * j + 3] - m_hi);
-      sum_lo += s[4 * j] + s[4 * j + 1];
-      sum_hi += s[4 * j + 2] + s[4 * j + 3];
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
     uint32_t p[16];
-    pack_fragment(s, p);
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      o_acc[4 * j] *= corr_lo;
-      o_acc[4 * j + 1] *= corr_lo;
-      o_acc[4 * j + 2] *= corr_hi;
-      o_acc[4 * j + 3] *= corr_hi;
-    }
+    online_softmax_tile(s, madd[st], scale2, m_lo, m_hi, l_lo, l_hi, o_acc, p);
 
     fence_regs(o_acc);
     wgmma_fence();

@@ -60,27 +60,6 @@ namespace {
 
 constexpr int kStages = 2;
 
-// sum_c a[row, c] * b[row, c] over one row of two [T, 48] matrices, by the
-// four lanes of the quad that owns the row (12 columns each); 0 past T
-__device__ __forceinline__ float row_dot(const bf16* a, const bf16* b, int row,
-                                         int t, int l) {
-  float part = 0.f;
-  if (row < t) {
-    const uint2* pa = reinterpret_cast<const uint2*>(a + (size_t)row * kD + 12 * l);
-    const uint2* pb = reinterpret_cast<const uint2*>(b + (size_t)row * kD + 12 * l);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const uint2 xa = pa[i], xb = pb[i];
-      const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa.x));
-      const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa.y));
-      const float2 b0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xb.x));
-      const float2 b1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xb.y));
-      part += a0.x * b0.x + a0.y * b0.y + a1.x * b1.x + a1.y * b1.y;
-    }
-  }
-  return quad_sum(part);
-}
-
 __global__ void __launch_bounds__(kThreads)
 sdpa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,

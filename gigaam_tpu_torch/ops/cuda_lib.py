@@ -37,13 +37,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_out_proj": [_P] * 5 + [_I] * 4 + [_P],
     },
     "relpos_attention": {
-        "gigaam_relpos_sdpa": [_P] * 7 + [_I] * 3 + [_F, _P],
+        "gigaam_relpos_sdpa": [_P] * 8 + [_I] * 3 + [_F, _P],
+        "gigaam_relpos_sdpa_occupancy": [_P],
     },
     "attention_bwd": {
         "gigaam_sdpa_bwd": [_P] * 11 + [_I] * 3 + [_F, _P],
     },
     "relpos_attention_bwd": {
-        "gigaam_relpos_sdpa_bwd": [_P] * 13 + [_I] * 3 + [_F, _P],
+        "gigaam_relpos_sdpa_bwd": [_P] * 15 + [_I] * 3 + [_F, _P],
+        "gigaam_relpos_sdpa_bwd_occupancy": [_P],
     },
 }
 
@@ -134,6 +136,24 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
         out[key] = {
             "registers": int(regs), "spill_bytes": int(st) + int(ld),
             "static_smem_bytes": int(smem or 0)}
+    return out
+
+
+def dynamic_resources() -> Dict[str, Dict[str, int]]:
+    """Per kernel that sizes its shared memory at launch (the rel-pos
+    kernels): the dynamic shared memory in bytes and how many blocks one SM
+    holds at a time, as the CUDA runtime reports them for the current card."""
+    out: Dict[str, Dict[str, int]] = {}
+    for name, fn, kernels in (
+            ("relpos_attention", "gigaam_relpos_sdpa_occupancy",
+             ("relpos_sdpa_kernel",)),
+            ("relpos_attention_bwd", "gigaam_relpos_sdpa_bwd_occupancy",
+             ("relpos_bwd_dq_kernel", "relpos_bwd_dkv_kernel"))):
+        pairs = (ctypes.c_int * (2 * len(kernels)))()
+        check(getattr(library(name), fn)(pairs), fn)
+        for i, kernel in enumerate(kernels):
+            out[kernel] = {"dynamic_smem_bytes": pairs[2 * i],
+                           "blocks_per_sm": pairs[2 * i + 1]}
     return out
 
 

@@ -17,16 +17,25 @@ Each public wrapper replaces one Pallas kernel of
 * ``fused_relpos_mha`` (K5) replaces ``fused_relpos_mha`` ->
   ``_relpos_pallas`` (``_attn_relpos_kernel``): Transformer-XL
   relative-position SDPA for the v1/v2 encoder.  CUDA:
-  ``csrc/relpos_attention.cu``.
+  ``csrc/relpos_attention.cu``.  Like K3 it also returns the rows'
+  log-sum-exp (of the scaled, biased and masked scores) when a gradient is
+  recorded.
 * ``mha_bwd`` (K4) replaces ``_mha_bwd_pallas`` (``_attn_bwd_kernel``), the
   gradient of K3: dq, dk, dv from q, k, v, the output gradient and the
   forward's saved pair (output, log-sum-exp).  CUDA:
   ``csrc/attention_bwd.cu``.  ``fused_mha`` reaches it through autograd.
 * ``relpos_mha_bwd`` (K6) replaces ``_relpos_bwd_pallas``
   (``_attn_relpos_bwd_kernel``), the gradient of K5: dq_u, dk, dv, dq_v and
-  the position table's gradient dp, summed over the batch.  CUDA:
+  the position table's gradient dp, summed over the batch, from the inputs,
+  the output gradient and the forward's saved pair.  CUDA:
   ``csrc/relpos_attention_bwd.cu``.  ``fused_relpos_mha`` reaches it through
   autograd.
+
+K3-K6 share one design (``csrc/wgmma.cuh``): tiles streamed through a
+``cp.async`` ring, every product on ``wgmma``, scores and probabilities kept
+in registers, a backward that sweeps the other side's tiles once per launch
+from the saved (output, log-sum-exp).  All are bounded by operations at the
+encoder's shapes.
 
 K1 and K2 are inference kernels, as in the JAX package: they refuse inputs
 that require a gradient while gradients are recorded.
@@ -40,8 +49,8 @@ dtype before P.V, the division after it).  A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
 card: one CUDA launch for K3 and K5, three (QKV, SDPA core, output) for K2
-and K1, two (dq, then dk and dv) for K4 and K6 (K4 called without the saved
-pair first runs K3's kernel for it: three).
+and K1, two (dq, then dk and dv) for K4 and K6 (called without the saved
+pair they first run the forward's kernel for it: three).
 """
 
 from __future__ import annotations
@@ -152,13 +161,14 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def relpos_mha_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_v: torch.Tensor, p_heads: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, return_lse: bool = False):
     """Plain version of K5: the positional term ``q_v . p_heads^T`` in fp32,
     sheared to relative position i - j (``bias[i, j] = raw[i, T-1-i+j]``)
     and rounded to the inputs' dtype, as ``_attn_relpos_kernel`` rounds it
-    before the shear; then ``_sdpa_plain`` with that bias."""
+    before the shear; then ``_sdpa_plain`` with that bias.  With
+    ``return_lse`` -> (out, lse [B, H, T])."""
     return _sdpa_plain(q_u, k, v, valid, 1.0 / math.sqrt(q_u.shape[-1]),
-                       _relpos_bias(q_v, p_heads))
+                       _relpos_bias(q_v, p_heads), return_lse=return_lse)
 
 
 def _shear_index(b: int, h: int, t: int, device) -> torch.Tensor:
@@ -228,14 +238,21 @@ def mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def relpos_mha_bwd_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_v: torch.Tensor, p_heads: torch.Tensor,
-                         do: torch.Tensor, valid: torch.Tensor):
+                         do: torch.Tensor, valid: torch.Tensor,
+                         out: Optional[torch.Tensor] = None,
+                         lse: Optional[torch.Tensor] = None):
     """Plain version of K6: (dq_u, dk, dv, dq_v, dp) of ``relpos_mha_plain``.
     The score gradient dz is unsheared into the table's coordinates
     (``d_raw[i, T-1-i+j] = dz[i, j]``, zero elsewhere); ``dp`` is summed over
-    the batch in the wide type and cast once."""
+    the batch in the wide type and cast once.  With the forward's
+    ``(out, lse)`` it follows the kernel's arithmetic (P from lse,
+    D = rowsum(do out)); without, the Pallas kernel's (row statistics
+    recomputed, D = rowsum(dP P))."""
+    _require_pair(out, lse)
     b, h, t, d = q_u.shape
     dq_u, dk, dv, dz = _sdpa_bwd_plain(
-        q_u, k, v, do, valid, 1.0 / math.sqrt(d), _relpos_bias(q_v, p_heads))
+        q_u, k, v, do, valid, 1.0 / math.sqrt(d), _relpos_bias(q_v, p_heads),
+        out=out, lse=lse)
     with full_fp32():
         d_raw = dz.new_zeros((b, h, t, p_heads.shape[1]))
         d_raw.scatter_(-1, _shear_index(b, h, t, q_u.device), dz)
@@ -340,6 +357,12 @@ def _check_sdpa_args(q, k, v, valid) -> None:
     _check_tensor("valid", valid, q.device, torch.bool, (b, t))
 
 
+def _grad_recorded(*tensors: torch.Tensor) -> bool:
+    """Whether a backward may be asked for these inputs.  Read before
+    ``Function.apply``: grad mode is off inside ``Function.forward``."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
 def _new_lse(q: torch.Tensor) -> torch.Tensor:
     return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
 
@@ -431,10 +454,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``mha_bwd``), which starts from the output and the rows' log-sum-exp;
     the log-sum-exp is computed only when a gradient is being recorded.
     CUDA: bf16, d = 48, any T."""
-    # grad mode is off inside Function.forward, so it is read here
-    want_lse = torch.is_grad_enabled() and any(
-        x.requires_grad for x in (q, k, v))
-    return _FusedMHA.apply(q, k, v, valid, want_lse)
+    return _FusedMHA.apply(q, k, v, valid, _grad_recorded(q, k, v))
 
 
 fused_mha.launches = 0
@@ -443,7 +463,7 @@ fused_mha.launches = 0
 def _refuse_grad(name: str, tensors) -> None:
     """K1 and K2 are inference kernels (the JAX package trains through the
     composed path): refuse to cut a gradient silently."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+    if _grad_recorded(*tensors):
         raise RuntimeError(
             f"{name} has no backward: call it under torch.no_grad() or "
             f"torch.inference_mode(); training goes through rotary_mha("
@@ -535,47 +555,72 @@ def _check_relpos_args(q_u, k, v, q_v, p_heads, valid) -> None:
                   (h, 2 * t - 1, d))
 
 
-def _relpos_forward(q_u, k, v, q_v, p_heads, valid) -> torch.Tensor:
-    if q_u.device.type == "cpu":
-        return relpos_mha_plain(q_u, k, v, q_v, p_heads, valid)
-    _check_relpos_args(q_u, k, v, q_v, p_heads, valid)
+def _launch_relpos_sdpa(q_u, k, v, q_v, p_heads, valid, out, scale: float,
+                        lse: Optional[torch.Tensor] = None) -> None:
+    """The rel-pos SDPA core; ``lse`` [B, H, T] fp32 is written when given."""
     b, h, t, _ = q_u.shape
-    out = torch.empty_like(q_u)
     lib = cuda_lib.library("relpos_attention")
+    cuda_lib.check(lib.gigaam_relpos_sdpa(
+        q_u.data_ptr(), k.data_ptr(), v.data_ptr(), q_v.data_ptr(),
+        p_heads.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, t, scale,
+        _stream(q_u.device)), "gigaam_relpos_sdpa")
+
+
+def _relpos_forward(q_u, k, v, q_v, p_heads, valid, want_lse: bool):
+    """K5 -> (out, lse or None)."""
+    if q_u.device.type == "cpu":
+        args = (q_u, k, v, q_v, p_heads, valid)
+        return (relpos_mha_plain(*args, return_lse=True) if want_lse
+                else (relpos_mha_plain(*args), None))
+    _check_relpos_args(q_u, k, v, q_v, p_heads, valid)
+    out = torch.empty_like(q_u)
+    lse = _new_lse(q_u) if want_lse else None
     with torch.cuda.device(q_u.device):
-        cuda_lib.check(lib.gigaam_relpos_sdpa(
-            q_u.data_ptr(), k.data_ptr(), v.data_ptr(), q_v.data_ptr(),
-            p_heads.data_ptr(), valid.data_ptr(), out.data_ptr(), b, h, t,
-            1.0 / math.sqrt(D_HEAD), _stream(q_u.device)),
-            "gigaam_relpos_sdpa")
+        _launch_relpos_sdpa(q_u, k, v, q_v, p_heads, valid, out,
+                            1.0 / math.sqrt(D_HEAD), lse)
     fused_relpos_mha.launches += 1
-    return out
+    return out, lse
 
 
 def relpos_mha_bwd(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_v: torch.Tensor, p_heads: torch.Tensor,
-                   do: torch.Tensor, valid: torch.Tensor):
+                   do: torch.Tensor, valid: torch.Tensor,
+                   out: Optional[torch.Tensor] = None,
+                   lse: Optional[torch.Tensor] = None):
     """K6: the gradient of ``fused_relpos_mha`` -> (dq_u, dk, dv, dq_v, dp);
-    dp [H, 2T-1, d] is summed over the batch in fp32 and cast once.  On CUDA
-    (bf16, d = 48, any T) that sum uses fp32 atomics, so dp's low bits
-    depend on the order of the blocks; the other four are deterministic."""
+    ``out`` [B, H, T, d] and ``lse`` [B, H, T] fp32 are what the forward
+    returned for these inputs; without the pair the forward's kernel runs
+    first to make it.  dp [H, 2T-1, d] is summed over the batch in fp32 and
+    cast once.  On CUDA (bf16, d = 48, any T) that sum uses fp32 atomics, so
+    dp's low bits depend on the order of the blocks; the other four are
+    deterministic.  Rows of padded queries hold garbage in dq_u and dq_v
+    unless ``do`` is zero there, as it is in a train step."""
+    _require_pair(out, lse)
     if q_u.device.type == "cpu":
-        return relpos_mha_bwd_plain(q_u, k, v, q_v, p_heads, do, valid)
+        return relpos_mha_bwd_plain(q_u, k, v, q_v, p_heads, do, valid, out,
+                                    lse)
     _check_relpos_args(q_u, k, v, q_v, p_heads, valid)
     _check_tensor("do", do, q_u.device, torch.bfloat16, q_u.shape)
     b, h, t, _ = q_u.shape
+    scale = 1.0 / math.sqrt(D_HEAD)
     dq_u, dk, dv, dq_v = (torch.empty_like(q_u) for _ in range(4))
     dp = torch.zeros(p_heads.shape, dtype=torch.float32, device=q_u.device)
-    stats = _bwd_stats(q_u, 3)
+    stats = _bwd_stats(q_u, 2)
     lib = cuda_lib.library("relpos_attention_bwd")
     with torch.cuda.device(q_u.device):
+        if out is None:
+            out, lse = torch.empty_like(q_u), _new_lse(q_u)
+            _launch_relpos_sdpa(q_u, k, v, q_v, p_heads, valid, out, scale,
+                                lse)
+        _check_tensor("out", out, q_u.device, torch.bfloat16, q_u.shape)
+        _check_tensor("lse", lse, q_u.device, torch.float32, (b, h, t))
         cuda_lib.check(lib.gigaam_relpos_sdpa_bwd(
             q_u.data_ptr(), k.data_ptr(), v.data_ptr(), q_v.data_ptr(),
-            p_heads.data_ptr(), do.data_ptr(), valid.data_ptr(),
-            dq_u.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_v.data_ptr(),
-            dp.data_ptr(), stats.data_ptr(), b, h, t,
-            1.0 / math.sqrt(D_HEAD), _stream(q_u.device)),
-            "gigaam_relpos_sdpa_bwd")
+            p_heads.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), valid.data_ptr(), dq_u.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dq_v.data_ptr(), dp.data_ptr(), stats.data_ptr(),
+            b, h, t, scale, _stream(q_u.device)), "gigaam_relpos_sdpa_bwd")
     relpos_mha_bwd.launches += 1
     return dq_u, dk, dv, dq_v, dp.to(p_heads.dtype)
 
@@ -584,19 +629,22 @@ relpos_mha_bwd.launches = 0
 
 
 class _FusedRelposMHA(torch.autograd.Function):
-    """K5 with K6 as its gradient; the residuals are the inputs, as in the
-    JAX package's custom VJP."""
+    """K5 with K6 as its gradient.  The residuals are the inputs, as in the
+    JAX package's custom VJP, and the forward's output and log-sum-exp: K6
+    starts from them instead of recomputing the row statistics."""
 
     @staticmethod
-    def forward(ctx, q_u, k, v, q_v, p_heads, valid):
-        ctx.save_for_backward(q_u, k, v, q_v, p_heads, valid)
-        return _relpos_forward(q_u, k, v, q_v, p_heads, valid)
+    def forward(ctx, q_u, k, v, q_v, p_heads, valid, want_lse):
+        out, lse = _relpos_forward(q_u, k, v, q_v, p_heads, valid, want_lse)
+        if want_lse:
+            ctx.save_for_backward(q_u, k, v, q_v, p_heads, valid, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q_u, k, v, q_v, p_heads, valid = ctx.saved_tensors
+        q_u, k, v, q_v, p_heads, valid, out, lse = ctx.saved_tensors
         return relpos_mha_bwd(q_u, k, v, q_v, p_heads, do.contiguous(),
-                              valid) + (None,)
+                              valid, out, lse) + (None, None)
 
 
 def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -607,9 +655,11 @@ def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     projected position table of positions T-1 .. -(T-1), one copy for the
     whole batch; valid [B, T] bool -> [B, H, T, d].  Output rows of invalid
     query positions are garbage, as in the JAX package.  Differentiable in
-    all five: the backward is K6 (``relpos_mha_bwd``).  CUDA: bf16, d = 48,
-    any T."""
-    return _FusedRelposMHA.apply(q_u, k, v, q_v, p_heads, valid)
+    all five: the backward is K6 (``relpos_mha_bwd``), which starts from the
+    output and the rows' log-sum-exp; the log-sum-exp is computed only when
+    a gradient is being recorded.  CUDA: bf16, d = 48, any T."""
+    return _FusedRelposMHA.apply(q_u, k, v, q_v, p_heads, valid,
+                                 _grad_recorded(q_u, k, v, q_v, p_heads))
 
 
 fused_relpos_mha.launches = 0

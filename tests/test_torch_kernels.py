@@ -6,10 +6,12 @@ On the CPU each wrapper runs its plain version, which is held against the
 JAX package's Pallas kernel in interpret mode on valid rows, in fp32
 (atol 1e-4: the same math summed in another order).  The tests marked
 ``gpu`` hold the CUDA kernels against their plain versions on the card in
-bf16 (K3 also its log-sum-exp; K4 from the forward's saved pair and without
-it; two runs of each bit-equal); they skip without one.  The JAX package is imported inside the CPU
-tests only, so that the card's host, which has no JAX, runs the ``gpu``
-tests with ``pytest --noconftest -m gpu tests/test_torch_kernels.py``.
+bf16 (K3 and K5 also their log-sum-exp; K4 and K6 from the forward's saved
+pair and without it; repeated runs bit-equal, but for K6's dp, whose batch
+sum uses atomics); they skip without one.  The JAX package is imported
+inside the CPU tests only, so that the card's host, which has no JAX, runs
+the ``gpu`` tests with
+``pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 """
 
 import math
@@ -275,6 +277,20 @@ K3_K4_SHAPES = [(3, 37), (3, 64), (3, 130), (1, 500), (16, 500), (2, 1125)]
 # accumulate in another order and the kernel uses exp2/log2 approximations
 # (relative 2^-22), so 1e-3 on values of 4 to 12 is wide
 LSE_ATOL = 1e-3
+# K5's scores hold a bias rounded to bf16 from an fp32 product that the
+# kernel sums in another order than the plain version: where the two round
+# apart, one score moves by a bf16 step of the bias (``relpos_bias_step``),
+# and the row's lse by that times the key's probability.  So every row is
+# held to LSE_ATOL plus one such step, and all but a thousandth of the rows
+# (those where a key that carries weight was rounded apart) to LSE_ATOL
+RELPOS_LSE_SHARE = 0.999
+
+
+def relpos_bias_step(q_v, p_heads):
+    """The bf16 spacing at the largest positional term, in the scaled
+    scores' units."""
+    largest = float(fa._relpos_bias(q_v, p_heads).abs().max())
+    return largest * 2.0 ** -7 / math.sqrt(48)
 
 
 @pytest.mark.gpu
@@ -331,8 +347,15 @@ def test_cuda_folds_match_plain(cuda, lnres, b, tt):
                                xb.float().cpu().numpy() if lnres else None)
 
 
+# T' of one tile (64), one row into the second (65) and into the third (129):
+# the first and last tiles' windows reach below row 0 and past row 2T-2 of
+# the position table
+RELPOS_EDGE_SHAPES = [(3, 64), (3, 65), (2, 129)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,tt", [(1, 501), (16, 501), (1, 1126), (3, 77)])
+@pytest.mark.parametrize("b,tt", [(1, 501), (16, 501), (1, 1126), (3, 77)]
+                         + RELPOS_EDGE_SHAPES)
 def test_cuda_k5_matches_plain(cuda, b, tt):
     """K5 on inputs where both score terms matter: q_u, k, q_v and the
     position table at QK_GAIN, so q_u.k and the positional term are of one
@@ -351,9 +374,23 @@ def test_cuda_k5_matches_plain(cuda, b, tt):
     before = fa.fused_relpos_mha.launches
     got = fa.fused_relpos_mha(q_u, k, v, q_v, p_heads, valid_d)
     assert fa.fused_relpos_mha.launches == before + 1
-    ref = fa.relpos_mha_plain(q_u, k, v, q_v, p_heads, valid_d)
+    ref, lse_ref = fa.relpos_mha_plain(q_u, k, v, q_v, p_heads, valid_d,
+                                       return_lse=True)
     assert_within_output_scale(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), valid)
+    # the same launch with the log-sum-exp asked for: the same output bits,
+    # and lse on every row below T
+    args = (q_u, k, v, q_v, p_heads, valid_d)
+    out, lse = fa._relpos_forward(*args, want_lse=True)
+    assert torch.equal(out, got)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, 16, tt)
+    lse_err = (lse - lse_ref).abs()
+    step = relpos_bias_step(q_v, p_heads)
+    assert float(lse_err.max()) <= LSE_ATOL + step
+    assert float((lse_err <= LSE_ATOL).float().mean()) >= RELPOS_LSE_SHARE
+    for _ in range(3):
+        again, lse2 = fa._relpos_forward(*args, want_lse=True)
+        assert torch.equal(again, got) and torch.equal(lse2, lse)
 
 
 # The backward kernels (K4, K6) against their plain versions, per gradient:
@@ -420,15 +457,33 @@ def test_cuda_k4_matches_plain(cuda, b, tt, saved_pair):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,tt", [(16, 501), (8, 750), (2, 1000), (3, 77)])
-def test_cuda_k6_matches_plain(cuda, b, tt):
+@pytest.mark.parametrize("saved_pair", [True, False])
+@pytest.mark.parametrize("b,tt", [(16, 501), (8, 750), (2, 1000), (3, 77)]
+                         + RELPOS_EDGE_SHAPES)
+def test_cuda_k6_matches_plain(cuda, b, tt, saved_pair):
+    """K6 from the forward kernel's own (out, lse), and without the pair
+    (it then runs the forward kernel first), against the plain backward in
+    both of its forms."""
     args, valid = draw_bwd_case(np.random.default_rng(b * tt + 3), b, tt,
                                 cuda, relpos=True)
-    before = fa.relpos_mha_bwd.launches
-    got = fa.relpos_mha_bwd(*args)
+    q_u, k, v, q_v, p_heads, do, valid_d = args
+    fwd_args = (q_u, k, v, q_v, p_heads, valid_d)
+    pair = fa._relpos_forward(*fwd_args, want_lse=True) if saved_pair else ()
+    k5_before, before = fa.fused_relpos_mha.launches, fa.relpos_mha_bwd.launches
+    got = fa.relpos_mha_bwd(*args, *pair)
     assert fa.relpos_mha_bwd.launches == before + 1
-    assert_grads_within_scale(("dq_u", "dk", "dv", "dq_v", "dp"), got,
-                              fa.relpos_mha_bwd_plain(*args), valid)
+    assert fa.fused_relpos_mha.launches == k5_before
+    names = ("dq_u", "dk", "dv", "dq_v", "dp")
+    assert_grads_within_scale(names, got, fa.relpos_mha_bwd_plain(*args),
+                              valid)
+    assert_grads_within_scale(
+        names, got, fa.relpos_mha_bwd_plain(
+            *args, *fa.relpos_mha_plain(*fwd_args, return_lse=True)), valid)
+    # dp's batch sum uses fp32 atomics; the other four give the same bits
+    # every run
+    for _ in range(3):
+        again = fa.relpos_mha_bwd(*args, *pair)
+        assert all(torch.equal(a, g) for a, g in zip(again[:4], got[:4]))
 
 
 @pytest.mark.gpu

@@ -4,8 +4,8 @@ fp32, from the same numpy-seeded inputs and bridged weights.
 * K4 and K6: the plain backward versions against the Pallas backward
   kernels in interpret mode and against ``jax.vjp`` of their XLA twins, on
   valid rows at atol 2e-3 / rtol 1e-3 (the tolerance
-  ``tests/test_pallas_attention.py`` holds the Pallas kernels to); K4 also
-  in the form its kernel computes, from the forward's saved output and
+  ``tests/test_pallas_attention.py`` holds the Pallas kernels to); both also
+  in the form their kernels compute, from the forward's saved output and
   log-sum-exp, in fp32 and in bf16 (tolerance at ``BF16_ATOL``);
   the two ``autograd.Function``s against autograd through the plain forward
   (atol 1e-5) and ``gradcheck`` in float64.
@@ -274,6 +274,141 @@ def test_fused_mha_saves_the_pair_and_its_backward_uses_it(monkeypatch):
     assert asked["want_lse"] is False and plain_out.grad_fn is None
     fa.fused_mha(*args, valid)
     assert asked["want_lse"] is False
+
+
+def test_relpos_mha_plain_lse_is_the_log_sum_exp_of_the_jax_scores():
+    """``relpos_mha_plain(..., return_lse=True)`` against ``logsumexp`` of
+    ``_xla_relpos``'s scores (q_u.k plus the shifted positional term, scaled,
+    key mask added as (mask-1)*1e9), fp32, T no multiple of 64; atol 1e-5:
+    the same sums in another order."""
+    c, valid = attention_case(130, relpos=True)
+    j = {k: jnp.asarray(v) for k, v in c.items()}
+    ac = jnp.einsum("bhqd,bhkd->bhqk", j["q"], j["k"],
+                    preferred_element_type=jnp.float32)
+    bd = jnp.einsum("bhqd,hpd->bhqp", j["q_v"], j["p"],
+                    preferred_element_type=jnp.float32)
+    b, h, tt, pdim = bd.shape
+    bd = jnp.pad(bd, ((0, 0), (0, 0), (0, 0), (1, 0)))
+    bd = bd.reshape(b, h, pdim + 1, tt)[:, :, 1:].reshape(b, h, tt, pdim)
+    mask = jnp.asarray(valid)[:, None, None, :].astype(jnp.float32)
+    s = (ac + bd[..., :tt]) / np.sqrt(48) + (mask - 1.0) * (-pa.NEG_INF)
+    ref = jax.nn.logsumexp(s, axis=-1)
+    args = [t(c[n]) for n in ("q", "k", "v", "q_v", "p")] + [t(valid)]
+    out, lse = fa.relpos_mha_plain(*args, return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (3, 2, 130)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref), atol=1e-5)
+    assert torch.equal(out, fa.relpos_mha_plain(*args))
+    # the output is the JAX twin's: the scores above are the ones it uses
+    twin = pa._xla_relpos(j["q"], j["k"], j["v"], j["q_v"], j["p"],
+                          jnp.asarray(valid), 1.0 / np.sqrt(48))
+    np.testing.assert_allclose(out.numpy(), np.asarray(twin), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("oracle", ["pallas", "xla"])
+@pytest.mark.parametrize("tt", [128, 130])
+def test_relpos_bwd_plain_from_the_saved_pair_matches_jax(tt, oracle, dtype):
+    """K6's arithmetic (P = exp(s - lse), D = rowsum(do out)) from the plain
+    forward's (out, lse), against the Pallas backward in interpret mode and
+    against ``jax.vjp`` of ``_xla_relpos``, on ragged ``valid``; fp32 at the
+    Pallas tests' own tolerance, bf16 at ``BF16_ATOL`` (the pair form's D
+    from the bf16 ``out``, as for K4; dp sums three batch elements, its
+    largest entries are ~20, and stays inside the same limits)."""
+    c, valid = attention_case(tt, relpos=True)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    j = {k: jnp.asarray(v).astype(jdt) for k, v in c.items()}
+    if oracle == "pallas":
+        ref = pa._relpos_bwd_pallas(j["q"], j["k"], j["v"], j["q_v"], j["p"],
+                                    j["do"], jnp.asarray(valid), True)
+    else:
+        _, vjp = jax.vjp(lambda *a: pa._xla_relpos(
+            *a, jnp.asarray(valid), 1.0 / np.sqrt(48)),
+            j["q"], j["k"], j["v"], j["q_v"], j["p"])
+        ref = vjp(j["do"])
+    q, k, v, q_v, p, do = (t(c[n]).to(tdt)
+                           for n in ("q", "k", "v", "q_v", "p", "do"))
+    out, lse = fa.relpos_mha_plain(q, k, v, q_v, p, t(valid), return_lse=True)
+    got = fa.relpos_mha_bwd(q, k, v, q_v, p, do, t(valid), out, lse)
+    assert all(g.dtype == tdt for g in got)
+    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if dtype == "fp32"
+                  else (BF16_ATOL, BF16_RTOL))
+    for name, g, r in zip(("dq_u", "dk", "dv", "dq_v", "dp"), got, ref):
+        g = g.float().numpy()
+        r = np.asarray(r.astype(jnp.float32))
+        if name == "dp":
+            np.testing.assert_allclose(g, r, atol=atol, rtol=rtol,
+                                       err_msg=name)
+            continue
+        for i, n in enumerate(valid.sum(1)):
+            np.testing.assert_allclose(g[i, :, :n], r[i, :, :n], atol=atol,
+                                       rtol=rtol, err_msg=f"{name} row {i}")
+
+
+@pytest.mark.parametrize("tt", [40, 130])
+def test_both_forms_of_the_relpos_plain_backward_agree_in_fp32(tt):
+    """With an fp32 ``out`` D = rowsum(do out) is rowsum(dP P) up to the
+    order of the sums: atol 1e-5 on gradients of size ~1 (dp, a sum over the
+    batch and the queries of entries up to ~20: 5e-5).  One of ``out`` /
+    ``lse`` without the other is refused."""
+    c, valid = attention_case(tt, relpos=True)
+    args = [t(c[n]) for n in ("q", "k", "v", "q_v", "p")]
+    do = t(c["do"])
+    pair = fa.relpos_mha_plain(*args, t(valid), return_lse=True)
+    got = fa.relpos_mha_bwd_plain(*args, do, t(valid), *pair)
+    ref = fa.relpos_mha_bwd_plain(*args, do, t(valid))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(g.numpy(), r.numpy(),
+                                   atol=5e-5 if i == 4 else 1e-5)
+    with pytest.raises(ValueError, match="both or neither"):
+        fa.relpos_mha_bwd(*args, do, t(valid), out=pair[0])
+    with pytest.raises(ValueError, match="both or neither"):
+        fa.relpos_mha_bwd_plain(*args, do, t(valid), lse=pair[1])
+
+
+def test_fused_relpos_mha_saves_the_pair_and_its_backward_uses_it(monkeypatch):
+    """Under autograd ``fused_relpos_mha`` saves (q_u, k, v, q_v, p_heads,
+    valid, out, lse) and hands the pair to ``relpos_mha_bwd``; without a
+    gradient it asks for no lse and saves nothing."""
+    args, valid, do = function_case(True, torch.float32, 2, 2, 40, 16)
+    leaves = [x.clone().requires_grad_() for x in args]
+    out = fa.fused_relpos_mha(*leaves, valid)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 8
+    ref_out, ref_lse = fa.relpos_mha_plain(*args, valid, return_lse=True)
+    assert torch.equal(saved[6], ref_out) and torch.equal(saved[7], ref_lse)
+
+    seen = {}
+    real = fa.relpos_mha_bwd
+
+    def spy(q_u, k, v, q_v, p_heads, do, valid, out=None, lse=None):
+        seen["pair"] = (out, lse)
+        return real(q_u, k, v, q_v, p_heads, do, valid, out, lse)
+
+    monkeypatch.setattr(fa, "relpos_mha_bwd", spy)
+    got = torch.autograd.grad(out, leaves, do)
+    assert seen["pair"][0] is not None and torch.equal(seen["pair"][1], ref_lse)
+    ref = fa.relpos_mha_bwd_plain(*args, do, valid, ref_out, ref_lse)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+    asked = {}
+    real_forward = fa._relpos_forward
+
+    def spy_forward(q_u, k, v, q_v, p_heads, valid, want_lse):
+        asked["want_lse"] = want_lse
+        return real_forward(q_u, k, v, q_v, p_heads, valid, want_lse)
+
+    monkeypatch.setattr(fa, "_relpos_forward", spy_forward)
+    with torch.no_grad():
+        plain_out = fa.fused_relpos_mha(*leaves, valid)
+    assert asked["want_lse"] is False and plain_out.grad_fn is None
+    fa.fused_relpos_mha(*args, valid)
+    assert asked["want_lse"] is False
+    # a gradient wanted by the position table alone is enough to save the pair
+    only_p = list(args)
+    only_p[4] = args[4].clone().requires_grad_()
+    fa.fused_relpos_mha(*only_p, valid)
+    assert asked["want_lse"] is True
 
 
 def function_case(relpos, dtype, b, h, tt, d):
