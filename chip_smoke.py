@@ -12,16 +12,24 @@ Phases, each fatal on failure:
 3. hold each kernel (K3, K2, K1, K5) against its plain PyTorch version at
    the main path's shapes in bf16, show that the check fails for a kernel
    with a planted fault (fed through its inputs: RoPE sign flipped, key mask
-   ignored, 1/sqrt(d_h) missing, q zeroed, LayerNorm skipped; for K5 also
-   q_u/q_v swapped, the shift reversed, the positional term dropped), and
-   time the kernel, its plain version and the library call with CUDA
-   events; K3 and K5 also return their log-sum-exp, held against the plain
-   one and timed with and without;
+   ignored, 1/sqrt(d_h) missing, q zeroed, Wv swapped for Wk, LayerNorm
+   skipped, the residual left out; for K5 also q_u/q_v swapped, the shift
+   reversed, the positional term dropped), and time the kernel, its plain
+   version and the library call with CUDA events; K3 and K5 also return
+   their log-sum-exp, held against the plain one and timed with and
+   without; K1 and K2 at B 1, 8, 16, 32 (T' 500) and B 2, T' 1024, three
+   calls bit-equal, also by the profile's kernel sum, then split into their
+   four stages (row pass, QKV GEMM, K3, output GEMM), each beside its bound
+   and the GEMMs beside the same products as ``F.linear`` calls; then the
+   dispatch A/B: K1 against LN + K2 + the residual add at T' 500 (B 1 to
+   32), K2 against the composed path (``F.linear`` projections around K3)
+   at T' 1024 to 3000 (B 1 and 8);
 4. drive full-width v3_ctc (16 x 768, random weights from a seed, bf16)
    through the user entry points: ``transcribe`` on a 20 s clip (batch 1:
    K2), ``_decode_batch`` on 16 clips of 10-20 s (K1) and ``encode_batch``
-   on a 45 s clip (T' = 1125: K3), asserting from the launch counts that
-   each path went through its kernel, then profiling each call
+   on a 125 s clip (T' = 3125, past the fold: K3), asserting from the
+   launch counts that each path went through its kernel, then profiling
+   each call
    (``torch.profiler``): device busy time, idle share, kernel launches and
    device time by kernel group;
 5. compare the card's bf16 v3_ctc encoder output with the port's own CPU
@@ -90,6 +98,8 @@ from gigaam_tpu_torch.data import AudioDataset, write_manifest
 from gigaam_tpu_torch.models.heads import ctc_log_probs
 from gigaam_tpu_torch.ops import cuda_lib
 from gigaam_tpu_torch.ops import fused_attention as fa
+from gigaam_tpu_torch.ops.attention import rotary_mha
+from gigaam_tpu_torch.ops.conformer_ops import layer_norm
 from gigaam_tpu_torch.ops.precision import full_fp32
 from gigaam_tpu_torch.ops.rotary import rotary_tables
 from gigaam_tpu_torch.train import train as train_cli
@@ -131,13 +141,17 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
+# the inference main path of K3: a clip past the encoder's fold bound
+# (_MAX_FOLD_T = 3000 frames at 25 a second)
+K3_SECONDS, K3_T = 125.0, 3125
 
 # device-time groups of the main-path profile, matched in this order
 PROFILE_GROUPS = (
     # sdpa_kernel matches K5's relpos_sdpa_kernel too
     # and the backward kernels: sdpa_bwd_*, relpos_bwd_*
     ("attention kernels (csrc)",
-     r"sdpa_kernel|qkv_kernel|out_proj_kernel|bwd_dq_kernel|bwd_dkv_kernel"),
+     r"sdpa_kernel|ln_rope_kernel|qkv_kernel|out_proj_kernel|bwd_dq_kernel|"
+     r"bwd_dkv_kernel"),
     ("convolution", r"conv_|convolve|cudnn|winograd|fprop"),
     ("GEMM (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
     ("host-device copies", r"^Memcpy|^Memset"),
@@ -163,6 +177,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, calls: int = 10, attempts: int = 3) -> dict:
+    """Device time per call of ``fn`` by kernel name, from ``calls`` calls
+    under ``torch.profiler`` (after one unprofiled call).  A profile that
+    recorded no device activity is taken again, up to ``attempts`` times;
+    raises if none did."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = defaultdict(float)
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                out[evt.key] += us / 1e3 / calls
+        if out:
+            return out
+    raise AssertionError("the profiler recorded no device time")
 
 
 def bound(n_bytes: float, tensor_ops: float, fp32_ops: float):
@@ -220,7 +257,8 @@ def check_kernel(name: str, got, ref, valid, time_dim: int, faults,
     return err, rel
 
 
-def attention_weights(gen, dev) -> fa.FoldedWeights:
+def attention_params(gen, dev):
+    """(attention module parameters, its LayerNorm's), fp32 on ``dev``."""
     def lin(gain):
         return {"w": torch.randn(D_MODEL, D_MODEL, generator=gen)
                 * (gain / D_MODEL ** 0.5),
@@ -230,8 +268,7 @@ def attention_weights(gen, dev) -> fa.FoldedWeights:
     ln = {"scale": 1.0 + 0.1 * torch.randn(D_MODEL, generator=gen),
           "bias": 0.1 * torch.randn(D_MODEL, generator=gen)}
     attn = {n: {k: v.to(dev) for k, v in p.items()} for n, p in attn.items()}
-    ln = {k: v.to(dev) for k, v in ln.items()}
-    return fa.prepare_folded_weights(attn, ln, N_HEADS, torch.bfloat16)
+    return attn, {k: v.to(dev) for k, v in ln.items()}
 
 
 def attention_input(gen, b: int, t: int, dev) -> torch.Tensor:
@@ -265,8 +302,9 @@ def kernel_phase(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
     rows = {}
     k3 = {}
-    # K3 at T' = 500 (B 1 and 16) and at the main path's T' = 1125 (B 1)
-    for b, t in ((1, 500), (16, 500), (1, 1125)):
+    # K3 at T' = 500 (B 1 and 16, the shape inside K1 and a train step), at
+    # T' = 1125 and at the inference main path's T' = 3125 (B 1)
+    for b, t in ((1, 500), (16, 500), (1, 1125), (1, K3_T)):
         q, k, v = (torch.randn(b, N_HEADS, t, D_HEAD, generator=gen)
                    * gain for gain in (QK_GAIN, QK_GAIN, 1.0))
         q, k, v = (a.to(dev, torch.bfloat16) for a in (q, k, v))
@@ -278,7 +316,7 @@ def kernel_phase(dev) -> dict:
         if not (torch.equal(out2, got) and lse_err <= LSE_ATOL):
             raise AssertionError(f"K3 B={b} T'={t}: lse off by {lse_err} "
                                  f"(limit {LSE_ATOL}) or the output changed")
-        faults = () if (b, t) != (1, 1125) else (
+        faults = () if (b, t) != (1, K3_T) else (
             ("key mask ignored",
              lambda: fa.fused_mha(q, k, v, torch.ones_like(valid))),
             ("1/sqrt(d_h) missing",
@@ -303,28 +341,69 @@ def kernel_phase(dev) -> dict:
               f"{bms:.4f} ms ({by})", flush=True)
         k3[(b, t)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                           library_ms=lib_ms, max_abs_err=err)
-    rows["K3"] = shaped_row(k3, (1, 1125))
+    rows["K3"] = shaped_row(k3, (1, K3_T))
 
-    w = attention_weights(gen, dev)
+    attn, ln = attention_params(gen, dev)
+    w = fa.prepare_folded_weights(attn, ln, N_HEADS, torch.bfloat16)
+    rows.update(fold_kernel_phase(gen, dev, w))
+    fold_stage_phase(gen, dev, w)
+    dispatch_phase(gen, dev, w, attn, ln)
+    rows["K5"] = relpos_kernel_phase(gen, dev)
+    return rows
+
+
+# K1 and K2: the shapes timed (B, T'); the planted faults and the JSON rows
+# at K2's batch 1 and K1's batch 16 (the two main-path calls)
+FOLD_SHAPES = ((1, 500), (8, 500), (16, 500), (32, 500), (2, 1024))
+FOLD_MAIN = {"K2": (1, 500), "K1": (16, 500)}
+
+
+def rope_tables(t: int, dev):
+    cos, sin = rotary_tables(t, D_HEAD, 5000.0)
+    return torch.from_numpy(cos).to(dev), torch.from_numpy(sin).to(dev)
+
+
+def fold_bound(b: int, t: int, lnres: bool):
+    """K1/K2's least time: x in, the output out, the four weights, biases
+    and tables once; the four products and the scores' fp32 work."""
+    m, scores = b * t, b * N_HEADS * t * t
+    n_bytes = (2 * m * D_MODEL * 2 + 4 * D_MODEL * D_MODEL * 2
+               + 6 * D_MODEL * 4 + 2 * t * D_HEAD * 4 + b * t)
+    fp32_ops = 4 * scores + 3 * m * D_MODEL + (8 * m * D_MODEL
+                                               if lnres else 0)
+    return bound(n_bytes, 8 * m * D_MODEL * D_MODEL + 4 * scores * D_HEAD,
+                 fp32_ops)
+
+
+def fold_kernel_phase(gen, dev, w) -> dict:
+    """K2 and K1 against their plain versions at FOLD_SHAPES; times by CUDA
+    events (at batch 1 these read the wrapper's host work) and by the
+    profile's kernel sum."""
     root_dh = math.sqrt(D_HEAD)
     w_unscaled = dataclasses.replace(
         w, wq=(w.wq.float() * root_dh).to(w.wq.dtype), bq=w.bq * root_dh)
     w_q0 = dataclasses.replace(w, wq=torch.zeros_like(w.wq),
                                bq=torch.zeros_like(w.bq))
-    t = 500
-    cos_np, sin_np = rotary_tables(t, D_HEAD, 5000.0)
-    cos, sin = (torch.from_numpy(a).to(dev) for a in (cos_np, sin_np))
+    w_v_is_k = dataclasses.replace(w, wv=w.wk, bv=w.bk)
+    rows = {}
     for name, wrapper, plain, lnres in (
             ("K2", fa.folded_rotary_attention,
              fa.folded_rotary_attention_plain, False),
             ("K1", fa.folded_rotary_attention_lnres,
              fa.folded_rotary_attention_lnres_plain, True)):
-        for b in (1, 16):
+        readings = {}
+        for b, t in FOLD_SHAPES:
+            cos, sin = rope_tables(t, dev)
             x = attention_input(gen, b, t, dev)
             valid = ragged_valid(b, t, dev)
             got = wrapper(w, x, cos, sin, valid, N_HEADS)
             ref = plain(w, x, cos, sin, valid, N_HEADS)
-            faults = () if (name, b) not in (("K2", 1), ("K1", 16)) else (
+            repeat = all(torch.equal(wrapper(w, x, cos, sin, valid, N_HEADS),
+                                     got) for _ in range(3))
+            if not repeat:
+                raise AssertionError(f"{name} B={b} T'={t}: three calls did "
+                                     f"not give the same bits")
+            faults = () if (b, t) != FOLD_MAIN[name] else (
                 ("RoPE sign flipped",
                  lambda: wrapper(w, x, cos, -sin, valid, N_HEADS)),
                 ("key mask ignored",
@@ -333,30 +412,121 @@ def kernel_phase(dev) -> dict:
                 ("1/sqrt(d_h) missing",
                  lambda: wrapper(w_unscaled, x, cos, sin, valid, N_HEADS)),
                 ("q zeroed", lambda: wrapper(w_q0, x, cos, sin, valid, N_HEADS)),
-            ) + ((("LayerNorm skipped", lambda: x + fa.folded_rotary_attention(
-                w, x, cos, sin, valid, N_HEADS)),) if lnres else ())
-            err, rel = check_kernel(f"{name} B={b}", got, ref, valid, 1,
+                ("Wv swapped for Wk",
+                 lambda: wrapper(w_v_is_k, x, cos, sin, valid, N_HEADS)),
+            ) + (((
+                "LayerNorm skipped", lambda: x + fa.folded_rotary_attention(
+                    w, x, cos, sin, valid, N_HEADS)),
+                ("residual left out", lambda: fa.folded_rotary_attention(
+                    w, fa.ln_rope_plain(x, cos, sin, N_HEADS, w.ln_scale,
+                                        w.ln_bias)[0],
+                    cos, sin, valid, N_HEADS))) if lnres else ())
+            err, rel = check_kernel(f"{name} B={b} T'={t}", got, ref, valid, 1,
                                     faults, residual=x if lnres else None)
             ms = time_ms(lambda: wrapper(w, x, cos, sin, valid, N_HEADS))
+            dev_ms = sum(device_ms(
+                lambda: wrapper(w, x, cos, sin, valid, N_HEADS)).values())
             plain_ms = time_ms(lambda: plain(w, x, cos, sin, valid, N_HEADS),
                                iters=5)
-            m, scores = b * t, b * N_HEADS * t * t
-            n_bytes = (2 * m * D_MODEL * 2 + 4 * D_MODEL * D_MODEL * 2
-                       + 6 * D_MODEL * 4 + 2 * t * D_HEAD * 4 + b * t)
-            fp32_ops = 4 * scores + 3 * m * D_MODEL + (8 * m * D_MODEL
-                                                       if lnres else 0)
-            bms, by = bound(n_bytes, 8 * m * D_MODEL * D_MODEL
-                            + 4 * scores * D_HEAD, fp32_ops)
+            bms, by = fold_bound(b, t, lnres)
             print(f"{name} {wrapper.__name__} B={b} T'={t}: max_abs_err "
-                  f"{err:.3e}, {rel:.4f} x RMS (limit {KERNEL_REL}); kernel "
-                  f"{ms:.4f} ms, plain "
+                  f"{err:.3e}, {rel:.4f} x RMS (limit {KERNEL_REL}), three "
+                  f"calls bit-equal; kernel {ms:.4f} ms (events), "
+                  f"{dev_ms:.4f} ms (profile kernel sum), plain "
                   f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-            if (name, b) in (("K2", 1), ("K1", 16)):
-                rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                  bound_by=by, library_ms=None,
-                                  max_abs_err=err, shape=f"B {b}, T' {t}")
-    rows["K5"] = relpos_kernel_phase(gen, dev)
+            readings[(b, t)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                    bound_ms=bms, bound_by=by, library_ms=None,
+                                    max_abs_err=err)
+        rows[name] = shaped_row(readings, FOLD_MAIN[name])
     return rows
+
+
+# the dispatch A/B: K1 against LN + K2 + add at T' 500 over these batches;
+# K2 against the composed path at the long T' over these batches
+DISPATCH_SHORT = (500, (1, 2, 4, 8, 16, 32))
+DISPATCH_LONG = ((1024, 1125, 1500, 2000, 3000), (1, 8))
+
+# the four stages of K1/K2 by kernel name, in launch order
+FOLD_STAGES = (("row pass", "ln_rope_kernel"), ("QKV GEMM", "qkv_kernel"),
+               ("K3 SDPA", "sdpa_kernel"), ("output GEMM", "out_proj_kernel"))
+
+
+def fold_stage_phase(gen, dev, w) -> None:
+    """K1 at B 16 and K2 at B 1 (T' 500), one stage per kernel: its device
+    time (profile), its own bound and, for the GEMMs, the time of the same
+    products as F.linear calls (three [M, 768] x [768, 768] for QKV, one for
+    the output) as the library's yardstick."""
+    for name, wrapper, lnres in (
+            ("K1", fa.folded_rotary_attention_lnres, True),
+            ("K2", fa.folded_rotary_attention, False)):
+        b, t = FOLD_MAIN[name]
+        cos, sin = rope_tables(t, dev)
+        m, scores = b * t, b * N_HEADS * t * t
+        x = attention_input(gen, b, t, dev)
+        valid = ragged_valid(b, t, dev)
+        times = device_ms(lambda: wrapper(w, x, cos, sin, valid, N_HEADS))
+        act = m * D_MODEL * 2
+        bounds = {
+            "row pass": bound((3 if lnres else 2) * act + 2 * t * D_HEAD * 4,
+                              0, (12 if lnres else 4) * m * D_MODEL),
+            "QKV GEMM": bound(5 * act + 3 * D_MODEL * D_MODEL * 2,
+                              6 * m * D_MODEL * D_MODEL, 0),
+            "K3 SDPA": bound(4 * act + b * t, 4 * scores * D_HEAD, 4 * scores),
+            "output GEMM": bound((3 if lnres else 2) * act
+                                 + D_MODEL * D_MODEL * 2,
+                                 2 * m * D_MODEL * D_MODEL, 0)}
+        a = x.reshape(m, D_MODEL)
+        wt = w.wq.t()
+        lib = {"QKV GEMM": sum(device_ms(lambda: [
+                   F.linear(a, wt), F.linear(a, wt), F.linear(a, wt)]).values()),
+               "output GEMM": sum(device_ms(lambda: F.linear(a, wt)).values())}
+        parts = []
+        for stage, kernel in FOLD_STAGES:
+            ms = sum(v for k, v in times.items() if kernel in k)
+            bms, by = bounds[stage]
+            parts.append(f"{stage} {ms:.4f} ms (bound {bms:.4f}, {by}"
+                         + (f"; F.linear {lib[stage]:.4f}" if stage in lib
+                            else "") + ")")
+        print(f"{name} stages B={b} T'={t}: " + ", ".join(parts)
+              + f"; kernel sum {sum(times.values()):.4f} ms", flush=True)
+
+
+def dispatch_phase(gen, dev, w, attn, ln) -> None:
+    """The attention sub-block per layer two ways, device time per call
+    (profile) and CUDA events: at T' 500, K1 against LN + K2 + the residual
+    add (the encoder's _LNRES_MIN_BATCH); at T' 1024 to 3000, K2 against
+    the composed path, F.linear projections around K3 (_MAX_FOLD_T)."""
+    attn16 = {n: {k: v.to(torch.bfloat16) for k, v in p.items()}
+              for n, p in attn.items()}
+
+    def both(fn):
+        return sum(device_ms(fn).values()), time_ms(fn)
+
+    t, batches = DISPATCH_SHORT
+    cos, sin = rope_tables(t, dev)
+    for b in batches:
+        x = attention_input(gen, b, t, dev)
+        valid = ragged_valid(b, t, dev)
+        k1 = both(lambda: fa.folded_rotary_attention_lnres(
+            w, x, cos, sin, valid, N_HEADS))
+        k2 = both(lambda: x + fa.folded_rotary_attention(
+            w, layer_norm(ln, x), cos, sin, valid, N_HEADS))
+        print(f"dispatch T'={t} B={b}: K1 {k1[0]:.4f} ms device / "
+              f"{k1[1]:.4f} events; LN + K2 + add {k2[0]:.4f} / {k2[1]:.4f}; "
+              f"K1 / (LN + K2 + add) device {k1[0] / k2[0]:.3f}", flush=True)
+    for t in DISPATCH_LONG[0]:
+        cos, sin = rope_tables(t, dev)
+        for b in DISPATCH_LONG[1]:
+            y = attention_input(gen, b, t, dev)
+            valid = ragged_valid(b, t, dev)
+            k2 = both(lambda: fa.folded_rotary_attention(
+                w, y, cos, sin, valid, N_HEADS))
+            comp = both(lambda: rotary_mha(attn16, y, cos, sin, valid,
+                                           N_HEADS, use_fused=True))
+            print(f"dispatch T'={t} B={b}: K2 {k2[0]:.4f} ms device / "
+                  f"{k2[1]:.4f} events; composed (F.linear + K3) "
+                  f"{comp[0]:.4f} / {comp[1]:.4f}; K2 / composed device "
+                  f"{k2[0] / comp[0]:.3f}", flush=True)
 
 
 def relpos_kernel_phase(gen, dev) -> dict:
@@ -738,11 +908,11 @@ def main_path(model, rng, card: str) -> dict:
         raise AssertionError("_decode_batch returned a malformed batch")
     print(f"  _decode_batch: 16 results; card {card}", flush=True)
 
-    wav45 = synth_wav(45.0, rng)
+    wav_long = synth_wav(K3_SECONDS, rng)
     (enc, enc_len), launches["K3"] = run_path(
-        "encode_batch 45 s, T'=1125 (K3)",
-        lambda: model.encode_batch([wav45]), "K3", n_layers)
-    if (tuple(enc.shape) != (1, 1125, D_MODEL) or int(enc_len[0]) != 1125
+        f"encode_batch {K3_SECONDS:.0f} s, T'={K3_T} (K3)",
+        lambda: model.encode_batch([wav_long]), "K3", n_layers)
+    if (tuple(enc.shape) != (1, K3_T, D_MODEL) or int(enc_len[0]) != K3_T
             or not bool(torch.isfinite(enc).all())):
         raise AssertionError(f"encode_batch: {tuple(enc.shape)}, "
                              f"len {enc_len.tolist()}")
@@ -803,15 +973,17 @@ def v2_ctc(device=None):
     return model
 
 
-def reference_phase(model, cpu, rng, paths) -> None:
+def reference_phase(model, cpu, rng, paths, long_s: float = 42.0) -> None:
     """CUDA bf16 against the port's CPU fp32 on the same weights, on small
     inputs through each attention path: 4 s at batch 1, 16 clips of 1-2 s
-    and 42 s at batch 1 (T' = 1050, 1051 with v2's centred frames);
-    ``paths`` names the kernel of each."""
+    and ``long_s`` at batch 1 (42 s: T' = 1051 with v2's centred frames;
+    v3 takes K3_SECONDS, past the fold); ``paths`` names the kernel of
+    each."""
     cases = ((f"4 s, batch 1 ({paths[0]})", [synth_wav(4.0, rng)]),
              (f"16 x 1-2 s ({paths[1]})", [synth_wav(s, rng)
                                            for s in np.linspace(1.0, 2.0, 16)]),
-             (f"42 s, batch 1 ({paths[2]})", [synth_wav(42.0, rng)]))
+             (f"{long_s:.0f} s, batch 1 ({paths[2]})",
+              [synth_wav(long_s, rng)]))
     name = model.cfg.model_name
     for label, wavs in cases:
         with torch.inference_mode():
@@ -1085,14 +1257,19 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     logs = []
-    build_s = cuda_lib.build(verbose=True, logs=logs)
+    build_s = cuda_lib.build(verbose=True, logs=logs, force=True)
     print(f"kernel build: {build_s:.1f} s", flush=True)
     resources = cuda_lib.kernel_resources("\n".join(logs))
     print("kernel resources " + json.dumps(resources), flush=True)
     wgmma_kernels = ("sdpa_kernel", "sdpa_bwd_dq_kernel", "sdpa_bwd_dkv_kernel",
                      "relpos_sdpa_kernel", "relpos_bwd_dq_kernel",
-                     "relpos_bwd_dkv_kernel")
-    if not set(wgmma_kernels) <= set(resources):
+                     "relpos_bwd_dkv_kernel", "qkv_kernel<2, 128>",
+                     "qkv_kernel<1, 128>", "out_proj_kernel<2, 128, true>",
+                     "out_proj_kernel<2, 128, false>",
+                     "out_proj_kernel<1, 64, true>",
+                     "out_proj_kernel<1, 64, false>")
+    if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
+                                 "ln_rope_kernel<false>"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
     spilled = [k for k in wgmma_kernels if resources[k]["spill_bytes"]]
     if spilled:
@@ -1110,7 +1287,8 @@ def main() -> int:
     model = gt.load_model("v3_ctc", init="random", seed=0)
     launches = main_path(model, rng, card)
     reference_phase(model, gt.load_model("v3_ctc", init="random", seed=0,
-                                         device="cpu"), rng, ("K2", "K1", "K3"))
+                                         device="cpu"), rng, ("K2", "K1", "K3"),
+                    long_s=K3_SECONDS)
     asr = v2_ctc()
     emo = gt.load_model("emo", init="random", seed=0)
     nonzero_pos_biases(emo, seed=2)

@@ -1,62 +1,94 @@
-// Projection GEMMs of the folded rotary attention module for Hopper (sm_90a).
+// Prologue and epilogue of the folded rotary attention module for Hopper
+// (sm_90a): the row pass (LayerNorm and RoPE), the Q/K/V projection and the
+// output projection.
 //
 // Together with attention.cu these replace the Pallas kernels
 // gigaam_tpu/ops/pallas_attention.py::_fold_rotary_kernel (K2, through
 // _folded_rotary_pallas) and ::_fold_rotary_lnres_kernel (K1, through
 // _folded_lnres_pallas).  The Pallas kernels keep the four 768x768 weights
 // resident in a 100 MB VMEM; an SM has 227 KB of shared memory, so on Hopper
-// the module is three launches: this file's QKV projection (prologue), the
-// SDPA core (attention.cu) and this file's output projection (epilogue).
+// the module is four launches: this file's row pass and QKV GEMM, the SDPA
+// core (attention.cu) and this file's output GEMM.
 //
-// qkv_kernel computes, for every row m = (b, t) of x [B*T, D] (bf16):
-//   xn = LN(x)                        (K1 only: fp32 statistics, eps 1e-5,
-//                                      fp32 scale/bias, rounded to bf16)
-//   xr = bf16(xn * cos[t] + rotate_half(xn) * sin[t])   per 48-wide head
-//   q  = bf16(xr @ Wq + bq),  k = bf16(xr @ Wk + bk),  v = bf16(xn @ Wv + bv)
-// stored in the [B, H, T, 48] layout the SDPA core reads.  Wq and bq arrive
-// pre-scaled by 1/sqrt(48).  The Pallas kernel applies rotate-half as a
-// +-1 permutation matmul (x @ R, _rope_perm_matrix); here it is the index
-// swap with a sign that the permutation stands for, which is exact.
+// What each computes, for every row m = (b, t) of x [B*T, D] (bf16):
+//   ln_rope_kernel   xn = bf16(LN(x))      (K1 only: fp32 statistics, eps
+//                                           1e-5, fp32 scale and bias; K2's
+//                                           xn is x itself and is not written)
+//                    xr = bf16(xn * cos[t] + rotate_half(xn) * sin[t])
+//                                          per 48-wide head
+//   qkv_kernel       q = bf16(xr @ Wq + bq), k = bf16(xr @ Wk + bk),
+//                    v = bf16(xn @ Wv + bv), stored in the [B, H, T, 48]
+//                    layout the SDPA core reads; Wq and bq arrive pre-scaled
+//                    by 1/sqrt(48)
+//   out_proj_kernel  out = bf16(sum_h O[b, h, t] @ Wo[48h:48h+48] + bo), and
+//                    for K1 out = bf16(out + x): the residual added in bf16,
+//                    as the Pallas kernel adds it
+// The Pallas kernel applies rotate-half as a +-1 permutation matmul (x @ R,
+// _rope_perm_matrix); the row pass uses the index swap with a sign that the
+// permutation stands for, which is exact.  Its products and sums are rounded
+// one at a time (__fmul_rn, __fadd_rn), as the plain PyTorch version rounds
+// them, so that given the same xn the two give the same xr.
 //
-// out_proj_kernel computes out = bf16(sum_h O[b, h, t] @ Wo[h] + bo), and for
-// K1 adds the residual in bf16: out = bf16(out + x), as the Pallas kernel does.
-//
-// Bound on the card: each GEMM is [B*T, 768] x [768, 768] with 768-wide
-// rows, ~590 operations per weight byte at B*T = 8000 and ~40 at B*T = 500,
-// so the large batches are bounded by operations and batch 1 by the weight
-// bytes.  Design: 64x64 output tiles, 4 warps of 2x2 WMMA 16x16x16 bf16
-// tiles with fp32 accumulation, K stepped in 48-wide tiles so that one K tile
-// is one head: the RoPE partner column (j +- 24) and the head of the
-// [B, H, T, 48] operand are always inside the tile being loaded.  LN
-// statistics are computed per 64-row block before the K loop and applied
-// while loading A, so the normalized rows never reach device memory.
+// What bounds each stage on the card, and what the design does about it:
+//   * The row pass moves bytes: x in, xn and xr out (~37 MB at B*T = 8000,
+//     ~11 us at 3.35 TB/s).  One warp a row, 16-byte loads and stores; the
+//     LN statistics are taken once per row from registers, the RoPE partner
+//     chunk (j +- 24 within the head) is read back from the warp's copy of
+//     the row in shared memory, and ln_g, ln_b, cos and sin are read once
+//     per row.  The GEMMs then read plain bf16 rows: nothing is recomputed
+//     per output tile (the WMMA kernel this replaces redid LN and RoPE for
+//     every one of a row block's 36 column tiles).
+//   * The GEMMs: [B*T, 768] x [768, 2304] (QKV) and [B*T, 768] x [768, 768]
+//     (output), ~590 operations per weight byte at B*T = 8000 (bounded by
+//     operations) and ~40 at B*T = 500 (by the weight bytes).  What held
+//     them back was the loads: with per-thread `cp.async` copies into the
+//     core-matrix layout, the QKV GEMM took as long without its products as
+//     with them.  So both run on gemm.cuh's TMA ring:
+//     one thread issues bulk tensor copies into swizzled tiles, completion
+//     and release go through `mbarrier`s, and one warpgroup per 64 rows
+//     multiplies with `wgmma` m64n128k16 (m64n64k16 for the small output
+//     grid), the weight read MN-major through the transpose bit (no
+//     transposed copy), fp32 accumulation.
+//   * QKV is one sweep over N = 2304: the block's N tile picks Wq, Wk or Wv
+//     and, with it, A = xr (q, k) or xn (v); 128 divides 768, so no tile
+//     straddles two weights.  K steps by 64: A's 128-byte rows take the
+//     128-byte swizzle.  Three stages of 32 KB (two blocks an SM).
+//   * The output GEMM runs over (b, t-tile), so that head h's A tile is a
+//     [rows, 48] block of O; a K tile is two heads (O's 96-byte rows as
+//     32-byte-swizzled boxes of 16 columns) against Wo's 96 rows of those
+//     heads.  Two stages.
+//   * Grids: 128-row tiles (two warpgroups) when they give at least one
+//     block per SM, else 64-row tiles (and, for the output GEMM, 64-column
+//     tiles), so that batch 1 (B*T = 500) still spreads over the card.
+//   * Each wrapper call encodes its tensor maps on the host (the pointers
+//     change from call to call) and opts each kernel in to its shared memory
+//     once per device.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "gemm.cuh"
 
-using namespace nvcuda;
+
+using namespace gigaam;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+constexpr int kRowWarps = 8;          // rows a block of the row pass
+constexpr int kMaxRowChunks = 4;      // 16-byte chunks a lane holds: D <= 1024
+constexpr int kMaxD = kMaxRowChunks * 32 * 8;
 
-constexpr int kDh = 48;              // head dim == K tile
-constexpr int kBM = 64, kBN = 64, kBK = kDh;
-constexpr int kThreads = 128;        // 4 warps, 2 x 2 over the output tile
-constexpr int kLdA = kBK + 8;        // padded shared-memory row strides
-constexpr int kLdB = kBN + 8;
-constexpr int kLdC = kBN + 4;
-constexpr int kAChunks = kBK / 8;    // 16-byte chunks per A-tile row (6)
-constexpr int kBChunks = kBN / 8;    // and per B-tile row (8)
-
-struct QkvArgs {
-  const bf16* x;
-  const float* ln_g;   // null: no LayerNorm (K2)
+struct RowArgs {
+  const bf16* x;       // [B*T, D]
+  const float* ln_g;   // [D] fp32, or null: no LayerNorm (K2)
   const float* ln_b;
   const float* cos;    // [T, 48] fp32
   const float* sin;
+  bf16* xn;            // [B*T, D], written with LayerNorm only
+  bf16* xr;            // [B*T, D]
+  int m, t, d;
+};
+
+struct QkvArgs {
+  const bf16* xr;      // A of the q and k columns
+  const bf16* xv;      // A of the v columns: xn (K1) or x (K2)
   const bf16* w[3];    // Wq (pre-scaled), Wk, Wv: [D, D] bf16, [in, out]
   const float* bias[3];
   bf16* out[3];        // q, k, v: [B, H, T, 48] bf16
@@ -67,9 +99,9 @@ struct OutArgs {
   const bf16* o;       // [B, H, T, 48] bf16
   const bf16* w;       // Wo [D, D] bf16
   const float* bias;   // bo [D] fp32
-  const bf16* residual;  // null: no residual (K2)
+  const bf16* residual;  // [B*T, D], or null: no residual (K2)
   bf16* out;           // [B*T, D] bf16
-  int m, t, d, n_heads;
+  int t, d, n_heads;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -92,239 +124,413 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
-// LayerNorm statistics of rows [m0, m0 + 64): warp w takes 16 rows
-__device__ void row_stats(const bf16* x, int m_total, int d, int m0,
-                          float* mean_s, float* rstd_s) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rr = 0; rr < kBM / 4; ++rr) {
-    const int r = warp * (kBM / 4) + rr, m = m0 + r;
-    float mean = 0.f, var = 0.f;
-    if (m < m_total) {
-      const bf16* row = x + (size_t)m * d;
-      float f[8], s = 0.f;
-      for (int c = lane; c < d / 8; c += 32) {
-        unpack8(*reinterpret_cast<const uint4*>(row + c * 8), f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += f[e];
-      }
-      mean = warp_sum(s) / d;
-      float s2 = 0.f;
-      for (int c = lane; c < d / 8; c += 32) {
-        unpack8(*reinterpret_cast<const uint4*>(row + c * 8), f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s2 += (f[e] - mean) * (f[e] - mean);
-      }
-      var = warp_sum(s2) / d;
-    }
-    if (lane == 0) {
-      mean_s[r] = mean;
-      rstd_s[r] = rsqrtf(var + 1e-5f);
-    }
-  }
+__device__ __forceinline__ void load8f(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// 8 consecutive LN'd (or raw) inputs of row m at columns col..col+7, rounded
-// to bf16 as the Pallas kernel rounds xn before the body
+// One warp a row; lane l holds the row's 16-byte chunks l, l + 32, ...
 template <bool kLn>
-__device__ __forceinline__ void load_input8(const QkvArgs& a, int m, int col,
-                                            float mean, float rstd, float* f) {
-  unpack8(*reinterpret_cast<const uint4*>(a.x + (size_t)m * a.d + col), f);
+__global__ void __launch_bounds__(kRowWarps * 32) ln_rope_kernel(RowArgs a) {
+  __shared__ __align__(16) bf16 rows[kRowWarps][kMaxD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kRowWarps + warp;
+  if (m >= a.m) return;
+  const int n_chunks = a.d / 8;
+  const bf16* xrow = a.x + (size_t)m * a.d;
+  float v[kMaxRowChunks][8];
+#pragma unroll
+  for (int i = 0; i < kMaxRowChunks; ++i) {
+    const int c = lane + 32 * i;
+    if (c < n_chunks) unpack8(*reinterpret_cast<const uint4*>(xrow + c * 8), v[i]);
+  }
   if (kLn) {
+    float s = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      f[e] = __bfloat162float(__float2bfloat16(
-          (f[e] - mean) * rstd * a.ln_g[col + e] + a.ln_b[col + e]));
-  }
-}
-
-// B tile: rows [k0, k0 + 48) x cols [n0, n0 + 64) of a [D, D] weight
-__device__ __forceinline__ void load_weight_tile(bf16* bs, const bf16* w,
-                                                 int d, int k0, int n0) {
-  for (int i = threadIdx.x; i < kBK * kBChunks; i += kThreads) {
-    const int r = i / kBChunks, c = i % kBChunks;
-    *reinterpret_cast<uint4*>(bs + r * kLdB + c * 8) =
-        *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * d + n0 + c * 8);
-  }
-}
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// acc[i][j] += A_tile[warp rows] . B_tile[warp cols]
-__device__ __forceinline__ void mma_tile(const bf16* as, const bf16* bs,
-                                         Acc (&acc)[2][2]) {
-  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+    for (int i = 0; i < kMaxRowChunks; ++i)
+      if (lane + 32 * i < n_chunks)
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+        for (int e = 0; e < 8; ++e) s += v[i][e];
+    const float mean = warp_sum(s) / a.d;
+    float s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(af[i], as + (wm * 32 + i * 16) * kLdA + kk * 16, kLdA);
+    for (int i = 0; i < kMaxRowChunks; ++i)
+      if (lane + 32 * i < n_chunks)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(bfr[j], bs + kk * 16 * kLdB + wn * 32 + j * 16, kLdB);
+        for (int e = 0; e < 8; ++e) s2 += (v[i][e] - mean) * (v[i][e] - mean);
+    const float rstd = rsqrtf(warp_sum(s2) / a.d + 1e-5f);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < kMaxRowChunks; ++i) {
+      const int c = lane + 32 * i;
+      if (c < n_chunks) {
+        float g[8], b[8];
+        load8f(a.ln_g + c * 8, g);
+        load8f(a.ln_b + c * 8, b);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_acc(float* cs, Acc (&acc)[2][2]) {
-  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kLdC + wn * 32 + j * 16,
-                              acc[i][j], kLdC, wmma::mem_row_major);
-}
-
-template <bool kLn>
-__global__ void __launch_bounds__(kThreads) qkv_kernel(QkvArgs a) {
-  __shared__ __align__(128) bf16 as[kBM * kLdA];
-  __shared__ __align__(128) bf16 bs[kBK * kLdB];
-  __shared__ __align__(128) float cs[kBM * kLdC];
-  __shared__ float mean_s[kBM], rstd_s[kBM];
-
-  const int which = blockIdx.z;          // 0: q, 1: k (rotated), 2: v
-  const bool rope = which < 2;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  if (kLn) {
-    row_stats(a.x, a.m, a.d, m0, mean_s, rstd_s);
-    __syncthreads();
-  }
-
-  Acc acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < a.d; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kAChunks; i += kThreads) {
-      const int r = i / kAChunks, c = i % kAChunks, m = m0 + r;
-      float y[8];
-      if (m < a.m) {
-        const float mean = kLn ? mean_s[r] : 0.f, rstd = kLn ? rstd_s[r] : 1.f;
-        float xv[8];
-        load_input8<kLn>(a, m, k0 + c * 8, mean, rstd, xv);
-        if (rope) {
-          // rotate_half within the head: column j takes -x[j+24] (j < 24)
-          // or x[j-24] (j >= 24); 24 columns are 3 chunks
-          float pv[8];
-          load_input8<kLn>(a, m, k0 + ((c + 3) % kAChunks) * 8, mean, rstd, pv);
-          const float sgn = c < kAChunks / 2 ? -1.f : 1.f;
-          const int t = m % a.t;
-          const float* cr = a.cos + t * kDh + c * 8;
-          const float* sr = a.sin + t * kDh + c * 8;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) y[e] = xv[e] * cr[e] + (sgn * pv[e]) * sr[e];
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) y[e] = xv[e];
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) y[e] = 0.f;
+        for (int e = 0; e < 8; ++e)
+          v[i][e] = __bfloat162float(__float2bfloat16(__fadd_rn(
+              __fmul_rn(__fmul_rn(__fsub_rn(v[i][e], mean), rstd), g[e]),
+              b[e])));
+        *reinterpret_cast<uint4*>(a.xn + (size_t)m * a.d + c * 8) = pack8(v[i]);
       }
-      *reinterpret_cast<uint4*>(as + r * kLdA + c * 8) = pack8(y);
     }
-    load_weight_tile(bs, a.w[which], a.d, k0, n0);
-    __syncthreads();
-    mma_tile(as, bs, acc);
-    __syncthreads();
   }
+  // the row as bf16 (exact: v holds bf16 values) for the partner reads
+#pragma unroll
+  for (int i = 0; i < kMaxRowChunks; ++i) {
+    const int c = lane + 32 * i;
+    if (c < n_chunks) *reinterpret_cast<uint4*>(&rows[warp][c * 8]) = pack8(v[i]);
+  }
+  __syncwarp();
+  const int t = m % a.t;
+#pragma unroll
+  for (int i = 0; i < kMaxRowChunks; ++i) {
+    const int c = lane + 32 * i;
+    if (c < n_chunks) {
+      // rotate_half within the head: chunk j < 3 of the head takes -x of
+      // chunk j + 3, chunk j >= 3 takes x of chunk j - 3
+      const int j = c % kChunks;
+      const int partner = j < kChunks / 2 ? c + kChunks / 2 : c - kChunks / 2;
+      float p[8], cs[8], sn[8], y[8];
+      unpack8(*reinterpret_cast<const uint4*>(&rows[warp][partner * 8]), p);
+      load8f(a.cos + t * kD + j * 8, cs);
+      load8f(a.sin + t * kD + j * 8, sn);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float rot = j < kChunks / 2 ? -p[e] : p[e];
+        y[e] = __fadd_rn(__fmul_rn(v[i][e], cs[e]), __fmul_rn(rot, sn[e]));
+      }
+      *reinterpret_cast<uint4*>(a.xr + (size_t)m * a.d + c * 8) = pack8(y);
+    }
+  }
+}
 
-  store_acc(cs, acc);
-  __syncthreads();
-  const float* bias = a.bias[which];
+// ---------------------------------------------------------------------------
+// the GEMMs
+// ---------------------------------------------------------------------------
+
+constexpr int kSmemAlign = 1024;   // swizzle atoms start on 1024 bytes
+
+template <int kWG, int kBN>
+struct QkvTile {
+  static constexpr int kBM = 64 * kWG, kBK = 64, kStages = 3;
+  static constexpr int kABytes = kBM * kBK * 2, kBBytes = kBK * kBN * 2;
+  static constexpr int kSmem = kStages * (kABytes + kBBytes) + kSmemAlign;
+};
+
+// a K tile is kHeads heads of O (48 columns each) against Wo's 48 kHeads
+// rows, which follow each other
+template <int kWG, int kBN>
+struct OutTile {
+  static constexpr int kBM = 64 * kWG, kHeads = 2, kStages = 2;
+  static constexpr int kBK = kD * kHeads;
+  static constexpr int kABytes = kBM * kBK * 2, kBBytes = kBK * kBN * 2;
+  static constexpr int kSmem = kStages * (kABytes + kBBytes) + kSmemAlign;
+};
+
+struct QkvMaps {
+  CUtensorMap a[2];   // xr, then xv: [M, D], boxes [64 kWG rows, 64], 128 B swizzle
+  CUtensorMap w[3];   // Wq, Wk, Wv: [D, D], boxes [64 rows, 64 columns], 128 B swizzle
+};
+
+struct OutMaps {
+  CUtensorMap o;      // O as [B*H, T, 48], boxes [1, 64 kWG, 16], 32 B swizzle
+  CUtensorMap w;      // Wo: [D, D], boxes [48 rows, 64 columns], 128 B swizzle
+};
+
+__device__ __forceinline__ uint32_t aligned_smem(unsigned char* smem) {
+  return (smem_u32(smem) + kSmemAlign - 1) & ~uint32_t(kSmemAlign - 1);
+}
+
+// B: k-step kk of kBN / 64 MN-major boxes of [kBK rows, 64 columns]
+template <int kBK>
+__device__ __forceinline__ uint64_t weight_desc(uint32_t b, int kk) {
+  return swizzled_desc(b + kk * 2048, kBK * 128, 1024, kSwizzle128);
+}
+
+// grid (3 D / kBN column tiles, row tiles of 64 kWG)
+template <int kWG, int kBN>
+__global__ void __launch_bounds__(kWG * kThreads)
+qkv_kernel(const __grid_constant__ QkvMaps maps, QkvArgs a) {
+  using Tile = QkvTile<kWG, kBN>;
+  extern __shared__ unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[Tile::kStages], empty[Tile::kStages];
+  const int tiles_per_w = a.d / kBN;
+  const int which = blockIdx.x / tiles_per_w;   // 0: q, 1: k, 2: v
+  const int n0 = (blockIdx.x % tiles_per_w) * kBN;
+  const int m0 = blockIdx.y * Tile::kBM;
+  const int wg = threadIdx.x / kThreads;
+  const CUtensorMap* map_a = &maps.a[which < 2 ? 0 : 1];
+  const CUtensorMap* map_w = &maps.w[which];
+
+  float acc[kBN / 2];
+  gemm_tma_ring<kWG, kBN, Tile::kBK, Tile::kStages, Tile::kABytes,
+                Tile::kBBytes>(
+      acc, aligned_smem(smem), full, empty, a.d / Tile::kBK,
+      [&](uint32_t sa, uint32_t sb, int kt, uint32_t bar) {
+        tma_load_2d(sa, map_a, kt * Tile::kBK, m0, bar);
+#pragma unroll
+        for (int j = 0; j < kBN / 64; ++j)
+          tma_load_2d(sb + j * Tile::kBK * 128, map_w, n0 + 64 * j,
+                      kt * Tile::kBK, bar);
+      },
+      [&](uint32_t sa, int kk) {
+        return swizzled_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024,
+                             kSwizzle128);
+      },
+      [&](uint32_t sb, int kk) { return weight_desc<Tile::kBK>(sb, kk); });
+
+  const int row0 = m0 + wg * 64;
   bf16* out = a.out[which];
-  for (int i = threadIdx.x; i < kBM * kBChunks; i += kThreads) {
-    const int r = i / kBChunks, c = i % kBChunks, m = m0 + r;
-    if (m >= a.m) continue;
-    const int n = n0 + c * 8;            // 8 columns never straddle a head
-    const int h = n / kDh, dd = n % kDh, b = m / a.t, t = m % a.t;
-    float y[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) y[e] = cs[r * kLdC + c * 8 + e] + bias[n + e];
+  store_tile_chunks<kBN>(acc, a.bias[which] + n0,
+                         [&](int row, int chunk, uint4 val) {
+    const int m = row0 + row;
+    if (m >= a.m) return;
+    const int n = n0 + chunk * 8;        // 8 columns never straddle a head
+    const int b = m / a.t, t = m % a.t;
     *reinterpret_cast<uint4*>(
-        out + (((size_t)b * a.n_heads + h) * a.t + t) * kDh + dd) = pack8(y);
-  }
+        out + (((size_t)b * a.n_heads + n / kD) * a.t + t) * kD + n % kD) = val;
+  });
 }
 
-template <bool kRes>
-__global__ void __launch_bounds__(kThreads) out_proj_kernel(OutArgs a) {
-  __shared__ __align__(128) bf16 as[kBM * kLdA];
-  __shared__ __align__(128) bf16 bs[kBK * kLdB];
-  __shared__ __align__(128) float cs[kBM * kLdC];
+// grid (D / kBN column tiles, B * row tiles of 64 kWG per batch element)
+template <int kWG, int kBN, bool kRes>
+__global__ void __launch_bounds__(kWG * kThreads)
+out_proj_kernel(const __grid_constant__ OutMaps maps, OutArgs a) {
+  using Tile = OutTile<kWG, kBN>;
+  extern __shared__ unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[Tile::kStages], empty[Tile::kStages];
+  const int tiles_per_b = (a.t + Tile::kBM - 1) / Tile::kBM;
+  const int b = blockIdx.y / tiles_per_b;
+  const int t0 = (blockIdx.y % tiles_per_b) * Tile::kBM;
+  const int n0 = blockIdx.x * kBN;
+  const int wg = threadIdx.x / kThreads;
+  constexpr int kBoxA = Tile::kBM * 32;   // one 16-column box of O
 
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  Acc acc[2][2];
+  float acc[kBN / 2];
+  gemm_tma_ring<kWG, kBN, Tile::kBK, Tile::kStages, Tile::kABytes,
+                Tile::kBBytes>(
+      acc, aligned_smem(smem), full, empty, a.n_heads / Tile::kHeads,
+      [&](uint32_t sa, uint32_t sb, int kt, uint32_t bar) {
+        const int h0 = kt * Tile::kHeads;
+        // box i: columns 16 (i % 3) .. 16 (i % 3) + 15 of head h0 + i / 3
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < Tile::kBK / 16; ++i)
+          tma_load_3d(sa + i * kBoxA, &maps.o, 16 * (i % 3), t0,
+                      b * a.n_heads + h0 + i / 3, bar);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+        for (int j = 0; j < kBN / 64; ++j)
+          tma_load_2d(sb + j * Tile::kBK * 128, &maps.w, n0 + 64 * j,
+                      h0 * kD, bar);
+      },
+      [&](uint32_t sa, int kk) {
+        return swizzled_desc(sa + kk * kBoxA + wg * 64 * 32, 16, 256,
+                             kSwizzle32);
+      },
+      [&](uint32_t sb, int kk) { return weight_desc<Tile::kBK>(sb, kk); });
 
-  for (int k0 = 0; k0 < a.d; k0 += kBK) {
-    const int h = k0 / kDh;              // one K tile is one head
-    for (int i = threadIdx.x; i < kBM * kAChunks; i += kThreads) {
-      const int r = i / kAChunks, c = i % kAChunks, m = m0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (m < a.m) {
-        const int b = m / a.t, t = m % a.t;
-        val = *reinterpret_cast<const uint4*>(
-            a.o + (((size_t)b * a.n_heads + h) * a.t + t) * kDh + c * 8);
-      }
-      *reinterpret_cast<uint4*>(as + r * kLdA + c * 8) = val;
-    }
-    load_weight_tile(bs, a.w, a.d, k0, n0);
-    __syncthreads();
-    mma_tile(as, bs, acc);
-    __syncthreads();
-  }
-
-  store_acc(cs, acc);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBChunks; i += kThreads) {
-    const int r = i / kBChunks, c = i % kBChunks, m = m0 + r;
-    if (m >= a.m) continue;
-    const int n = n0 + c * 8;
-    float y[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) y[e] = cs[r * kLdC + c * 8 + e] + a.bias[n + e];
+  const int row0 = t0 + wg * 64;
+  store_tile_chunks<kBN>(acc, a.bias + n0, [&](int row, int chunk, uint4 val) {
+    const int t = row0 + row;
+    if (t >= a.t) return;
+    const size_t at = ((size_t)b * a.t + t) * a.d + n0 + chunk * 8;
     if (kRes) {
       // the module output is rounded to bf16 first, then the residual is
       // added in bf16 (rounded once more)
-      float res[8];
-      unpack8(*reinterpret_cast<const uint4*>(a.residual + (size_t)m * a.d + n), res);
+      float y[8], res[8];
+      unpack8(val, y);
+      unpack8(*reinterpret_cast<const uint4*>(a.residual + at), res);
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        y[e] = __bfloat162float(__float2bfloat16(y[e])) + res[e];
+      for (int e = 0; e < 8; ++e) y[e] = __fadd_rn(y[e], res[e]);
+      val = pack8(y);
     }
-    *reinterpret_cast<uint4*>(a.out + (size_t)m * a.d + n) = pack8(y);
+    *reinterpret_cast<uint4*>(a.out + at) = val;
+  });
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link
+// to libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dimensions (innermost first), byte strides of
+// dimensions 1.., the box and its swizzle; false on failure.  Boxes reaching
+// past the tensor are zero-filled.
+bool bf16_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [rows, cols] row-major, boxes [box_rows, 64 columns] with the 128 B swizzle
+bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
+                int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return bf16_map(map, base, 2, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
+int sm_count() {
+  static int counts[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev >= kMaxDevices) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// Launches kKernel after opting it in to `smem` bytes of dynamic shared
+// memory, once per device.
+template <auto kKernel, typename Maps, typename Args>
+cudaError_t launch(dim3 grid, int threads, int smem, cudaStream_t s,
+                   const Maps& maps, const Args& args) {
+  static bool opted_in[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
   }
+  kKernel<<<grid, threads, smem, s>>>(maps, args);
+  return cudaGetLastError();
+}
+
+template <int kWG, int kBN>
+cudaError_t launch_qkv(const QkvArgs& a, cudaStream_t s) {
+  using Tile = QkvTile<kWG, kBN>;
+  QkvMaps maps;
+  bool ok = matrix_map(&maps.a[0], a.xr, a.m, a.d, Tile::kBM) &&
+            matrix_map(&maps.a[1], a.xv, a.m, a.d, Tile::kBM);
+  for (int i = 0; i < 3; ++i)
+    ok = ok && matrix_map(&maps.w[i], a.w[i], a.d, a.d, Tile::kBK);
+  if (!ok) return cudaErrorInvalidValue;
+  dim3 grid(3 * a.d / kBN, (a.m + Tile::kBM - 1) / Tile::kBM);
+  return launch<qkv_kernel<kWG, kBN>>(grid, kWG * kThreads, Tile::kSmem, s,
+                                     maps, a);
+}
+
+template <int kWG, int kBN>
+cudaError_t launch_out(const OutArgs& a, int batch, cudaStream_t s) {
+  using Tile = OutTile<kWG, kBN>;
+  OutMaps maps;
+  const cuuint64_t dims[3] = {kD, (cuuint64_t)a.t,
+                              (cuuint64_t)batch * a.n_heads};
+  const cuuint64_t strides[2] = {kD * 2, (cuuint64_t)a.t * kD * 2};
+  const cuuint32_t box[3] = {16, (cuuint32_t)Tile::kBM, 1};
+  if (!bf16_map(&maps.o, a.o, 3, dims, strides, box,
+                CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !matrix_map(&maps.w, a.w, a.d, a.d, Tile::kBK))
+    return cudaErrorInvalidValue;
+  dim3 grid(a.d / kBN, batch * ((a.t + Tile::kBM - 1) / Tile::kBM));
+  if (a.residual != nullptr)
+    return launch<out_proj_kernel<kWG, kBN, true>>(grid, kWG * kThreads,
+                                                   Tile::kSmem, s, maps, a);
+  return launch<out_proj_kernel<kWG, kBN, false>>(grid, kWG * kThreads,
+                                                  Tile::kSmem, s, maps, a);
+}
+
+// 128-row tiles when they give every SM a block, else 64-row tiles
+bool wide_rows(int row_tiles_of_128, int col_tiles) {
+  return row_tiles_of_128 * col_tiles >= sm_count();
+}
+
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
+                                                       threads, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: [B*T, D] bf16; ln_g/ln_b: [D] fp32 or both null; cos/sin: [T, 48] fp32;
-// w*: [D, D] bf16; b*: [D] fp32; q/k/v: [B, H, T, 48] bf16.  D % 64 == 0,
-// D == 48 * n_heads, all pointers 16-byte aligned.  Returns cudaGetLastError().
-int gigaam_qkv_proj(const void* x, const void* ln_g, const void* ln_b,
-                    const void* cos, const void* sin, const void* wq,
-                    const void* wk, const void* wv, const void* bq,
-                    const void* bk, const void* bv, void* q, void* k, void* v,
-                    int batch, int t, int d, int n_heads, void* stream) {
-  QkvArgs a;
+// x: [B*T, D] bf16; ln_g/ln_b: [D] fp32, or both null (no LayerNorm; xn is
+// then not written and may be null); cos/sin: [T, 48] fp32; xn, xr: [B*T, D]
+// bf16.  D % 48 == 0, D <= 1024, all pointers 16-byte aligned.  Returns
+// cudaGetLastError().
+int gigaam_ln_rope(const void* x, const void* ln_g, const void* ln_b,
+                   const void* cos, const void* sin, void* xn, void* xr,
+                   int m, int t, int d, void* stream) {
+  RowArgs a;
   a.x = static_cast<const bf16*>(x);
   a.ln_g = static_cast<const float*>(ln_g);
   a.ln_b = static_cast<const float*>(ln_b);
   a.cos = static_cast<const float*>(cos);
   a.sin = static_cast<const float*>(sin);
+  a.xn = static_cast<bf16*>(xn);
+  a.xr = static_cast<bf16*>(xr);
+  a.m = m;
+  a.t = t;
+  a.d = d;
+  const dim3 grid((m + kRowWarps - 1) / kRowWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ln_g != nullptr)
+    ln_rope_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(a);
+  else
+    ln_rope_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xr, xv: [B*T, D] bf16 (the A of the q/k and of the v columns); w*: [D, D]
+// bf16; b*: [D] fp32; q/k/v: [B, H, T, 48] bf16.  D % 128 == 0,
+// D == 48 * n_heads, all pointers 16-byte aligned.  Returns the CUDA error
+// code of the shared-memory opt-in or of the launch.
+int gigaam_qkv_proj(const void* xr, const void* xv, const void* wq,
+                    const void* wk, const void* wv, const void* bq,
+                    const void* bk, const void* bv, void* q, void* k, void* v,
+                    int batch, int t, int d, int n_heads, void* stream) {
+  QkvArgs a;
+  a.xr = static_cast<const bf16*>(xr);
+  a.xv = static_cast<const bf16*>(xv);
   a.w[0] = static_cast<const bf16*>(wq);
   a.w[1] = static_cast<const bf16*>(wk);
   a.w[2] = static_cast<const bf16*>(wv);
@@ -338,17 +544,15 @@ int gigaam_qkv_proj(const void* x, const void* ln_g, const void* ln_b,
   a.t = t;
   a.d = d;
   a.n_heads = n_heads;
-  dim3 grid(d / kBN, (a.m + kBM - 1) / kBM, 3);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ln_g != nullptr)
-    qkv_kernel<true><<<grid, kThreads, 0, s>>>(a);
-  else
-    qkv_kernel<false><<<grid, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(wide_rows((a.m + 127) / 128, 3 * d / 128)
+                              ? launch_qkv<2, 128>(a, s)
+                              : launch_qkv<1, 128>(a, s));
 }
 
 // o: [B, H, T, 48] bf16; wo: [D, D] bf16; bo: [D] fp32; residual: [B*T, D]
-// bf16 or null; out: [B*T, D] bf16.  Returns cudaGetLastError().
+// bf16 or null; out: [B*T, D] bf16.  D % 128 == 0, D == 48 * n_heads.
+// Returns the CUDA error code of the shared-memory opt-in or of the launch.
 int gigaam_out_proj(const void* o, const void* wo, const void* bo,
                     const void* residual, void* out, int batch, int t, int d,
                     int n_heads, void* stream) {
@@ -358,17 +562,30 @@ int gigaam_out_proj(const void* o, const void* wo, const void* bo,
   a.bias = static_cast<const float*>(bo);
   a.residual = static_cast<const bf16*>(residual);
   a.out = static_cast<bf16*>(out);
-  a.m = batch * t;
   a.t = t;
   a.d = d;
   a.n_heads = n_heads;
-  dim3 grid(d / kBN, (a.m + kBM - 1) / kBM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (residual != nullptr)
-    out_proj_kernel<true><<<grid, kThreads, 0, s>>>(a);
-  else
-    out_proj_kernel<false><<<grid, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(wide_rows(batch * ((t + 127) / 128), d / 128)
+                              ? launch_out<2, 128>(a, batch, s)
+                              : launch_out<1, 64>(a, batch, s));
+}
+
+// For each GEMM configuration (qkv <2, 128>, qkv <1, 128>, out <2, 128>,
+// out <1, 64>): out[2 i] its dynamic shared memory in bytes, out[2 i + 1]
+// how many of its blocks one SM holds at a time.  Returns a CUDA error code.
+int gigaam_projection_occupancy(int* out) {
+  cudaError_t err;
+  if ((err = occupancy(qkv_kernel<2, 128>, 2 * kThreads,
+                       QkvTile<2, 128>::kSmem, out)) != cudaSuccess ||
+      (err = occupancy(qkv_kernel<1, 128>, kThreads, QkvTile<1, 128>::kSmem,
+                       out + 2)) != cudaSuccess ||
+      (err = occupancy(out_proj_kernel<2, 128, true>, 2 * kThreads,
+                       OutTile<2, 128>::kSmem, out + 4)) != cudaSuccess ||
+      (err = occupancy(out_proj_kernel<1, 64, true>, kThreads,
+                       OutTile<1, 64>::kSmem, out + 6)) != cudaSuccess)
+    return static_cast<int>(err);
+  return 0;
 }
 
 }  // extern "C"

@@ -37,13 +37,18 @@ from ..ops.fused_attention import (
 )
 from ..ops.rotary import rotary_tables
 
-# Attention dispatch thresholds, copied from the JAX package
-# (``pallas_attention.py::_MAX_FOLD_T``, ``encoder.py::_LNRES_MIN_BATCH``).
-# Both were measured on a TPU v5e and have not been re-measured on the H100:
-# the Hopper fold has no VMEM bound, and whether K1 or K2 wins at a given
-# batch is an open A/B on the card (ROADMAP).
-_MAX_FOLD_T = 1024       # fold the attention module when T' <= this
-_LNRES_MIN_BATCH = 16    # fold LN + residual too (K1) from this batch on
+# Attention dispatch thresholds, measured on the card (NVIDIA H100 80GB HBM3,
+# 700 W; chip_smoke.py's dispatch A/B, device time per call of the attention
+# sub-block).  The JAX package's values (1024 and 16, pallas_attention.py::
+# _MAX_FOLD_T, encoder.py::_LNRES_MIN_BATCH) were a TPU v5e's VMEM bound and
+# timings.  On the H100 the fold (K2) took 0.60-0.79 of the composed path's
+# time (F.linear projections around K3) at every T' measured, 1024 to 3000,
+# batch 1 and 8, so it folds up to the longest T' measured; K1 took
+# 0.57-0.64 of LN + K2 + the residual add at every batch measured, 1 to 32
+# (T' 500), so it runs from batch 2 on.  Batch 1 keeps K2, which is its
+# only main path (K1 would save ~0.03 ms a layer there: ROADMAP, Queue 2).
+_MAX_FOLD_T = 3000       # fold the attention module when T' <= this
+_LNRES_MIN_BATCH = 2     # fold LN + residual too (K1) from this batch on
 
 # the positional input of a forward: (cos, sin) [T', d_head] for rotary, the
 # [2T'-1, D] table for rel-pos; both fp32

@@ -33,8 +33,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_sdpa": [_P] * 6 + [_I] * 3 + [_F, _P],
     },
     "projection": {
-        "gigaam_qkv_proj": [_P] * 14 + [_I] * 4 + [_P],
+        "gigaam_ln_rope": [_P] * 7 + [_I] * 3 + [_P],
+        "gigaam_qkv_proj": [_P] * 11 + [_I] * 4 + [_P],
         "gigaam_out_proj": [_P] * 5 + [_I] * 4 + [_P],
+        "gigaam_projection_occupancy": [_P],
     },
     "relpos_attention": {
         "gigaam_relpos_sdpa": [_P] * 8 + [_I] * 3 + [_F, _P],
@@ -77,15 +79,15 @@ def _stale(name: str) -> bool:
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False,
-          logs: Optional[List[str]] = None) -> float:
-    """Compile every stale source in ``names``, one ``nvcc`` process each,
-    all started together.  Returns the wall seconds spent; raises with the
+          logs: Optional[List[str]] = None, force: bool = False) -> float:
+    """Compile every stale source in ``names`` (every one with ``force``),
+    one ``nvcc`` process each, all started together.  Returns the wall seconds spent; raises with the
     compiler's output if any build fails.  ``verbose`` adds ``-Xptxas -v``
     and prints what the compiler reports (registers, shared memory, spills);
     each compiler's output is also appended to ``logs`` when given, for
     ``kernel_resources``.
     """
-    todo = [n for n in names if _stale(n)]
+    todo = [n for n in names if force or _stale(n)]
     if not todo:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -128,27 +130,44 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
         r"(\d+) bytes smem)?", re.S)
     for mangled, st, ld, regs, smem in entry.findall(log):
         # ..._<file>_cu_<hash><len><name>[I<template arguments>E]E...: the
-        # kernels' names are lower-case words ending in _kernel
+        # kernels' names are lower-case words ending in _kernel; template
+        # arguments are bool (Lb0E, Lb1E) or int (Li<n>E) literals
         name = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)E)?E", mangled)
-        key = mangled if not name else name.group(1) + {
-            None: "", "Lb0": "<false>", "Lb1": "<true>"}.get(
-                name.group(2), f"<{name.group(2)}>")
+        key = mangled if not name else name.group(1) + _template_args(
+            name.group(2))
         out[key] = {
             "registers": int(regs), "spill_bytes": int(st) + int(ld),
             "static_smem_bytes": int(smem or 0)}
     return out
 
 
+def _template_args(args: Optional[str]) -> str:
+    """``<true>``, ``<2, 128>`` ... from the mangled ``Lb1E``, ``Li2ELi128E``
+    (given without the last ``E``); "" for no template."""
+    if args is None:
+        return ""
+    lits = re.findall(r"L([bi])(\d+)E", args + "E")
+    if "".join(f"L{k}{v}E" for k, v in lits) != args + "E":
+        return f"<{args}>"
+    return "<" + ", ".join({"b": lambda v: "true" if v == "1" else "false",
+                            "i": lambda v: v}[k](v) for k, v in lits) + ">"
+
+
 def dynamic_resources() -> Dict[str, Dict[str, int]]:
     """Per kernel that sizes its shared memory at launch (the rel-pos
-    kernels): the dynamic shared memory in bytes and how many blocks one SM
-    holds at a time, as the CUDA runtime reports them for the current card."""
+    kernels and the projection GEMMs, one entry per tile configuration):
+    the dynamic shared memory in bytes and how many blocks one SM holds at
+    a time, as the CUDA runtime reports them for the current card."""
     out: Dict[str, Dict[str, int]] = {}
     for name, fn, kernels in (
             ("relpos_attention", "gigaam_relpos_sdpa_occupancy",
              ("relpos_sdpa_kernel",)),
             ("relpos_attention_bwd", "gigaam_relpos_sdpa_bwd_occupancy",
-             ("relpos_bwd_dq_kernel", "relpos_bwd_dkv_kernel"))):
+             ("relpos_bwd_dq_kernel", "relpos_bwd_dkv_kernel")),
+            ("projection", "gigaam_projection_occupancy",
+             ("qkv_kernel<2, 128>", "qkv_kernel<1, 128>",
+              "out_proj_kernel<2, 128, true>",
+              "out_proj_kernel<1, 64, true>"))):
         pairs = (ctypes.c_int * (2 * len(kernels)))()
         check(getattr(library(name), fn)(pairs), fn)
         for i, kernel in enumerate(kernels):

@@ -9,11 +9,13 @@ Each public wrapper replaces one Pallas kernel of
   rows' log-sum-exp, which the backward starts from.
 * ``folded_rotary_attention`` (K2) replaces ``_folded_rotary_pallas``
   (``_fold_rotary_kernel``): RoPE -> Q/K/V projections -> masked SDPA ->
-  output projection, on the post-LN input.  CUDA: ``csrc/projection.cu``
-  (QKV prologue and output epilogue) around ``csrc/attention.cu``.
+  output projection, on the post-LN input.  CUDA: four launches a call, the
+  row pass (``ln_rope``: RoPE once per row), the Q/K/V GEMM and the output
+  GEMM of ``csrc/projection.cu`` (on ``csrc/gemm.cuh``) around the SDPA core
+  of ``csrc/attention.cu``.
 * ``folded_rotary_attention_lnres`` (K1) replaces ``_folded_lnres_pallas``
-  (``_fold_rotary_lnres_kernel``): K2 with the LayerNorm in its prologue and
-  the residual add in its epilogue, on the pre-LN residual stream.
+  (``_fold_rotary_lnres_kernel``): K2 with the LayerNorm in its row pass and
+  the residual add in its output GEMM, on the pre-LN residual stream.
 * ``fused_relpos_mha`` (K5) replaces ``fused_relpos_mha`` ->
   ``_relpos_pallas`` (``_attn_relpos_kernel``): Transformer-XL
   relative-position SDPA for the v1/v2 encoder.  CUDA:
@@ -35,7 +37,9 @@ K3-K6 share one design (``csrc/wgmma.cuh``): tiles streamed through a
 ``cp.async`` ring, every product on ``wgmma``, scores and probabilities kept
 in registers, a backward that sweeps the other side's tiles once per launch
 from the saved (output, log-sum-exp).  All are bounded by operations at the
-encoder's shapes.
+encoder's shapes.  K1 and K2's projections are ``wgmma`` GEMMs on the same
+kind of ring (``csrc/gemm.cuh``), fed by a row pass that applies the
+LayerNorm and RoPE once per row.
 
 K1 and K2 are inference kernels, as in the JAX package: they refuse inputs
 that require a gradient while gradients are recorded.
@@ -48,15 +52,15 @@ numerics (RoPE in fp32 then cast, fp32 accumulation, P cast to the compute
 dtype before P.V, the division after it).  A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
-card: one CUDA launch for K3 and K5, three (QKV, SDPA core, output) for K2
-and K1, two (dq, then dk and dv) for K4 and K6 (called without the saved
+card: one CUDA launch for K3 and K5, four (row pass, QKV, SDPA core,
+output) for K2 and K1, two (dq, then dk and dv) for K4 and K6 (called without the saved
 pair they first run the forward's kernel for it: three).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Mapping, Optional
 
 import torch
@@ -67,7 +71,8 @@ from .conformer_ops import Params
 from .precision import full_fp32
 
 D_HEAD = 48           # the CUDA kernels' head width (768 / 16)
-_TILE_N = 64          # output tile width of the projection GEMMs
+_TILE_N = 128         # column tile and K step multiple of the projection GEMMs
+_MAX_ROW_D = 1024     # widest row the row pass holds (csrc/projection.cu)
 
 
 @dataclass(frozen=True)
@@ -270,22 +275,36 @@ def _rotate_half_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.cat([-xh[..., half:], xh[..., :half]], dim=-1).reshape(b, t, dd)
 
 
+def ln_rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  n_heads: int, ln_scale: Optional[torch.Tensor] = None,
+                  ln_bias: Optional[torch.Tensor] = None):
+    """Plain version of the row pass of K1/K2 -> (xn, xr), both in x's
+    dtype: ``xn = LN(x)`` in fp32 (eps 1e-5) rounded to x's dtype when
+    ``ln_scale``/``ln_bias`` are given, else x itself; ``xr = xn * cos +
+    rotate_half(xn) * sin`` per head in fp32, rounded.  x [B, T, D]; cos/sin
+    [T, d_head] fp32."""
+    dt = x.dtype
+    if ln_scale is not None:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+        xn = ((xf - mean) * torch.rsqrt(var + 1e-5) * ln_scale
+              + ln_bias).to(dt)
+    else:
+        xn = x
+    xf = xn.float()
+    xr = (xf * cos.repeat(1, n_heads)
+          + _rotate_half_heads(xf, n_heads) * sin.repeat(1, n_heads)).to(dt)
+    return xn, xr
+
+
 def _folded_plain(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, valid: torch.Tensor, n_heads: int,
                   lnres: bool) -> torch.Tensor:
     dt = x.dtype
     with full_fp32():
-        if lnres:
-            xf = x.float()
-            mean = xf.mean(dim=-1, keepdim=True)
-            var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-            xin = ((xf - mean) * torch.rsqrt(var + 1e-5) * w.ln_scale
-                   + w.ln_bias).to(dt)
-        else:
-            xin = x
-        xf = xin.float()
-        xr = (xf * cos.repeat(1, n_heads)
-              + _rotate_half_heads(xf, n_heads) * sin.repeat(1, n_heads)).to(dt)
+        xin, xr = ln_rope_plain(x, cos, sin, n_heads,
+                                *((w.ln_scale, w.ln_bias) if lnres else ()))
 
         def proj(a: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor):
             return _split_heads((a.float() @ wm.float() + bias).to(dt), n_heads)
@@ -470,41 +489,105 @@ def _refuse_grad(name: str, tensors) -> None:
             f"use_fused=True)")
 
 
-def _folded_cuda(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
-                 sin: torch.Tensor, valid: torch.Tensor, n_heads: int,
-                 lnres: bool) -> torch.Tensor:
+def _check_fold_width(d: int, n_heads: int) -> None:
+    _require(d == n_heads * D_HEAD and d % _TILE_N == 0 and d <= _MAX_ROW_D,
+             f"the CUDA fold needs D = {D_HEAD} * n_heads, D % {_TILE_N} == 0 "
+             f"and D <= {_MAX_ROW_D}, got D={d}, n_heads={n_heads}")
+
+
+def _check_row_args(x, cos, sin, n_heads, ln_scale=None, ln_bias=None) -> None:
     _require(x.dim() == 3, f"x must be [B, T, D], got {tuple(x.shape)}")
     b, t, d = x.shape
     dev = x.device
-    _require(d == n_heads * D_HEAD and d % _TILE_N == 0,
-             f"the CUDA fold needs D = {D_HEAD} * n_heads and D % {_TILE_N} "
-             f"== 0, got D={d}, n_heads={n_heads}")
+    _check_fold_width(d, n_heads)
     _check_tensor("x", x, dev, torch.bfloat16, (b, t, d))
+    _check_tensor("cos", cos, dev, torch.float32, (t, D_HEAD))
+    _check_tensor("sin", sin, dev, torch.float32, (t, D_HEAD))
+    _require((ln_scale is None) == (ln_bias is None),
+             "ln_scale and ln_bias come together: give both or neither")
+    if ln_scale is not None:
+        _check_tensor("ln_scale", ln_scale, dev, torch.float32, (d,))
+        _check_tensor("ln_bias", ln_bias, dev, torch.float32, (d,))
+
+
+def _launch_ln_rope(x, cos, sin, ln_scale, ln_bias, xn: int, xr: int,
+                    stream: int) -> None:
+    """The row pass into the buffers at addresses ``xn`` (written only with
+    the LayerNorm) and ``xr``."""
+    b, t, d = x.shape
+    ln = ln_scale is not None
+    cuda_lib.check(cuda_lib.library("projection").gigaam_ln_rope(
+        x.data_ptr(), ln_scale.data_ptr() if ln else None,
+        ln_bias.data_ptr() if ln else None, cos.data_ptr(), sin.data_ptr(),
+        xn if ln else None, xr, b * t, t, d, stream), "gigaam_ln_rope")
+
+
+def ln_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+            n_heads: int, ln_scale: Optional[torch.Tensor] = None,
+            ln_bias: Optional[torch.Tensor] = None):
+    """The row pass of K1/K2 on its own -> (xn, xr); see ``ln_rope_plain``.
+    K1 and K2 launch it inside their call; this entry exists to hold it
+    against its plain version.  CUDA: bf16, d_head = 48."""
+    if x.device.type == "cpu":
+        return ln_rope_plain(x, cos, sin, n_heads, ln_scale, ln_bias)
+    _check_row_args(x, cos, sin, n_heads, ln_scale, ln_bias)
+    xr = torch.empty_like(x)
+    xn = x if ln_scale is None else torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _launch_ln_rope(x, cos, sin, ln_scale, ln_bias, xn.data_ptr(),
+                        xr.data_ptr(), _stream(x.device))
+    return xn, xr
+
+
+def _check_fold_weights(w: FoldedWeights, d: int, dev: torch.device) -> None:
+    """The weights' checks, made once per prepared set and device: the set
+    is frozen, so its tensors stay the ones checked."""
+    if getattr(w, "_checked_for", None) == (dev, d):
+        return
     for name in ("wq", "wk", "wv", "wo"):
         _check_tensor(name, getattr(w, name), dev, torch.bfloat16, (d, d))
     for name in ("bq", "bk", "bv", "bo", "ln_scale", "ln_bias"):
         _check_tensor(name, getattr(w, name), dev, torch.float32, (d,))
-    _check_tensor("cos", cos, dev, torch.float32, (t, D_HEAD))
-    _check_tensor("sin", sin, dev, torch.float32, (t, D_HEAD))
+    object.__setattr__(w, "_checked_for", (dev, d))
+
+
+def _weight_tensors(w: FoldedWeights):
+    return tuple(getattr(w, f.name) for f in fields(w))
+
+
+def _folded_cuda(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, valid: torch.Tensor, n_heads: int,
+                 lnres: bool) -> torch.Tensor:
+    """Four launches: the row pass, the Q/K/V GEMM, the SDPA core and the
+    output GEMM.  Their scratch (xr, xn for K1, q, k, v and the SDPA output
+    o, each [B*T, D] bf16) is one allocation."""
+    _check_row_args(x, cos, sin, n_heads)
+    b, t, d = x.shape
+    dev = x.device
+    _check_fold_weights(w, d, dev)
+    ln = (w.ln_scale, w.ln_bias) if lnres else (None, None)
     _check_tensor("valid", valid, dev, torch.bool, (b, t))
 
-    q, k, v, o = (torch.empty((b, n_heads, t, D_HEAD), dtype=x.dtype,
-                              device=dev) for _ in range(4))
+    n = b * t * d
+    scratch = torch.empty((6 if lnres else 5) * n, dtype=x.dtype, device=dev)
+    xr, q, k, v, o, *xn = (scratch.data_ptr() + 2 * n * i
+                           for i in range(scratch.numel() // n))
+    xn = xn[0] if lnres else x.data_ptr()
     out = torch.empty_like(x)
     proj = cuda_lib.library("projection")
     stream = _stream(dev)
-    ln_g, ln_b = ((w.ln_scale.data_ptr(), w.ln_bias.data_ptr()) if lnres
-                  else (None, None))
     with torch.cuda.device(dev):
+        _launch_ln_rope(x, cos, sin, *ln, xn, xr, stream)
         cuda_lib.check(proj.gigaam_qkv_proj(
-            x.data_ptr(), ln_g, ln_b, cos.data_ptr(), sin.data_ptr(),
-            w.wq.data_ptr(), w.wk.data_ptr(), w.wv.data_ptr(),
-            w.bq.data_ptr(), w.bk.data_ptr(), w.bv.data_ptr(),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            xr, xn, w.wq.data_ptr(), w.wk.data_ptr(), w.wv.data_ptr(),
+            w.bq.data_ptr(), w.bk.data_ptr(), w.bv.data_ptr(), q, k, v,
             b, t, d, n_heads, stream), "gigaam_qkv_proj")
-        _launch_sdpa(q, k, v, valid, o, 1.0)            # wq carries the scale
+        # wq carries the scale
+        cuda_lib.check(cuda_lib.library("attention").gigaam_sdpa(
+            q, k, v, valid.data_ptr(), o, None, b, n_heads, t, 1.0, stream),
+            "gigaam_sdpa")
         cuda_lib.check(proj.gigaam_out_proj(
-            o.data_ptr(), w.wo.data_ptr(), w.bo.data_ptr(),
+            o, w.wo.data_ptr(), w.bo.data_ptr(),
             x.data_ptr() if lnres else None, out.data_ptr(),
             b, t, d, n_heads, stream), "gigaam_out_proj")
     return out
@@ -516,8 +599,7 @@ def folded_rotary_attention(w: FoldedWeights, x: torch.Tensor,
     """K2: the rotary attention module on the post-LN input x [B, T, D];
     cos/sin [T, d_head] fp32; valid [B, T] bool.  Padded query rows are
     garbage, as in the JAX package."""
-    _refuse_grad("folded_rotary_attention",
-                 (x, *vars(w).values()))
+    _refuse_grad("folded_rotary_attention", (x, *_weight_tensors(w)))
     if x.device.type == "cpu":
         return folded_rotary_attention_plain(w, x, cos, sin, valid, n_heads)
     out = _folded_cuda(w, x, cos, sin, valid, n_heads, lnres=False)
@@ -534,8 +616,7 @@ def folded_rotary_attention_lnres(w: FoldedWeights, x: torch.Tensor,
                                   ) -> torch.Tensor:
     """K1: ``x + attention(layer_norm(x))`` on the pre-LN residual stream
     x [B, T, D]; LN statistics in fp32, the residual added in x's dtype."""
-    _refuse_grad("folded_rotary_attention_lnres",
-                 (x, *vars(w).values()))
+    _refuse_grad("folded_rotary_attention_lnres", (x, *_weight_tensors(w)))
     if x.device.type == "cpu":
         return folded_rotary_attention_lnres_plain(w, x, cos, sin, valid,
                                                    n_heads)

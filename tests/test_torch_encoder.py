@@ -149,9 +149,9 @@ def run_both(cfg, params, enc, feats, lengths):
 
 @pytest.mark.parametrize("d_model,n_heads", SHAPES)
 @pytest.mark.parametrize("batch,t_feat,kernel", [
-    (2, 121, "folded_rotary_attention"),          # K2: batch < 16
-    (16, 121, "folded_rotary_attention_lnres"),   # K1: batch >= 16
-    (1, 4101, "fused_mha"),                        # K3: T' = 1026 > 1024
+    (1, 121, "folded_rotary_attention"),          # K2: batch 1
+    (16, 121, "folded_rotary_attention_lnres"),   # K1: batch >= 2
+    (1, 12005, "fused_mha"),                       # K3: T' = 3002 > 3000
 ])
 def test_encoder_matches_jax(monkeypatch, d_model, n_heads, batch, t_feat,
                              kernel):

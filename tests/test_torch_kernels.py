@@ -146,6 +146,38 @@ def test_k1_plain_is_residual_plus_k2_of_layer_norm(jx):
     assert_valid_rows_close(k1.numpy(), (t(x) + k2).numpy(), valid)
 
 
+@pytest.mark.parametrize("lnres", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_pass_plain_matches_jax(jx, lnres, dtype):
+    """The row pass of K1/K2 (``ln_rope_plain``) against the Pallas body's
+    math: the JAX ``layer_norm`` (K1 only), then ``xn * cos + (xn @
+    _rope_perm_matrix) * sin`` in fp32, rounded to the compute dtype.  In
+    bf16 the LN statistics are summed in another order, so a value may
+    round one bf16 step apart; nearly all are equal."""
+    jnp, pa, jax_layer_norm = jx
+    rng = np.random.default_rng(7)
+    params, ln, x, cos, sin, _ = make_peaked_case(rng, 2, 40, dm=192, h=4)
+    jdt = getattr(jnp, dtype)
+    xj = jnp.asarray(x).astype(jdt)
+    xn_j = (jax_layer_norm({k: jnp.asarray(v) for k, v in ln.items()}, xj)
+            if lnres else xj)
+    xf = xn_j.astype(jnp.float32)
+    xrot = jnp.dot(xf, jnp.asarray(pa._rope_perm_matrix(4, 48)))
+    xr_j = (xf * jnp.tile(cos, (1, 4)) + xrot * jnp.tile(sin, (1, 4))
+            ).astype(jdt)
+    xt = t(x).to(getattr(torch, dtype))
+    ln_args = (t(ln["scale"]), t(ln["bias"])) if lnres else ()
+    xn, xr = fa.ln_rope_plain(xt, t(cos), t(sin), 4, *ln_args)
+    assert xn.dtype == xr.dtype == xt.dtype
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for got, ref in ((xn, xn_j), (xr, xr_j)):
+        got = got.float().numpy()
+        ref = np.asarray(ref.astype(jnp.float32))
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=1e-5)
+        if dtype == "bfloat16":
+            assert np.mean(got == ref) >= 0.99
+
+
 def test_prepared_weights_follow_the_fold():
     """wq/bq scaled by 1/sqrt(d_h) in fp32 before the cast; biases and LN
     parameters stay fp32."""
@@ -188,6 +220,22 @@ def test_cuda_path_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="D = 48"):
         fa._folded_cuda(w, t(x).to(torch.bfloat16), t(cos), t(sin), t(valid),
                         4, lnres=False)
+    # the GEMMs' column tiles and K steps need D % 128 == 0, the row pass
+    # D <= 1024: 576 = 48 * 12 and 1152 = 48 * 24 fail one each
+    cos48, sin48 = (t(a) for a in rotary_tables(8, 48, 5000.0))
+    for d, h in ((576, 12), (1152, 24)):
+        xd = torch.zeros(1, 8, d, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="D % 128 == 0 and D <= 1024"):
+            fa._check_row_args(xd, cos48, sin48, h, None, None)
+    x768 = torch.zeros(1, 8, 768, dtype=torch.bfloat16)
+    scale = torch.ones(768)
+    with pytest.raises(ValueError, match="both or neither"):
+        fa._check_row_args(x768, cos48, sin48, 16, scale, None)
+    with pytest.raises(ValueError, match="ln_bias is torch.bfloat16"):
+        fa._check_row_args(x768, cos48, sin48, 16, scale,
+                           scale.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="cos has shape"):
+        fa._check_row_args(x768, cos48[:7], sin48, 16, None, None)
 
 
 def test_kernel_resources_reads_the_compilers_report():
@@ -322,10 +370,14 @@ def test_cuda_k3_matches_plain(cuda, b, tt):
         assert torch.equal(again, got) and torch.equal(lse2, lse)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("lnres", [False, True])
-@pytest.mark.parametrize("b,tt", [(1, 500), (16, 500), (3, 77)])
-def test_cuda_folds_match_plain(cuda, lnres, b, tt):
+# The edges of the projection GEMMs' tiling: 64-row tiles (T' 64, 65 and
+# 77; one 64-row tile at B 1, T' 40, where M is below one tile), 128-row
+# tiles (B 16 and 32 at T' 500), T' 1024 (the longest fold) and batch 1
+FOLD_SHAPES = [(1, 500), (16, 500), (3, 77), (3, 64), (3, 65), (2, 1024),
+               (32, 500), (1, 40)]
+
+
+def cuda_fold_case(cuda, b, tt):
     rng = np.random.default_rng(b * tt)
     params, ln, x, cos, sin, valid = make_peaked_case(rng, b, tt)
     w = fa.prepare_folded_weights(
@@ -333,7 +385,15 @@ def test_cuda_folds_match_plain(cuda, lnres, b, tt):
          for n, p in params.items()},
         {k: t(a).to(cuda) for k, a in ln.items()}, 16, torch.bfloat16)
     xb = t(x).to(cuda, torch.bfloat16)
-    args = (xb, t(cos).to(cuda), t(sin).to(cuda), t(valid).to(cuda), 16)
+    return w, ln, xb, t(cos).to(cuda), t(sin).to(cuda), valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lnres", [False, True])
+@pytest.mark.parametrize("b,tt", FOLD_SHAPES)
+def test_cuda_folds_match_plain(cuda, lnres, b, tt):
+    w, _, xb, cos, sin, valid = cuda_fold_case(cuda, b, tt)
+    args = (xb, cos, sin, t(valid).to(cuda), 16)
     kernel, plain = ((fa.folded_rotary_attention_lnres,
                       fa.folded_rotary_attention_lnres_plain) if lnres else
                      (fa.folded_rotary_attention,
@@ -345,6 +405,33 @@ def test_cuda_folds_match_plain(cuda, lnres, b, tt):
     assert_within_output_scale(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), valid,
                                xb.float().cpu().numpy() if lnres else None)
+    # repeated runs give the same bits (a tile read before its copy landed
+    # would not)
+    for _ in range(3):
+        assert torch.equal(kernel(w, *args), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lnres", [False, True])
+@pytest.mark.parametrize("b,tt", [(1, 40), (3, 77), (16, 500)])
+def test_cuda_row_pass_matches_plain(cuda, lnres, b, tt):
+    """The row pass against ``ln_rope_plain``: xn within one bf16 step (the
+    LN statistics are summed in another order) and equal nearly everywhere;
+    given the kernel's own xn, the same bits of xr (both round each product
+    and sum once, as PyTorch's elementwise ops do)."""
+    _, ln, xb, cos, sin, _ = cuda_fold_case(cuda, b, tt)
+    ln_args = (tuple(t(ln[k]).to(cuda) for k in ("scale", "bias"))
+               if lnres else ())
+    xn, xr = fa.ln_rope(xb, cos, sin, 16, *ln_args)
+    ref_xn, _ = fa.ln_rope_plain(xb, cos, sin, 16, *ln_args)
+    if lnres:
+        got, ref = xn.float().cpu().numpy(), ref_xn.float().cpu().numpy()
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -7, atol=1e-6)
+        assert np.mean(got == ref) >= 0.999
+    else:
+        assert xn is xb
+    _, ref_xr = fa.ln_rope_plain(xn, cos, sin, 16)
+    assert torch.equal(xr, ref_xr)
 
 
 # T' of one tile (64), one row into the second (65) and into the third (129):

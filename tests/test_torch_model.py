@@ -1,7 +1,7 @@
 """The port's model API against the JAX package on the CPU in fp32, on the
 same random weights: ``transcribe`` (token ids, frames, text, word
 timestamps and confidences), a batch of 16 (the K1 dispatch), a 45 s
-``encode_batch`` (T' > 1024: the K3 dispatch) and ``embed_audio``; plus the
+``encode_batch`` (T' = 1125 at batch 1: the K2 dispatch) and ``embed_audio``; plus the
 port's import boundary (no ``jax``, no ``gigaam_tpu``) and ``load_model``'s
 refusal to fall back to the CPU."""
 
@@ -126,18 +126,24 @@ def test_decode_batch_of_16_matches_jax(tiny_pair):
 
 
 def test_encode_batch_45s_matches_jax(tiny_pair, monkeypatch):
-    """45 s of audio gives T' = 1125 > 1024: the K3 (composed) dispatch."""
+    """45 s of audio gives T' = 1125 <= 3000 at batch 1: the K2 (fold)
+    dispatch, where the JAX package composes (its fold ends at 1024)."""
+    from gigaam_tpu_torch.models import encoder as tenc
     from gigaam_tpu_torch.ops import fused_attention as fa
 
     calls = []
+    for name in ("folded_rotary_attention", "folded_rotary_attention_lnres"):
+        fn = getattr(tenc, name)
+        monkeypatch.setattr(tenc, name, lambda *a, _n=name, _f=fn:
+                            calls.append(_n) or _f(*a))
     plain_k3 = fa.fused_mha
     monkeypatch.setattr(fa, "fused_mha",
-                        lambda *a: calls.append(1) or plain_k3(*a))
+                        lambda *a: calls.append("fused_mha") or plain_k3(*a))
     jm, tm = tiny_pair
     wav = voice(45.0, np.random.default_rng(2))
     ref, ref_len = jm.encode_batch([wav])
     got, got_len = tm.encode_batch([wav])
-    assert len(calls) == tm.cfg.encoder.n_layers
+    assert calls == ["folded_rotary_attention"] * tm.cfg.encoder.n_layers
     assert int(got_len[0]) == int(ref_len[0]) == 1125
     np.testing.assert_allclose(got[0, :1125].numpy(), np.asarray(ref)[0, :1125],
                                atol=ATOL)
