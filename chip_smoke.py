@@ -53,7 +53,16 @@ Phases, each fatal on failure:
    without them, the same bits; times (with the pair given, and without),
    bounds, two runs bit-equal, but for K6's dp, whose spread over two runs
    is printed (its batch sum uses atomics);
-8. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
+8. the SDPA ablation (P9-P12, ``gigaam_tpu_torch/probes/sdpa_ablation.py``):
+   each of its eleven variants of K3 against its plain version at B 8,
+   T' 501 and B 16, T' 500 (ragged masks, peaked scores), with planted faults
+   fed through the inputs (key mask ignored; the k of the next head group;
+   another batch element's mask row per head; heads permuted in the packed
+   q), ``A_full`` bit-equal to K3, each timed by CUDA events and by the
+   profile's kernel sum beside its bound, its plain version and the library
+   call; then the ablation's own ``main`` with both switches, from zeroed
+   launch counts, printed as an ``ablation`` line in microseconds;
+9. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
    (4 steps, SpecAugment, validation on the first batch), then
@@ -64,12 +73,14 @@ Phases, each fatal on failure:
    the positional parameters got a gradient, and that ``eval_step`` after
    the steps sees the new weights; per step wall time, peak memory, the
    forward/backward/optimizer split and a profile;
-9. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
+10. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
    bf16 loss and gradients against the port's CPU fp32 ones.
 
 The last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
-numbers at the kernel's other shapes) and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
+numbers at the kernel's other shapes; the ablation's rows add ``sum_ms``,
+the profile's kernel sum, and ``ablation_us``, its ``main``'s reading) and
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device.
 """
 
@@ -822,6 +833,217 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
     return shaped_row(readings, (16, t_train))
 
 
+# ---------------------------------------------------------------------------
+# The SDPA ablation (P9-P12)
+# ---------------------------------------------------------------------------
+
+# the ablation's own shape (the JSON rows) and K3's table shape
+ABLATION_SHAPES = ((8, 501), (16, 500))
+# label -> (the id of its Pallas probe, the wrapper's name); P9's two labels
+# are one wrapper, and its JSON row carries J under "also"
+ABLATION = {
+    "A_full": ("P12", "full_sdpa"),
+    "F_copy_only": ("P12", "copy_sdpa"),
+    "B_two_matmuls": ("P12", "scores_only_sdpa"),
+    "D_no_max_pass": ("P12", "no_max_sdpa"),
+    "E_prescaled_q": ("P12", "prescaled_sdpa"),
+    "E2_madd_row": ("P12", "maddrow_sdpa"),
+    "G_bf16_softmax": ("P12", "bf16_softmax_sdpa"),
+    "I_allheads_cell": ("P9", "allheads_sdpa"),
+    "J_4heads_cell": ("P9", "allheads_sdpa"),
+    "K_identity_maps": ("P10", "identity_maps_sdpa"),
+    "H_packed_lane_slice": ("P11", "packed_sdpa"),
+}
+# the `pallas_call` of each probe in benchmarks/sdpa_ablation.py
+ABLATION_REPLACES = {"P12": 258, "P9": 186, "P10": 212, "P11": 235}
+
+
+def ablation_bound(label: str, b: int, t: int):
+    """The least time of one variant's own work: q, k, v in and o out (the
+    copy: q in, o out) and its mask; the two products and the fp32 work per
+    score (scale and mask, max, exponential, sum: 4; no max: 3; none for the
+    bare products; G's bf16 exponential counted at the fp32 rate)."""
+    n = b * N_HEADS
+    rows = n * t * D_HEAD * 2
+    if label == "F_copy_only":
+        return bound(2 * rows, 0, 0)
+    mask_bytes = {"B_two_matmuls": 0, "E2_madd_row": 4 * b * t,
+                  "G_bf16_softmax": 4 * b * t, "K_identity_maps": n * t}
+    per_score = {"B_two_matmuls": 0, "D_no_max_pass": 3}
+    scores = n * t * t
+    return bound(4 * rows + mask_bytes.get(label, b * t),
+                 4 * scores * D_HEAD, per_score.get(label, 4) * scores)
+
+
+def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
+    """label -> (kernel call, plain call, library call or None, planted
+    faults); each call returns [B, H, T, 48] (packed: [B, T, H*48])."""
+    h = N_HEADS
+    mask = valid[:, None].to(torch.int8).contiguous()
+    madd = ((mask.float() - 1.0) * 1e9).contiguous()
+    mask_bh = mask.repeat_interleave(h, dim=0)
+    q4, k4, v4 = (x.view(b, h, t, D_HEAD) for x in (q, k, v))
+    q3, k3, v3 = (x4.transpose(1, 2).reshape(b, t, h * D_HEAD)
+                  for x4 in (q4, k4, v4))
+
+    def heads(fn):
+        return lambda *a: fn(*a).view(b, h, t, D_HEAD)
+
+    def sdpa(mask4, scale=None):
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, scale=scale)
+
+    valid4 = valid[:, None, None, :]
+    madd4 = madd[:, None].to(torch.bfloat16)
+    calls = {}
+    for label, plain, m, lib in (
+            ("A_full", sa.full_plain, mask, sdpa(valid4)),
+            ("F_copy_only", sa.copy_plain, mask, lambda: q4.clone()),
+            ("B_two_matmuls", sa.scores_only_plain, mask, None),
+            # the shift cancels: the same function as A
+            ("D_no_max_pass", sa.no_max_plain, mask, sdpa(valid4)),
+            ("E_prescaled_q", sa.prescaled_plain, mask, sdpa(valid4, 1.0)),
+            ("E2_madd_row", sa.maddrow_plain, madd, sdpa(madd4, 1.0)),
+            ("G_bf16_softmax", sa.bf16_softmax_plain, madd, None)):
+        kernel = getattr(sa, ABLATION[label][1])
+        calls[label] = (
+            lambda kernel=kernel, m=m: heads(kernel)(q, k, v, m),
+            lambda plain=plain, m=m: heads(plain)(
+                q, k, v, m.repeat_interleave(h, dim=0)), lib, ())
+    calls["A_full"] = calls["A_full"][:3] + ((
+        ("key mask ignored",
+         lambda: heads(sa.full_sdpa)(q, k, v, torch.ones_like(mask))),),)
+    for label, hc in (("I_allheads_cell", h), ("J_4heads_cell", 4)):
+        # each head group reads the k of the next group (of the next batch
+        # element when one group holds all heads)
+        k_next = k4.reshape(b * h // hc, hc, t, D_HEAD).roll(-1, 0).view(
+            b, h, t, D_HEAD)
+        calls[label] = (
+            lambda hc=hc: sa.allheads_sdpa(q4, k4, v4, mask, hc),
+            lambda: sa.allheads_plain(q4, k4, v4, mask), sdpa(valid4),
+            (("k of the next head group",
+              lambda hc=hc, k_next=k_next: sa.allheads_sdpa(
+                  q4, k_next, v4, mask, hc)),))
+    calls["K_identity_maps"] = (
+        lambda: heads(sa.identity_maps_sdpa)(q, k, v, mask_bh),
+        lambda: heads(sa.full_plain)(q, k, v, mask_bh), sdpa(valid4),
+        (("the mask row of another head's batch element",
+          lambda: heads(sa.identity_maps_sdpa)(
+              q, k, v, mask.roll(-1, 0).repeat_interleave(h, dim=0))),))
+    q3_permuted = q3.view(b, t, h, D_HEAD).roll(1, 2).reshape(b, t, -1)
+
+    def packed_library():
+        # what the packed layout would remove around K3: the head transposes
+        # in and out, around the library's SDPA
+        split = (x.view(b, t, h, D_HEAD).transpose(1, 2).contiguous()
+                 for x in (q3, k3, v3))
+        out = F.scaled_dot_product_attention(*split, attn_mask=valid4)
+        return out.transpose(1, 2).reshape(b, t, h * D_HEAD)
+
+    calls["H_packed_lane_slice"] = (
+        lambda: sa.packed_sdpa(q3, k3, v3, mask),
+        lambda: sa.full_packed_plain(q3, k3, v3, mask), packed_library,
+        (("heads permuted in the packed q",
+          lambda: sa.packed_sdpa(q3_permuted, k3, v3, mask)),))
+    return calls
+
+
+def ablation_phase(gen, dev):
+    """P9-P12: every variant of the SDPA ablation against its plain version
+    at ABLATION_SHAPES (the planted faults at the first), A_full bit-equal
+    to K3, each timed by CUDA events and by the profile's kernel sum beside
+    its bound, its plain version and the library call; then the ablation's
+    own ``main`` with both switches, from zeroed launch counts.  Returns
+    ({label: JSON row}, {wrapper name: launches in ``main``})."""
+    from gigaam_tpu_torch.probes import sdpa_ablation as sa
+
+    readings = defaultdict(dict)
+    for b, t in ABLATION_SHAPES:
+        q, k, v = (torch.randn(b * N_HEADS, t, D_HEAD, generator=gen) * gain
+                   for gain in (QK_GAIN, QK_GAIN, 1.0))
+        q, k, v = (a.to(dev, torch.bfloat16) for a in (q, k, v))
+        valid = ragged_valid(b, t, dev)
+        calls = ablation_calls(sa, q, k, v, valid, b, t)
+        k3 = fa.fused_mha(*(x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v)),
+                          valid)
+        if not torch.equal(calls["A_full"][0](), k3):
+            raise AssertionError(f"A_full B={b} T'={t}: not K3's bits")
+        for label, (kernel, plain, lib, faults) in calls.items():
+            packed = label == "H_packed_lane_slice"
+            got = kernel()
+            if not torch.equal(kernel(), got):
+                raise AssertionError(f"{label}: two calls differ")
+            err, rel = check_kernel(
+                f"{label} B={b} T'={t}", got, plain(), valid,
+                1 if packed else 2, faults if (b, t) == ABLATION_SHAPES[0]
+                else ())
+            ms = time_ms(kernel)
+            sum_ms = sum(device_ms(kernel).values())
+            plain_ms = time_ms(plain, iters=5)
+            lib_ms = None if lib is None else time_ms(lib)
+            bms, by = ablation_bound(label, b, t)
+            print(f"{label} B={b} T'={t}: max_abs_err {err:.3e}, {rel:.4f} x "
+                  f"RMS (limit {KERNEL_REL}); kernel {ms:.4f} ms by events, "
+                  f"{sum_ms:.4f} ms on the card; plain {plain_ms:.4f} ms, "
+                  f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  f", bound {bms:.4f} ms ({by})", flush=True)
+            readings[label][(b, t)] = dict(
+                ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, max_abs_err=err)
+        print(f"A_full B={b} T'={t}: K3's bits", flush=True)
+        del calls, q, k, v
+    torch.cuda.empty_cache()
+
+    # the ablation's main path: the script's main with both switches
+    saved = {n: os.environ.get(n) for n in ("SDPA_ABLATION_FULLSET",
+                                            "SDPA_ABLATION_PACKED")}
+    os.environ.update(dict.fromkeys(saved, "1"))
+    sa.reset_launch_counts()
+    try:
+        results = sa.main()
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+    launches = {fn.__name__: fn.launches for fn in sa.KERNELS}
+    print("ablation " + json.dumps(results), flush=True)
+    print(f"ablation launches {launches}", flush=True)
+    if set(results) != set(ABLATION) or not all(launches.values()):
+        raise AssertionError(f"the ablation ran {sorted(results)} with "
+                             f"launches {launches}")
+    return ({label: dict(shaped_row(r, ABLATION_SHAPES[0]),
+                         ablation_us=results[label])
+             for label, r in readings.items()}, launches)
+
+
+def ablation_kernel_rows(rows: dict, launches: dict) -> list:
+    """The kernels line's rows of P9-P12: one per wrapper, P9's J under
+    "also"."""
+    out = []
+    for label, (probe, wrapper) in ABLATION.items():
+        if label == "J_4heads_cell":
+            continue
+        r = dict(rows[label])
+        if label == "I_allheads_cell":
+            j = rows["J_4heads_cell"]
+            r["also"] = r["also"] + [
+                dict(a, shape=f"J_4heads_cell, {a['shape']}")
+                for a in [{k: v for k, v in j.items() if k != "also"},
+                          *j["also"]]]
+        out.append({
+            "name": f"{probe} {label} {wrapper}", "route": "cuda",
+            "source": "gigaam_tpu_torch/csrc/sdpa_ablation.cu",
+            "replaces": f"benchmarks/sdpa_ablation.py:"
+                        f"{ABLATION_REPLACES[probe]}",
+            "launches": launches[wrapper], **{
+                key: r[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "sum_ms", "ablation_us", "shape", "also")}})
+    return out
+
+
 def counts() -> dict:
     return {"K3": fa.fused_mha.launches,
             "K2": fa.folded_rotary_attention.launches,
@@ -1261,13 +1483,19 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s", flush=True)
     resources = cuda_lib.kernel_resources("\n".join(logs))
     print("kernel resources " + json.dumps(resources), flush=True)
+    # the SDPA ablation's kernels: every variant head-major, the full
+    # variant in the other three layouts
+    ablation_kernels = tuple(
+        f"sdpa_ablation_kernel<{variant}, {layout}>"
+        for variant, layout in [(v, 0) for v in range(7)]
+        + [(0, layout) for layout in (1, 2, 3)])
     wgmma_kernels = ("sdpa_kernel", "sdpa_bwd_dq_kernel", "sdpa_bwd_dkv_kernel",
                      "relpos_sdpa_kernel", "relpos_bwd_dq_kernel",
                      "relpos_bwd_dkv_kernel", "qkv_kernel<2, 128>",
                      "qkv_kernel<1, 128>", "out_proj_kernel<2, 128, true>",
                      "out_proj_kernel<2, 128, false>",
                      "out_proj_kernel<1, 64, true>",
-                     "out_proj_kernel<1, 64, false>")
+                     "out_proj_kernel<1, 64, false>") + ablation_kernels
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
@@ -1282,6 +1510,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     rows["K4"] = bwd_kernel_phase(gen, dev, relpos=False)
     rows["K6"] = bwd_kernel_phase(gen, dev, relpos=True)
+    ablation_rows, ablation_launches = ablation_phase(gen, dev)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
@@ -1336,6 +1565,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "also": r.get("also", [])})
+    kernels += ablation_kernel_rows(ablation_rows, ablation_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

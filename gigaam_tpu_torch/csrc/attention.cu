@@ -36,90 +36,23 @@
 //     the mask: a masked key is -1e9 * log2(e) (its P is exactly 0 beside any
 //     valid key), a key past T is -inf.
 //   * The output leaves as 16-byte stores (store_fragment).
+//   * The body lives in sdpa_core.cuh, templated on the variants of the SDPA
+//     ablation (sdpa_ablation.cu); this is its full variant in the
+//     head-major layout.
 
-#include "wgmma.cuh"
+#include "sdpa_core.cuh"
 
 using namespace gigaam;
 
 namespace {
-
-constexpr int kStages = 2;
 
 __global__ void __launch_bounds__(kThreads)
 sdpa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
             bf16* __restrict__ o, float* __restrict__ lse, int n_heads, int t,
             float scale) {
-  __shared__ __align__(128) unsigned char qs[kTileBytes];
-  __shared__ __align__(128) unsigned char ks[kStages][kTileBytes];
-  __shared__ __align__(128) unsigned char vs[kStages][kTileBytes];
-  __shared__ __align__(16) float madd[kStages][kTile];
-
-  const int lane = threadIdx.x & 31;
-  const int l = lane & 3;
-  const int q0 = blockIdx.x * kTile;
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * n_heads + blockIdx.y;
-  const size_t base = bh * t * kD;
-  const uint8_t* vrow = valid + (size_t)b * t;
-  const int n_tiles = (t + kTile - 1) / kTile;
-  const float scale2 = scale * kLog2e;
-
-  // the loads of key tile `tile` into its stage; commits a group even when
-  // there is no such tile, so that the count of pending groups is uniform
-  auto prefetch = [&](int tile) {
-    if (tile < n_tiles) {
-      const int st = tile % kStages, k0 = tile * kTile;
-      load_tile_async(smem_u32(ks[st]), k + base, k0, t);
-      load_tile_async(smem_u32(vs[st]), v + base, k0, t);
-      if (threadIdx.x < kTile)
-        madd[st][threadIdx.x] = key_mask2(vrow, k0 + threadIdx.x, t);
-    }
-    cp_async_commit();
-  };
-
-  load_tile_async(smem_u32(qs), q + base, q0, t);   // joins the first group
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) prefetch(s);
-
-  // this thread's two rows (g and g + 8 of its warp's 16): running max in
-  // base-2 units, its share of the running sum, and the output fragment
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  float o_acc[24];
-#pragma unroll
-  for (int i = 0; i < 24; ++i) o_acc[i] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    ring_wait<kStages>();   // tile `it` is whole, tile `it - 1` consumed
-    prefetch(it + kStages - 1);
-    const int st = it % kStages;
-
-    float s[32];
-    wgmma_fence();
-    product_nt(s, smem_u32(qs), smem_u32(ks[st]));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-
-    uint32_t p[16];
-    online_softmax_tile(s, madd[st], scale2, m_lo, m_hi, l_lo, l_hi, o_acc, p);
-
-    fence_regs(o_acc);
-    wgmma_fence();
-    accumulate_nn(o_acc, p, smem_u32(vs[st]));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o_acc);
-  }
-
-  l_lo = quad_sum(l_lo);
-  l_hi = quad_sum(l_hi);
-  store_fragment(o_acc, 1.f / l_lo, 1.f / l_hi, o + base, q0, t);
-  if (lse != nullptr && l == 0) {
-    const int row = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
-    if (row < t) lse[bh * t + row] = (m_lo + log2f(l_lo)) * kLn2;
-    if (row + 8 < t) lse[bh * t + row + 8] = (m_hi + log2f(l_hi)) * kLn2;
-  }
+  sdpa_body<kSdpaFull, kSdpaHeads>(q, k, v, valid, o, lse, n_heads, t, scale,
+                                   1);
 }
 
 }  // namespace

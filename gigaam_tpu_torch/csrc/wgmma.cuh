@@ -1,5 +1,6 @@
-// Building blocks shared by attention.cu, attention_bwd.cu,
-// relpos_attention.cu and relpos_attention_bwd.cu (sm_90a): the shared-memory
+// Building blocks shared by attention.cu (through sdpa_core.cuh, with
+// sdpa_ablation.cu), attention_bwd.cu, relpos_attention.cu and
+// relpos_attention_bwd.cu (sm_90a): the shared-memory
 // tile layout that `wgmma` reads, asynchronous tile loads, the warpgroup
 // matrix products, the accumulator-fragment store, and (at the end) the
 // relative-position window: its stream of tiles, the shear of its product
@@ -100,9 +101,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // rows [row0, row0 + 64) of an [n_rows, 48] matrix into a tile at shared
 // address `tile`, zero outside [0, n_rows): past T for q, k, v and do, and
 // for the position table, whose window starts below row 0 for late query
-// tiles and ends past the last row for early ones, on either side
+// tiles and ends past the last row for early ones, on either side.  Rows are
+// `row_stride` elements apart: 48 for a head-major matrix, H * 48 for one
+// head's columns of the packed [T, H * 48] layout.
 __device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* src,
-                                                int row0, int n_rows) {
+                                                int row0, int n_rows,
+                                                int row_stride = kD) {
 #pragma unroll
   for (int n = threadIdx.x; n < kTile * kChunks; n += kThreads) {
     const int group = n / 8;
@@ -110,7 +114,8 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* src,
     const int chunk = group % kChunks;
     const bool in = row >= 0 && row < n_rows;
     cp_async_16(tile + 16 * n,
-                src + (size_t)(in ? row : 0) * kD + chunk * 8, in ? 16 : 0);
+                src + (size_t)(in ? row : 0) * row_stride + chunk * 8,
+                in ? 16 : 0);
   }
 }
 
@@ -390,12 +395,14 @@ __device__ __forceinline__ uint4 quad_gather(uint32_t u0, uint32_t u1,
 }
 
 // The [64, 48] accumulator, rows scaled by mul_lo (row g) and mul_hi (row
-// g + 8), to rows row0 .. row0 + 63 of a [T, 48] bf16 matrix, as 16-byte
-// stores: the quad's lanes trade pieces so that each holds whole 8-column
-// chunks (12 chunks a quad: three rounds of four).
+// g + 8), to rows row0 .. row0 + 63 of a [T, 48] bf16 matrix whose rows are
+// `row_stride` elements apart (as in load_tile_async), as 16-byte stores: the
+// quad's lanes trade pieces so that each holds whole 8-column chunks (12
+// chunks a quad: three rounds of four).
 __device__ __forceinline__ void store_fragment(const float (&d)[24],
                                                float mul_lo, float mul_hi,
-                                               bf16* dst, int row0, int t) {
+                                               bf16* dst, int row0, int t,
+                                               int row_stride = kD) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int l = lane & 3;
   const int row_lo = row0 + warp * 16 + (lane >> 2), row_hi = row_lo + 8;
@@ -407,7 +414,8 @@ __device__ __forceinline__ void store_fragment(const float (&d)[24],
   }
   auto put = [&](int row, int chunk, uint4 val) {
     if (row < t)
-      *reinterpret_cast<uint4*>(dst + (size_t)row * kD + chunk * 8) = val;
+      *reinterpret_cast<uint4*>(dst + (size_t)row * row_stride + chunk * 8) =
+          val;
   };
   put(row_lo, l, quad_gather(lo[0], lo[1], lo[2], lo[3], l));
   put(l < 2 ? row_lo : row_hi, l < 2 ? 4 + l : l - 2,

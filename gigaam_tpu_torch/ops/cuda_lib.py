@@ -49,6 +49,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_relpos_sdpa_bwd": [_P] * 15 + [_I] * 3 + [_F, _P],
         "gigaam_relpos_sdpa_bwd_occupancy": [_P],
     },
+    "sdpa_ablation": {
+        "gigaam_sdpa_ablation": [_P] * 5 + [_I] * 6 + [_F, _P],
+    },
 }
 
 

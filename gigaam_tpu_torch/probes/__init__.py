@@ -1,0 +1,10 @@
+"""Probes: the benchmark probes of ``benchmarks/`` on the card.
+
+Each module here is the counterpart of one probe script of the JAX package:
+its kernels are written by hand for Hopper (``gigaam_tpu_torch/csrc``), each
+beside its plain PyTorch version, and its runners time them.  A probe is a
+measurement, not a path of the model: nothing else in the port calls it.
+
+* ``sdpa_ablation``: K3's kernel with one thing changed at a time
+  (``benchmarks/sdpa_ablation.py``).
+"""

@@ -182,7 +182,8 @@ def test_cast_encoder_keeps_the_head_and_reprepares_the_folds():
 def test_port_runs_without_jax_or_the_jax_package():
     """A fresh interpreter imports the port, runs CPU forwards of the rotary
     (v3_ctc) and the rel-pos (v2_ctc, emo) models, imports the training CLI
-    and takes one CPU train step, and has imported neither
+    and takes one CPU train step, times a CPU call of the SDPA ablation's
+    full variant with the port's ``device_timeit``, and has imported neither
     ``jax`` nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
@@ -210,6 +211,14 @@ def test_port_runs_without_jax_or_the_jax_package():
         "batch = (wav[None], np.array([16000], np.int32),\n"
         "         np.array([[1, 2, 3]], np.int32), np.array([3], np.int32))\n"
         "print('train step', float(ft.train_step(batch)['loss']) > 0)\n"
+        "import torch\n"
+        "from gigaam_tpu_torch.profiling import device_timeit\n"
+        "from gigaam_tpu_torch.probes import sdpa_ablation as sa\n"
+        "x = torch.zeros(4, 8, 48, dtype=torch.bfloat16)\n"
+        "m = torch.ones(1, 1, 8, dtype=torch.int8)\n"
+        "print('probe', device_timeit(lambda q: sa.full_sdpa(q, x, x, m),\n"
+        "                             [x], k=1, windows=1, reps=1,\n"
+        "                             chain=True) > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -220,6 +229,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "v2_ctc <class 'str'>" in out.stdout
     assert "emo <class 'dict'>" in out.stdout
     assert "train step True" in out.stdout
+    assert "probe True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -238,7 +248,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "gigaam_tpu"), (path, name)
+                assert top not in ("jax", "jaxlib", "gigaam_tpu",
+                                   "benchmarks"), (path, name)
 
 
 def test_load_model_without_device_raises_on_a_host_without_cuda(monkeypatch):
