@@ -62,7 +62,18 @@ Phases, each fatal on failure:
    profile's kernel sum beside its bound, its plain version and the library
    call; then the ablation's own ``main`` with both switches, from zeroed
    launch counts, printed as an ``ablation`` line in microseconds;
-9. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
+9. the FFN and conv-module fold probes (P4, P5,
+   ``gigaam_tpu_torch/probes/fold_probes.py``): each fold against its plain
+   version at the scripts' B 32, T 512 and B 128, T 768 and at the main
+   path's B 16, T' 500 (the script's ragged lengths for P5), with planted
+   faults at the first shape (the 0.5 dropped, SiLU skipped, the mask
+   skipped, the depthwise window shifted by one tap, the depthwise bias left
+   out of the BatchNorm fold), each timed by CUDA events and by the
+   profile's kernel sum beside its bound, its plain version and both stock
+   paths (the in-model baseline, and the lean path as the library call);
+   then the probes' own ``main``, from zeroed launch counts, printed as a
+   ``fold_probes`` line in microseconds;
+10. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
    (4 steps, SpecAugment, validation on the first batch), then
@@ -73,13 +84,14 @@ Phases, each fatal on failure:
    the positional parameters got a gradient, and that ``eval_step`` after
    the steps sees the new weights; per step wall time, peak memory, the
    forward/backward/optimizer split and a profile;
-10. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
+11. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
    bf16 loss and gradients against the port's CPU fp32 ones.
 
 The last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
-numbers at the kernel's other shapes; the ablation's rows add ``sum_ms``,
-the profile's kernel sum, and ``ablation_us``, its ``main``'s reading) and
+numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
+the profile's kernel sum, and their ``main``'s reading, ``ablation_us`` or
+``fold_us``; the fold probes' also ``baseline_ms``, the in-model path) and
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device.
 """
@@ -1044,6 +1056,166 @@ def ablation_kernel_rows(rows: dict, launches: dict) -> list:
     return out
 
 
+# P4 and P5: the scripts' two shapes, then the main path's B 16, T' 500;
+# the JSON rows and the planted faults at the first
+FOLD_PROBE_SHAPES = ((32, 512), (128, 768), (16, 500))
+# id -> (probe, wrapper, the `pallas_call` it replaces)
+FOLD_PROBES = {
+    "P4": ("ffn", "ffn_fold", "benchmarks/pallas_ffn_fold_probe.py:69"),
+    "P5": ("conv", "conv_fold", "benchmarks/pallas_conv_fold_probe.py:108"),
+}
+
+
+def fold_probe_bound(probe: str, b: int, t: int):
+    """The least time of one fold: x in and out once, the weights and
+    vectors once (P5: and the mask); the products' tensor operations and the
+    fp32 work a row (P4: LN 8 a channel, h's bias and SiLU 5 a column, the
+    bias, 0.5 and residual 3 a channel; P5: LN 8, the GLU's biases, sigmoid
+    and mask 7, the 31 taps' 62, BatchNorm 2, SiLU 4, bias and residual 2 a
+    channel)."""
+    m, d = b * t, D_MODEL
+    act = 2 * m * d * 2
+    if probe == "ffn":
+        dff = 4 * d
+        return bound(act + 2 * d * dff * 2 + (4 * d + dff) * 4,
+                     4 * m * d * dff, m * (11 * d + 5 * dff))
+    return bound(act + m + 3 * d * d * 2 + (8 + 31) * d * 4,
+                 6 * m * d * d, m * d * (8 + 7 + 62 + 2 + 4 + 2))
+
+
+def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
+    """(kernel call, plain call, baseline call, lean call, faults, x, valid)
+    for the probe at (b, t) on the script's weights; each call returns the
+    [B, T, 768] output."""
+    from gigaam_tpu_torch.weights import sub_block_from_jax
+
+    bf = torch.bfloat16
+    if probe == "ffn":
+        ln_np, p_np, x_np = fp.ffn_inputs(b, t)
+        valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+    else:
+        ln_np, p_np, x_np, valid_np = fp.conv_inputs(b, t)
+        valid = torch.from_numpy(valid_np).to(dev)
+    x = torch.from_numpy(x_np).to(dev, bf)
+    ln_p = fp.tree_to(sub_block_from_jax(ln_np), dev)
+    p32 = fp.tree_to(sub_block_from_jax(p_np), dev)
+    p16 = fp.tree_to(p32, dev, bf)
+    if probe == "ffn":
+        w = fp.prepare_ffn(ln_p, p32, bf)
+        lw = fp.lean_ffn_weights(ln_p, p32, bf)
+        doubled = dataclasses.replace(w, w2=w.w2 * 2, b2=w.b2 * 2)
+
+        def silu_skipped():
+            # what the kernel would return without its SiLU, up to rounding
+            xn = layer_norm({"scale": w.ln_g, "bias": w.ln_b}, x)
+            with full_fp32():
+                h = (xn.float() @ w.w1.float() + w.b1).to(bf)
+                y = h.float() @ w.w2.float() + w.b2
+            return (0.5 * y).to(bf) + x
+
+        return (lambda: fp.ffn_fold(w, x), lambda: fp.ffn_fold_plain(w, x),
+                lambda: fp.ffn_baseline(ln_p, p16, x),
+                lambda: fp.ffn_lean(lw, x),
+                (("the 0.5 dropped", lambda: fp.ffn_fold(doubled, x)),
+                 ("SiLU skipped", silu_skipped)), x, valid)
+    w = fp.prepare_conv(ln_p, p32, bf)
+    lw = fp.lean_conv_weights(ln_p, p32, bf)
+    mask = valid[..., None].to(bf)
+    shifted = dataclasses.replace(w, dw=torch.cat(
+        [torch.zeros_like(w.dw[:1]), w.dw[:-1]]).contiguous())
+    no_dw_bias = dataclasses.replace(w, bnb=fp.bn_affine(
+        {**p32, "depthwise_conv": {"w": p32["depthwise_conv"]["w"]}})[1])
+    return (lambda: fp.conv_fold(w, x, valid),
+            lambda: fp.conv_fold_plain(w, x, valid),
+            lambda: fp.conv_baseline(ln_p, p16, x, valid),
+            lambda: fp.conv_lean(lw, x, mask),
+            (("the mask skipped",
+              lambda: fp.conv_fold(w, x, torch.ones_like(valid))),
+             ("the depthwise window shifted by one tap",
+              lambda: fp.conv_fold(shifted, x, valid)),
+             ("the depthwise bias left out of the BatchNorm fold",
+              lambda: fp.conv_fold(no_dw_bias, x, valid))), x, valid)
+
+
+def fold_probe_phase(dev):
+    """P4 and P5: each fold against its plain version at FOLD_PROBE_SHAPES
+    (the planted faults at the first, against the limit on the sub-block's
+    term, out - x), two calls bit-equal, each timed by CUDA events and by
+    the profile's kernel sum beside its bound, its plain version, the
+    in-model baseline and the lean path; then the probes' own ``main``, from
+    zeroed launch counts.  Returns ({id: JSON row}, {wrapper: launches in
+    ``main``})."""
+    from gigaam_tpu_torch.probes import fold_probes as fp
+
+    readings = defaultdict(dict)
+    for b, t in FOLD_PROBE_SHAPES:
+        for pid, (probe, wrapper, _) in FOLD_PROBES.items():
+            kernel, plain, base, lean, faults, x, valid = fold_probe_calls(
+                fp, probe, b, t, dev)
+            got = kernel()
+            if not torch.equal(kernel(), got):
+                raise AssertionError(f"{pid} B={b} T={t}: two calls differ")
+            err, rel = check_kernel(
+                f"{pid} {wrapper} B={b} T={t}", got, plain(), valid, 1,
+                faults if (b, t) == FOLD_PROBE_SHAPES[0] else (), residual=x)
+            ms = time_ms(kernel)
+            split = device_ms(kernel)
+            sum_ms = sum(split.values())
+            plain_ms = time_ms(plain, iters=3, warmup=1)
+            base_ms, lean_ms = time_ms(base), time_ms(lean)
+            bms, by = fold_probe_bound(probe, b, t)
+            if (b, t) == FOLD_PROBE_SHAPES[0]:
+                # where each path's device time goes, by kernel
+                for label, times in (("fold", split), ("lean", device_ms(lean)),
+                                     ("baseline", device_ms(base))):
+                    top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+                    print(f"  {pid} {label} B={b} T={t} on the card by kernel "
+                          f"(sum {sum(times.values()):.4f} ms): " + json.dumps(
+                              [[k[:60], round(v, 4)] for k, v in top]),
+                          flush=True)
+            print(f"{pid} {wrapper} B={b} T={t}: max_abs_err {err:.3e}, "
+                  f"{rel:.4f} x RMS (limit {KERNEL_REL}); kernel {ms:.4f} ms "
+                  f"by events, {sum_ms:.4f} ms on the card; plain "
+                  f"{plain_ms:.4f} ms, baseline {base_ms:.4f} ms, lean "
+                  f"{lean_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+            readings[pid][(b, t)] = dict(
+                ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lean_ms, baseline_ms=base_ms,
+                max_abs_err=err)
+            del kernel, plain, base, lean, faults, got, x
+        torch.cuda.empty_cache()
+
+    # the probes' main path: their main, both probes at the scripts' shapes
+    fp.reset_launch_counts()
+    results = fp.main()
+    launches = {fn.__name__: fn.launches for fn in fp.KERNELS}
+    print("fold_probes " + json.dumps(results), flush=True)
+    print(f"fold_probes launches {launches}", flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"the fold probes' main launched {launches}")
+    torch.cuda.empty_cache()
+    rows = {}
+    for pid, (probe, _, _) in FOLD_PROBES.items():
+        main_us = results[probe][f"b{FOLD_PROBE_SHAPES[0][0]}_t"
+                                 f"{FOLD_PROBE_SHAPES[0][1]}"]
+        rows[pid] = dict(shaped_row(readings[pid], FOLD_PROBE_SHAPES[0]),
+                         fold_us=main_us[fp.FOLD_KEY[probe]])
+    return rows, launches
+
+
+def fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
+    """The kernels line's rows of P4 and P5."""
+    return [{
+        "name": f"{pid} {wrapper}", "route": "cuda",
+        "source": "gigaam_tpu_torch/csrc/fold_probes.cu", "replaces": repl,
+        "launches": launches[wrapper], **{
+            key: rows[pid][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "sum_ms", "baseline_ms", "fold_us", "shape",
+                "also")}}
+        for pid, (_, wrapper, repl) in FOLD_PROBES.items()]
+
+
 def counts() -> dict:
     return {"K3": fa.fused_mha.launches,
             "K2": fa.folded_rotary_attention.launches,
@@ -1495,7 +1667,8 @@ def main() -> int:
                      "qkv_kernel<1, 128>", "out_proj_kernel<2, 128, true>",
                      "out_proj_kernel<2, 128, false>",
                      "out_proj_kernel<1, 64, true>",
-                     "out_proj_kernel<1, 64, false>") + ablation_kernels
+                     "out_proj_kernel<1, 64, false>", "ffn_fold_kernel",
+                     "glu_fold_kernel", "dw_proj_kernel") + ablation_kernels
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
@@ -1511,6 +1684,7 @@ def main() -> int:
     rows["K4"] = bwd_kernel_phase(gen, dev, relpos=False)
     rows["K6"] = bwd_kernel_phase(gen, dev, relpos=True)
     ablation_rows, ablation_launches = ablation_phase(gen, dev)
+    fold_rows, fold_launches = fold_probe_phase(dev)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
@@ -1566,6 +1740,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "also": r.get("also", [])})
     kernels += ablation_kernel_rows(ablation_rows, ablation_launches)
+    kernels += fold_probe_kernel_rows(fold_rows, fold_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -104,33 +104,6 @@ struct OutArgs {
   int t, d, n_heads;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(h[e]);
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  bf16* h = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16(f[e]);
-  return u;
-}
-
-__device__ __forceinline__ void load8f(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
 // One warp a row; lane l holds the row's 16-byte chunks l, l + 32, ...
 template <bool kLn>
 __global__ void __launch_bounds__(kRowWarps * 32) ln_rope_kernel(RowArgs a) {
@@ -211,8 +184,6 @@ __global__ void __launch_bounds__(kRowWarps * 32) ln_rope_kernel(RowArgs a) {
 // the GEMMs
 // ---------------------------------------------------------------------------
 
-constexpr int kSmemAlign = 1024;   // swizzle atoms start on 1024 bytes
-
 template <int kWG, int kBN>
 struct QkvTile {
   static constexpr int kBM = 64 * kWG, kBK = 64, kStages = 3;
@@ -239,16 +210,6 @@ struct OutMaps {
   CUtensorMap o;      // O as [B*H, T, 48], boxes [1, 64 kWG, 16], 32 B swizzle
   CUtensorMap w;      // Wo: [D, D], boxes [48 rows, 64 columns], 128 B swizzle
 };
-
-__device__ __forceinline__ uint32_t aligned_smem(unsigned char* smem) {
-  return (smem_u32(smem) + kSmemAlign - 1) & ~uint32_t(kSmemAlign - 1);
-}
-
-// B: k-step kk of kBN / 64 MN-major boxes of [kBK rows, 64 columns]
-template <int kBK>
-__device__ __forceinline__ uint64_t weight_desc(uint32_t b, int kk) {
-  return swizzled_desc(b + kk * 2048, kBK * 128, 1024, kSwizzle128);
-}
 
 // grid (3 D / kBN column tiles, row tiles of 64 kWG)
 template <int kWG, int kBN>
@@ -354,92 +315,6 @@ out_proj_kernel(const __grid_constant__ OutMaps maps, OutArgs a) {
 // host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link
-// to libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a bf16 tensor map of `rank` dimensions (innermost first), byte strides of
-// dimensions 1.., the box and its swizzle; false on failure.  Boxes reaching
-// past the tensor are zero-filled.
-bool bf16_map(CUtensorMap* map, const void* base, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides,
-              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// [rows, cols] row-major, boxes [box_rows, 64 columns] with the 128 B swizzle
-bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
-                int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  return bf16_map(map, base, 2, dims, strides, box,
-                  CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-constexpr int kMaxDevices = 64;
-
-int current_device() {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  return dev;
-}
-
-int sm_count() {
-  static int counts[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev >= kMaxDevices) return 0;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
-}
-
-// Launches kKernel after opting it in to `smem` bytes of dynamic shared
-// memory, once per device.
-template <auto kKernel, typename Maps, typename Args>
-cudaError_t launch(dim3 grid, int threads, int smem, cudaStream_t s,
-                   const Maps& maps, const Args& args) {
-  static bool opted_in[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
-  }
-  kKernel<<<grid, threads, smem, s>>>(maps, args);
-  return cudaGetLastError();
-}
-
 template <int kWG, int kBN>
 cudaError_t launch_qkv(const QkvArgs& a, cudaStream_t s) {
   using Tile = QkvTile<kWG, kBN>;
@@ -477,16 +352,6 @@ cudaError_t launch_out(const OutArgs& a, int batch, cudaStream_t s) {
 // 128-row tiles when they give every SM a block, else 64-row tiles
 bool wide_rows(int row_tiles_of_128, int col_tiles) {
   return row_tiles_of_128 * col_tiles >= sm_count();
-}
-
-template <typename Kernel>
-cudaError_t occupancy(Kernel kernel, int threads, int smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = smem;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
-                                                       threads, smem);
 }
 
 }  // namespace

@@ -52,6 +52,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "sdpa_ablation": {
         "gigaam_sdpa_ablation": [_P] * 5 + [_I] * 6 + [_F, _P],
     },
+    "fold_probes": {
+        "gigaam_ffn_fold": [_P] * 8 + [_I, _P],
+        "gigaam_conv_fold": [_P] * 15 + [_I] * 2 + [_P],
+        "gigaam_fold_probes_occupancy": [_P],
+    },
 }
 
 
@@ -158,7 +163,8 @@ def _template_args(args: Optional[str]) -> str:
 
 def dynamic_resources() -> Dict[str, Dict[str, int]]:
     """Per kernel that sizes its shared memory at launch (the rel-pos
-    kernels and the projection GEMMs, one entry per tile configuration):
+    kernels, the projection GEMMs, one entry per tile configuration, and
+    the fold probes' kernels):
     the dynamic shared memory in bytes and how many blocks one SM holds at
     a time, as the CUDA runtime reports them for the current card."""
     out: Dict[str, Dict[str, int]] = {}
@@ -170,7 +176,9 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
             ("projection", "gigaam_projection_occupancy",
              ("qkv_kernel<2, 128>", "qkv_kernel<1, 128>",
               "out_proj_kernel<2, 128, true>",
-              "out_proj_kernel<1, 64, true>"))):
+              "out_proj_kernel<1, 64, true>")),
+            ("fold_probes", "gigaam_fold_probes_occupancy",
+             ("ffn_fold_kernel", "glu_fold_kernel", "dw_proj_kernel"))):
         pairs = (ctypes.c_int * (2 * len(kernels)))()
         check(getattr(library(name), fn)(pairs), fn)
         for i, kernel in enumerate(kernels):

@@ -7,4 +7,8 @@ measurement, not a path of the model: nothing else in the port calls it.
 
 * ``sdpa_ablation``: K3's kernel with one thing changed at a time
   (``benchmarks/sdpa_ablation.py``).
+* ``fold_probes``: the FFN and conv-module sub-blocks, LayerNorm and
+  residual included, each folded into hand-written kernels and timed
+  against the stock compositions (``benchmarks/pallas_ffn_fold_probe.py``,
+  ``benchmarks/pallas_conv_fold_probe.py``).
 """

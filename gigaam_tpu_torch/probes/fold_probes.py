@@ -1,0 +1,486 @@
+"""The FFN and conv-module fold probes on the card (P4, P5).
+
+Counterpart of ``benchmarks/pallas_ffn_fold_probe.py`` (P4) and
+``benchmarks/pallas_conv_fold_probe.py`` (P5).  Each folds one Conformer
+sub-block, its LayerNorm and residual included, into hand-written Hopper
+kernels (``csrc/fold_probes.cu``):
+
+  P4  ffn_lnres_folded(ln_p, p, x, nb)          x + 0.5 FFN(LN(x))
+  P5  conv_lnres_folded(ln_p, p, x, valid, nb)  x + ConvModule(LN(x))
+
+and times the fold against two stock compositions:
+
+  baseline  the port's in-model path, as the encoder runs it:
+            ``x + 0.5 * ffn(p, layer_norm(ln_p, x))`` and ``x +
+            conformer_conv(p, layer_norm(ln_p, x), valid, "batch_norm")[0]``
+            (``ops/conformer_ops.py``): the script's own baseline;
+  lean      the fewest stock calls: ``F.layer_norm``, ``F.linear`` with its
+            bias, ``F.silu``, ``F.linear``, ``torch.add(x, y, alpha=0.5)``
+            for P4; ``F.layer_norm``, one [768, 1536] ``F.linear``,
+            ``F.glu``, the mask, cuDNN's depthwise ``F.conv1d``, the
+            BatchNorm affine (precomputed, the depthwise bias folded in),
+            ``F.silu``, ``F.linear`` and the add for P5.
+
+On a card,
+
+    python3 -m gigaam_tpu_torch.probes.fold_probes
+
+prints a line per probe and shape and, last, one JSON object
+``{"ffn": {"b32_t512": {...}, "b128_t768": {...}}, "conv": {...}}``: under
+each shape the scripts' keys (``baseline_us``, ``foldFFN_us`` or
+``foldConv_us``, ``delta_pct``, ``maxrel``) and ``lean_us``,
+``delta_lean_pct`` and ``nb``.  Times are microseconds per call from
+``gigaam_tpu_torch.profiling.device_timeit`` (40 calls replayed as a CUDA
+graph, as the scripts call theirs 40 times a run).  A failure raises; the
+scripts record it and go on.
+
+``nb`` is the TPU grid's batch rows per cell, a tiling knob of the Pallas
+kernels.  The Hopper kernels tile rows their own way (64 rows a block) and
+ignore it: it stays in the signatures and is recorded in the output.
+
+The scripts time the fold inside ``jax.jit`` with the weights as constants,
+so XLA folds the weights' casts and P5's BatchNorm fold away.  Here the fold
+weights are prepared once (``prepare_ffn``, ``prepare_conv``) and the timed
+call is the kernel wrapper's; the stock paths, too, get their matrices in
+bf16 once (the encoder after ``cast_encoder``).
+
+Beside each kernel wrapper is the plain version of its Pallas body
+(``ffn_fold_plain``, ``conv_fold_plain``), rounding where the body rounds.
+A wrapper takes it for tensors on the CPU; for CUDA tensors it launches its
+kernels or raises.  ``<wrapper>.launches`` counts the calls that launched.
+Only the tests and ``chip_smoke.py`` call the plain versions on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import cuda_lib
+from ..ops.conformer_ops import conformer_conv, ffn, layer_norm
+from ..ops.fused_attention import _check_tensor, _require, _stream
+from ..ops.precision import full_fp32
+from ..profiling import device_timeit
+from ..weights import sub_block_from_jax
+
+D, DFF, K = 768, 3072, 31
+EPS = 1e-5
+# (B, T, nb) of the scripts' main
+SHAPES = ((32, 512, 1), (128, 768, 4))
+PROBES = ("ffn", "conv")
+CALLS = 40          # calls a timed run, as the scripts' device_timeit(k=40)
+FOLD_KEY = {"ffn": "foldFFN_us", "conv": "foldConv_us"}
+
+
+# ---------------------------------------------------------------------------
+# Weights, as the Pallas wrappers hand them to their kernels
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FfnFoldWeights:
+    ln_g: torch.Tensor   # [D] fp32
+    ln_b: torch.Tensor
+    w1: torch.Tensor     # [D, DFF] compute dtype ([in, out])
+    b1: torch.Tensor     # [DFF] fp32
+    w2: torch.Tensor     # [DFF, D] compute dtype
+    b2: torch.Tensor     # [D] fp32
+
+
+@dataclasses.dataclass
+class ConvFoldWeights:
+    ln_g: torch.Tensor   # [D] fp32
+    ln_b: torch.Tensor
+    wv: torch.Tensor     # [D, D] compute dtype: the GLU's value half
+    bv: torch.Tensor     # [D] fp32
+    wg: torch.Tensor     # [D, D] compute dtype: its gate half
+    bg: torch.Tensor     # [D] fp32
+    dw: torch.Tensor     # [K, D] fp32: tap k of channel c at [k, c]
+    bns: torch.Tensor    # [D] fp32: BatchNorm's scale
+    bnb: torch.Tensor    # [D] fp32: its bias, the depthwise bias folded in
+    w2: torch.Tensor     # [D, D] compute dtype
+    b2: torch.Tensor     # [D] fp32
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def prepare_ffn(ln_p: Mapping, p: Mapping, dtype: torch.dtype
+                ) -> FfnFoldWeights:
+    """The port's FFN sub-block parameters (``linear1``, ``linear2``) and
+    its LayerNorm's, cast as ``ffn_lnres_folded`` casts them."""
+    return FfnFoldWeights(
+        _f32(ln_p["scale"]), _f32(ln_p["bias"]),
+        p["linear1"]["w"].to(dtype).contiguous(), _f32(p["linear1"]["b"]),
+        p["linear2"]["w"].to(dtype).contiguous(), _f32(p["linear2"]["b"]))
+
+
+def bn_affine(p: Mapping):
+    """Inference BatchNorm folded to an fp32 (scale, bias), the depthwise
+    bias folded into the bias, as ``conv_lnres_folded`` folds them."""
+    bn = p["batch_norm"]
+    inv = torch.rsqrt(bn["var"].float() + EPS)
+    bns = bn["scale"].float() * inv
+    bnb = bn["bias"].float() - bn["mean"].float() * bn["scale"].float() * inv
+    if "b" in p["depthwise_conv"]:
+        bnb = bnb + p["depthwise_conv"]["b"].float() * bns
+    return bns.contiguous(), bnb.contiguous()
+
+
+def prepare_conv(ln_p: Mapping, p: Mapping, dtype: torch.dtype
+                 ) -> ConvFoldWeights:
+    """The port's conv-module parameters (depthwise weight [C, 1, K]) and
+    its LayerNorm's, cast and folded as ``conv_lnres_folded`` does."""
+    pc1 = p["pointwise_conv1"]
+    dw = p["depthwise_conv"]["w"]
+    bns, bnb = bn_affine(p)
+    return ConvFoldWeights(
+        _f32(ln_p["scale"]), _f32(ln_p["bias"]),
+        pc1["w_value"].to(dtype).contiguous(), _f32(pc1["b_value"]),
+        pc1["w_gate"].to(dtype).contiguous(), _f32(pc1["b_gate"]),
+        _f32(dw.reshape(dw.shape[0], dw.shape[-1]).t()), bns, bnb,
+        p["pointwise_conv2"]["w"].to(dtype).contiguous(),
+        _f32(p["pointwise_conv2"]["b"]))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the Pallas bodies
+# ---------------------------------------------------------------------------
+
+def _layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """The bodies' LayerNorm: fp32 statistics, rounded to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + EPS) * g + b).to(x.dtype)
+
+
+def _product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a . w`` in fp32, as ``jnp.dot`` with an fp32 result."""
+    with full_fp32():
+        return a.float() @ w.float()
+
+
+def _silu(v: torch.Tensor) -> torch.Tensor:
+    return v * torch.sigmoid(v)
+
+
+def ffn_fold_plain(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """``_ffn_lnres_kernel``: x + bf16(0.5 (bf16(SiLU(LN(x) W1 + b1)) W2 +
+    b2)), the sum in x's dtype."""
+    xn = _layer_norm(x, w.ln_g, w.ln_b)
+    h = _silu(_product(xn, w.w1) + w.b1).to(x.dtype)
+    y = _product(h, w.w2) + w.b2
+    return (0.5 * y).to(x.dtype) + x
+
+
+def depthwise_taps(y: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """The Pallas body's depthwise conv of y [B, T, C] (any dtype) with taps
+    dw [K, C]: K fp32 multiply-adds in order of k over y zero-padded by
+    (K - 1) / 2 frames at each end of each batch element ('same')."""
+    k, t = dw.shape[0], y.shape[1]
+    pad = (k - 1) // 2
+    yp = F.pad(y.float(), (0, 0, pad, pad))
+    acc = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
+    for i in range(k):
+        acc = acc + yp[:, i:i + t] * dw[i]
+    return acc
+
+
+def conv_fold_plain(w: ConvFoldWeights, x: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """``_conv_lnres_kernel``: x + bf16(bf16(SiLU(bns taps(y) + bnb)) W2 +
+    b2) with y = bf16((xn Wv + bv) sigmoid(xn Wg + bg)) * valid, xn =
+    LN(x); the sum in x's dtype."""
+    xn = _layer_norm(x, w.ln_g, w.ln_b)
+    v = _product(xn, w.wv) + w.bv
+    g = _product(xn, w.wg) + w.bg
+    y = (v * torch.sigmoid(g)).to(x.dtype) * valid.to(x.dtype)[..., None]
+    c = _silu(depthwise_taps(y, w.dw) * w.bns + w.bnb).to(x.dtype)
+    return (_product(c, w.w2) + w.b2).to(x.dtype) + x
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+def _check_ffn_args(w: FfnFoldWeights, x: torch.Tensor) -> None:
+    """What ``ffn_fold_kernel`` takes: x [B, T, 768] bf16 with B T >= 1, the
+    weights' shapes and dtypes, every tensor contiguous and 16-byte aligned
+    on x's device."""
+    _require(x.dim() == 3 and x.shape[-1] == D and x.numel() > 0,
+             f"x must be [B, T, {D}], got {tuple(x.shape)}")
+    _check_tensor("x", x, x.device, torch.bfloat16, x.shape)
+    for name, shape in (("ln_g", (D,)), ("ln_b", (D,)), ("w1", (D, DFF)),
+                        ("b1", (DFF,)), ("w2", (DFF, D)), ("b2", (D,))):
+        _check_tensor(name, getattr(w, name), x.device,
+                      x.dtype if name[0] == "w" else torch.float32, shape)
+
+
+def _check_conv_args(w: ConvFoldWeights, x: torch.Tensor,
+                     valid: torch.Tensor) -> None:
+    """What the conv fold's kernels take: x [B, T, 768] bf16, valid [B, T]
+    bool, the weights' shapes and dtypes, every tensor contiguous and
+    16-byte aligned on x's device."""
+    _require(x.dim() == 3 and x.shape[-1] == D and x.numel() > 0,
+             f"x must be [B, T, {D}], got {tuple(x.shape)}")
+    _check_tensor("x", x, x.device, torch.bfloat16, x.shape)
+    _check_tensor("valid", valid, x.device, torch.bool, x.shape[:2])
+    for name in ("ln_g", "ln_b", "bv", "bg", "bns", "bnb", "b2"):
+        _check_tensor(name, getattr(w, name), x.device, torch.float32, (D,))
+    for name in ("wv", "wg", "w2"):
+        _check_tensor(name, getattr(w, name), x.device, x.dtype, (D, D))
+    _check_tensor("dw", w.dw, x.device, torch.float32, (K, D))
+
+
+def ffn_fold(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """P4: x + 0.5 FFN(LN(x)) for x [B, T, 768]: one launch of
+    ``ffn_fold_kernel`` on the card (bf16), ``ffn_fold_plain`` on the
+    CPU."""
+    if x.device.type == "cpu":
+        return ffn_fold_plain(w, x)
+    _check_ffn_args(w, x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        cuda_lib.check(cuda_lib.library("fold_probes").gigaam_ffn_fold(
+            x.data_ptr(), w.ln_g.data_ptr(), w.ln_b.data_ptr(),
+            w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
+            w.b2.data_ptr(), out.data_ptr(), x.shape[0] * x.shape[1],
+            _stream(x.device)), "gigaam_ffn_fold")
+    ffn_fold.launches += 1
+    return out
+
+
+def conv_fold(w: ConvFoldWeights, x: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """P5: x + ConvModule(LN(x)) for x [B, T, 768], valid [B, T] (True: a
+    real frame): ``glu_fold_kernel`` then ``dw_proj_kernel`` on the card
+    (bf16; y, their [B, T, 768] handover, is scratch), ``conv_fold_plain``
+    on the CPU."""
+    if x.device.type == "cpu":
+        return conv_fold_plain(w, x, valid)
+    _check_conv_args(w, x, valid)
+    y = torch.empty_like(x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        cuda_lib.check(cuda_lib.library("fold_probes").gigaam_conv_fold(
+            x.data_ptr(), w.ln_g.data_ptr(), w.ln_b.data_ptr(),
+            w.wv.data_ptr(), w.bv.data_ptr(), w.wg.data_ptr(),
+            w.bg.data_ptr(), valid.data_ptr(), w.dw.data_ptr(),
+            w.bns.data_ptr(), w.bnb.data_ptr(), w.w2.data_ptr(),
+            w.b2.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
+            x.shape[1], _stream(x.device)), "gigaam_conv_fold")
+    conv_fold.launches += 1
+    return out
+
+
+KERNELS = (ffn_fold, conv_fold)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+reset_launch_counts()
+
+
+def ffn_lnres_folded(ln_p: Mapping, p: Mapping, x: torch.Tensor, nb: int
+                     ) -> torch.Tensor:
+    """The script's P4 entry: the port's FFN parameters and LayerNorm's, x
+    [B, T, 768]; ``nb`` must divide B and is otherwise ignored."""
+    _require(x.shape[0] % nb == 0, f"nb {nb} does not divide B {x.shape[0]}")
+    return ffn_fold(prepare_ffn(ln_p, p, x.dtype), x)
+
+
+def conv_lnres_folded(ln_p: Mapping, p: Mapping, x: torch.Tensor,
+                      valid: torch.Tensor, nb: int) -> torch.Tensor:
+    """The script's P5 entry: the port's conv-module parameters and
+    LayerNorm's, x [B, T, 768], valid [B, T]; ``nb`` must divide B and is
+    otherwise ignored."""
+    _require(x.shape[0] % nb == 0, f"nb {nb} does not divide B {x.shape[0]}")
+    return conv_fold(prepare_conv(ln_p, p, x.dtype), x, valid)
+
+
+# ---------------------------------------------------------------------------
+# The stock compositions
+# ---------------------------------------------------------------------------
+
+def ffn_baseline(ln_p: Mapping, p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    """(a) The encoder's FFN sub-block: ``x + 0.5 * ffn(LN(x))``."""
+    return x + 0.5 * ffn(p, layer_norm(ln_p, x))
+
+
+def conv_baseline(ln_p: Mapping, p: Mapping, x: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """(a) The encoder's conv sub-block in inference."""
+    return x + conformer_conv(p, layer_norm(ln_p, x), valid, "batch_norm")[0]
+
+
+def lean_ffn_weights(ln_p: Mapping, p: Mapping, dtype: torch.dtype) -> dict:
+    """Path (b)'s FFN parameters, all in ``dtype``, the matrices [out, in]
+    as ``F.linear`` takes them."""
+    return {"ln_g": ln_p["scale"].to(dtype), "ln_b": ln_p["bias"].to(dtype),
+            "w1": p["linear1"]["w"].t().to(dtype).contiguous(),
+            "b1": p["linear1"]["b"].to(dtype),
+            "w2": p["linear2"]["w"].t().to(dtype).contiguous(),
+            "b2": p["linear2"]["b"].to(dtype)}
+
+
+def ffn_lean(lw: dict, x: torch.Tensor) -> torch.Tensor:
+    """(b) ``F.layer_norm``, ``F.linear`` + bias, ``F.silu``, ``F.linear``
+    + bias, ``torch.add(x, y, alpha=0.5)``."""
+    xn = F.layer_norm(x, (x.shape[-1],), lw["ln_g"], lw["ln_b"], EPS)
+    h = F.silu(F.linear(xn, lw["w1"], lw["b1"]))
+    return torch.add(x, F.linear(h, lw["w2"], lw["b2"]), alpha=0.5)
+
+
+def lean_conv_weights(ln_p: Mapping, p: Mapping, dtype: torch.dtype) -> dict:
+    """Path (b)'s conv-module parameters in ``dtype``: the value and gate
+    halves as one [2 D, D] ``F.linear`` weight, the BatchNorm affine
+    precomputed with the depthwise bias folded in, as [D, 1] columns."""
+    pc1 = p["pointwise_conv1"]
+    bns, bnb = bn_affine(p)
+    return {
+        "ln_g": ln_p["scale"].to(dtype), "ln_b": ln_p["bias"].to(dtype),
+        "w_vg": torch.cat([pc1["w_value"], pc1["w_gate"]], dim=1).t()
+        .to(dtype).contiguous(),
+        "b_vg": torch.cat([pc1["b_value"], pc1["b_gate"]]).to(dtype),
+        "dw": p["depthwise_conv"]["w"].to(dtype),
+        "bns": bns[:, None].to(dtype), "bnb": bnb[:, None].to(dtype),
+        "w2": p["pointwise_conv2"]["w"].t().to(dtype).contiguous(),
+        "b2": p["pointwise_conv2"]["b"].to(dtype)}
+
+
+def conv_lean(lw: dict, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(b) ``F.layer_norm``, one ``F.linear`` to value and gate, ``F.glu``,
+    the mask ([B, T, 1] in x's dtype), the depthwise ``F.conv1d``, the
+    BatchNorm affine (``torch.addcmul``), ``F.silu``, ``F.linear`` and the
+    residual add."""
+    d = x.shape[-1]
+    xn = F.layer_norm(x, (d,), lw["ln_g"], lw["ln_b"], EPS)
+    y = F.glu(F.linear(xn, lw["w_vg"], lw["b_vg"]), dim=-1) * mask
+    c = F.conv1d(y.transpose(1, 2), lw["dw"], None,
+                 padding=(lw["dw"].shape[-1] - 1) // 2, groups=d)
+    c = F.silu(torch.addcmul(lw["bnb"], c, lw["bns"]))
+    return torch.add(x, F.linear(c.transpose(1, 2), lw["w2"], lw["b2"]))
+
+
+# ---------------------------------------------------------------------------
+# The scripts' inputs and runners
+# ---------------------------------------------------------------------------
+
+def ffn_inputs(b: int, t: int):
+    """P4's inputs as the script draws them (``default_rng(0)``, the same
+    order and scales): (ln_p, p, x), JAX-layout numpy trees and x float64
+    [B, T, D]."""
+    rng = np.random.default_rng(0)
+    f32 = lambda a: np.asarray(a, np.float32)
+    p = {"linear1": {"w": f32(0.05 * rng.standard_normal((D, DFF))),
+                     "b": f32(0.01 * rng.standard_normal(DFF))},
+         "linear2": {"w": f32(0.05 * rng.standard_normal((DFF, D))),
+                     "b": f32(0.01 * rng.standard_normal(D))}}
+    ln_p = {"scale": f32(1.0 + 0.1 * rng.standard_normal(D)),
+            "bias": f32(0.1 * rng.standard_normal(D))}
+    return ln_p, p, 0.5 * rng.standard_normal((b, t, D))
+
+
+def conv_inputs(b: int, t: int):
+    """P5's inputs as the script draws them: (ln_p, p, x, valid) with the
+    script's ragged lengths (the first row full, the others t - 77)."""
+    rng = np.random.default_rng(0)
+    f32a = lambda *s: np.asarray(0.05 * rng.standard_normal(s), np.float32)
+    p = {
+        "pointwise_conv1": {"w_value": f32a(D, D), "b_value": f32a(D),
+                            "w_gate": f32a(D, D), "b_gate": f32a(D)},
+        "depthwise_conv": {"w": f32a(K, 1, D), "b": f32a(D)},
+        "batch_norm": {"scale": 1.0 + f32a(D), "bias": f32a(D),
+                       "mean": f32a(D), "var": 1.0 + np.abs(f32a(D))},
+        "pointwise_conv2": {"w": f32a(D, D), "b": f32a(D)},
+    }
+    ln_p = {"scale": 1.0 + f32a(D), "bias": f32a(D)}
+    x = 0.5 * rng.standard_normal((b, t, D))
+    lens = np.full((b,), t)
+    lens[1:] = max(1, t - 77)
+    return ln_p, p, x, np.arange(t)[None, :] < lens[:, None]
+
+
+def tree_to(tree, dev, matrices=None):
+    """A tree of CPU tensors on ``dev``; with ``matrices`` a dtype, the
+    leaves of two or more dimensions cast to it."""
+    return {k: tree_to(v, dev, matrices) if isinstance(v, dict)
+            else v.to(dev, matrices if matrices is not None and v.dim() >= 2
+                      else v.dtype) for k, v in tree.items()}
+
+
+def run(b: int, t: int, nb: int, probe: str = "ffn", device=None) -> dict:
+    """One shape of one probe ("ffn": P4, "conv": P5), as the script's
+    ``run``: the fold's error against the baseline and the three times."""
+    _require(probe in PROBES, f"probe {probe!r} is none of {PROBES}")
+    dev = torch.device("cuda" if device is None else device)
+    dt = torch.bfloat16
+    if probe == "ffn":
+        ln_np, p_np, x_np = ffn_inputs(b, t)
+    else:
+        ln_np, p_np, x_np, valid_np = conv_inputs(b, t)
+        valid = torch.from_numpy(valid_np).to(dev)
+        mask = valid[..., None].to(dt)
+    x = torch.from_numpy(x_np).to(dev, dt)
+    ln_p = tree_to(sub_block_from_jax(ln_np), dev)
+    p32 = tree_to(sub_block_from_jax(p_np), dev)
+    p16 = tree_to(p32, dev, dt)
+
+    if probe == "ffn":
+        w = prepare_ffn(ln_p, p32, dt)
+        lw = lean_ffn_weights(ln_p, p32, dt)
+        base = lambda xx: ffn_baseline(ln_p, p16, xx)
+        lean = lambda xx: ffn_lean(lw, xx)
+        fold = lambda xx: ffn_fold(w, xx)
+        got = ffn_lnres_folded(ln_p, p32, x, nb)
+        tmin = t
+    else:
+        w = prepare_conv(ln_p, p32, dt)
+        lw = lean_conv_weights(ln_p, p32, dt)
+        base = lambda xx: conv_baseline(ln_p, p16, xx, valid)
+        lean = lambda xx: conv_lean(lw, xx, mask)
+        fold = lambda xx: conv_fold(w, xx, valid)
+        got = conv_lnres_folded(ln_p, p32, x, valid, nb)
+        tmin = int(valid_np.sum(axis=1).min())
+
+    res = {"nb": nb}
+    dt_b = device_timeit(base, [x], k=CALLS)
+    res["baseline_us"] = round(dt_b * 1e6, 1)
+    want = base(x).float()
+    err = ((got.float() - want).abs() / (want.abs() + 1.0))[:, :tmin]
+    res["maxrel"] = float(err.max())
+    dt_l = device_timeit(lean, [x], k=CALLS)
+    res["lean_us"] = round(dt_l * 1e6, 1)
+    dt_f = device_timeit(fold, [x], k=CALLS)
+    res[FOLD_KEY[probe]] = round(dt_f * 1e6, 1)
+    res["delta_pct"] = round(100.0 * (dt_f - dt_b) / dt_b, 1)
+    res["delta_lean_pct"] = round(100.0 * (dt_f - dt_l) / dt_l, 1)
+    print(f"{probe} b{b} t{t} nb{nb}: baseline {res['baseline_us']} us, "
+          f"lean {res['lean_us']} us, fold {res[FOLD_KEY[probe]]} us "
+          f"({res['delta_pct']:+}% against the baseline, "
+          f"{res['delta_lean_pct']:+}% against lean), maxrel "
+          f"{res['maxrel']:.4f}", flush=True)
+    return res
+
+
+def main(device=None) -> dict:
+    """Both scripts' ``main`` on ``device`` (the card when None): prints and
+    returns the results by probe and shape."""
+    out = {probe: {f"b{b}_t{t}": run(b, t, nb, probe, device)
+                   for b, t, nb in SHAPES} for probe in PROBES}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -86,6 +86,14 @@ def _map(tree: Tree, fn, path: Tuple[str, ...] = ()) -> Tree:
             else fn(path + (k,), v) for k, v in tree.items()}
 
 
+def sub_block_from_jax(tree: Tree) -> Tree:
+    """One layer's sub-block tree in the JAX layout (numpy leaves without
+    the layer axis, e.g. ``{"pointwise_conv1": ..., "depthwise_conv": ...}``
+    or a LayerNorm's ``{"scale", "bias"}``) -> the port's layout (CPU torch
+    tensors, dtypes kept)."""
+    return _map(tree, _layer_leaf)
+
+
 def params_from_jax(tree: Tree) -> Tree:
     """The JAX package's parameter tree (numpy leaves) -> the port's state
     (nested dicts of CPU torch tensors, dtypes kept)."""

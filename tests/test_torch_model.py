@@ -219,6 +219,11 @@ def test_port_runs_without_jax_or_the_jax_package():
         "print('probe', device_timeit(lambda q: sa.full_sdpa(q, x, x, m),\n"
         "                             [x], k=1, windows=1, reps=1,\n"
         "                             chain=True) > 0)\n"
+        "from gigaam_tpu_torch.probes import fold_probes as fp\n"
+        "fp.D, fp.DFF = 64, 256\n"
+        "for probe in fp.PROBES:\n"
+        "    r = fp.run(2, 8, 1, probe, device='cpu')\n"
+        "    print('fold', probe, r[fp.FOLD_KEY[probe]] > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -230,6 +235,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "emo <class 'dict'>" in out.stdout
     assert "train step True" in out.stdout
     assert "probe True" in out.stdout
+    assert "fold ffn True" in out.stdout
+    assert "fold conv True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
