@@ -73,7 +73,24 @@ Phases, each fatal on failure:
    paths (the in-model baseline, and the lean path as the library call);
    then the probes' own ``main``, from zeroed launch counts, printed as a
    ``fold_probes`` line in microseconds;
-10. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
+10. the conv2d-subsampling probes (P1-P3,
+   ``gigaam_tpu_torch/probes/subsampling_probe.py``): the tap products (P1,
+   aligned and with copies) and the im2col product (P2, without and with the
+   linear) against their plain versions at the script's B 1, T 32-128 and
+   at the main path's stage 2, B 16, T' 500 (the blocks of a stage-1 output
+   drawn on the card), with planted faults (the misaligned taps read
+   aligned, the odd-time blocks' hi offset dropped, two taps' weights
+   swapped, ReLU skipped before the linear and, fed through the inputs, a
+   tile that reads across a batch edge), each timed by CUDA events, by
+   the profile's kernel sum and (B 16) by graph replays beside its bound,
+   its plain version and the library call (cuDNN's stride-2 conv in the
+   port's NCHW layout and in ``channels_last``; a ``torch.matmul`` for P1
+   aligned), at B 16 with each call's kernels and, for P1, the SM clock
+   and power under 400 gapless calls (``nvidia-smi`` samples);
+   P3's shared-memory ceiling against the card's opt-in limit, with 2 x
+   exact at every granted size; then the probe's own ``main``, from zeroed
+   launch counts, printed as a ``subsampling_probe`` line in microseconds;
+11. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
    (4 steps, SpecAugment, validation on the first batch), then
@@ -84,14 +101,16 @@ Phases, each fatal on failure:
    the positional parameters got a gradient, and that ``eval_step`` after
    the steps sees the new weights; per step wall time, peak memory, the
    forward/backward/optimizer split and a profile;
-11. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
+12. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
    bf16 loss and gradients against the port's CPU fp32 ones.
 
 The last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
-the profile's kernel sum, and their ``main``'s reading, ``ablation_us`` or
-``fold_us``; the fold probes' also ``baseline_ms``, the in-model path) and
+the profile's kernel sum, and their ``main``'s reading, ``ablation_us``,
+``fold_us`` or ``probe_us``; the fold probes' also ``baseline_ms``, the
+in-model path, the subsampling probes' ``graph_ms`` and ``library_cl_ms``,
+the conv in ``channels_last``) and
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device.
 """
@@ -99,6 +118,7 @@ there is no CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -125,6 +145,7 @@ from gigaam_tpu_torch.ops.attention import rotary_mha
 from gigaam_tpu_torch.ops.conformer_ops import layer_norm
 from gigaam_tpu_torch.ops.precision import full_fp32
 from gigaam_tpu_torch.ops.rotary import rotary_tables
+from gigaam_tpu_torch.profiling import device_timeit
 from gigaam_tpu_torch.train import train as train_cli
 from gigaam_tpu_torch.train.finetune import FineTuner, TrainConfig
 
@@ -175,6 +196,8 @@ PROFILE_GROUPS = (
     ("attention kernels (csrc)",
      r"sdpa_kernel|ln_rope_kernel|qkv_kernel|out_proj_kernel|bwd_dq_kernel|"
      r"bwd_dkv_kernel"),
+    # PyTorch's own depthwise kernels (conv_depthwise2d_*), not cuDNN
+    ("depthwise conv", r"conv_depthwise"),
     ("convolution", r"conv_|convolve|cudnn|winograd|fprop"),
     ("GEMM (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
     ("host-device copies", r"^Memcpy|^Memset"),
@@ -200,6 +223,38 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def sustained_ms(fn, calls: int = 400):
+    """(ms per call over ``calls`` back-to-back calls of ``fn`` by CUDA
+    events, [(SM clock MHz, power W)] that ``nvidia-smi`` sampled every 20
+    ms within that window): what the clock does under a load that leaves
+    the card no gap."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(1.0)   # nvidia-smi's start
+        t0 = datetime.datetime.now()
+        ms = time_ms(fn, iters=calls, warmup=0)
+        t1 = datetime.datetime.now()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=30)[0]
+    samples = []
+    for line in text.splitlines():
+        try:
+            stamp, clock, power = (v.strip() for v in line.split(","))
+            at = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+            sample = (float(clock), float(power))
+        except ValueError:    # a line cut by the termination, or [N/A]
+            continue
+        if t0 <= at <= t1:
+            samples.append(sample)
+    return ms, samples
 
 
 def device_ms(fn, calls: int = 10, attempts: int = 3) -> dict:
@@ -1216,6 +1271,305 @@ def fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
         for pid, (_, wrapper, repl) in FOLD_PROBES.items()]
 
 
+# P1-P3: the script's shapes (B 1), then the main path's stage 2 at B 16,
+# T' 500, whose readings make the JSON rows of P1 and P2; the planted
+# faults at B 1, T 64 and, for the batch edge, at B 16
+SUB_SHAPES = (("P1", 1, 32, False), ("P1", 1, 32, True), ("P1", 1, 64, False),
+              ("P1", 1, 64, True), ("P1", 1, 128, False), ("P1", 1, 128, True),
+              ("P1", 16, 500, True), ("P2", 1, 64, False), ("P2", 1, 64, True),
+              ("P2", 1, 128, False), ("P2", 1, 128, True),
+              ("P2", 16, 500, False), ("P2", 16, 500, True))
+SUB_ROW = (16, 500, True)
+SUB_FAULTS = (1, 64)
+# id -> (wrapper, the `pallas_call` it replaces, what the variant flag means)
+SUB_PROBES = {
+    "P1": ("taps_product", "benchmarks/pallas_subsampling_probe.py:78",
+           ("aligned", "with copies")),
+    "P2": ("im2col_product", "benchmarks/pallas_subsampling_probe.py:136",
+           ("without the linear", "with the linear")),
+    "P3": ("smem_copy", "benchmarks/pallas_subsampling_probe.py:162", ()),
+}
+
+
+def subsampling_bound(pid: str, b: int, t: int, variant: bool):
+    """The least time of one probe call: the blocks it reads (P1 aligned:
+    ee and oe only), the weights and the output once; the products' tensor
+    operations (P2: the whole [B T 16, 768] product, and the linear), P2's
+    ReLU as fp32 work.  ``variant``: P1 with copies, P2 with the linear."""
+    d, m = D_MODEL, b * t * 16
+    fe = 17 if pid == "P2" or variant else 16
+    ee, oe = b * t * 16 * d * 2, b * (t + 1) * 16 * d * 2
+    eo, oo = b * t * fe * d * 2, b * (t + 1) * fe * d * 2
+    ops = 2 * 9 * m * d * d
+    if pid == "P1":
+        reads = ee + oe + (eo + oo if variant else 0)
+        return bound(reads + 9 * d * d * 2 + m * d * 2, ops, 0)
+    lin = 2 * b * t * 16 * d * d if variant else 0
+    return bound(ee + eo + oe + oo + 9 * d * d * 2
+                 + (16 * d * d * 2 if variant else 0) + b * t * d * 2,
+                 ops + lin, m * d if variant else 0)
+
+
+def subsampling_inputs(sp, pid: str, b: int, t: int, variant: bool, dev):
+    """(ee, eo, oe, oo, w [9, 768, 768], wl [12288, 768], x1): at B 1 the
+    script's draws for the probe, x1 None; at B 16 the blocks of a stage-1
+    output x1 [B, 768, 2T, 32] drawn on the card, as the stage-2 conv with
+    padding 1 reads them."""
+    bf = torch.bfloat16
+    if b == 1:
+        drawn = (sp.taps_inputs(t, variant) if pid == "P1"
+                 else sp.im2col_inputs(t))
+        *blocks, w = (torch.from_numpy(a).to(dev, bf) for a in drawn[:5])
+        wl = (torch.from_numpy(drawn[5]).to(dev, bf) if pid == "P2"
+              else None)
+        return (*(x[None] for x in blocks), w.view(9, D_MODEL, D_MODEL), wl,
+                None)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x1 = torch.randn(b, D_MODEL, 2 * t, 32, generator=gen, device=dev,
+                     dtype=bf)
+    w = 0.02 * torch.randn(9, D_MODEL, D_MODEL, generator=gen, device=dev,
+                           dtype=bf)
+    wl = 0.02 * torch.randn(16 * D_MODEL, D_MODEL, generator=gen, device=dev,
+                            dtype=bf)
+    return (*sp.stage2_blocks(x1), w, wl, x1)
+
+
+def batch_merged(blocks):
+    """The blocks with the batch folded into time, each odd-time block's
+    extra step kept only for the last element: a kernel given them runs
+    tiles across the batch edges, and the last step of each element reads
+    the next element's first odd-time row in place of its own last one."""
+    ee, eo, oe, oo = blocks
+    b, t = ee.shape[:2]
+
+    def odd(x):
+        return torch.cat([x[:, :t].reshape(1, b * t, *x.shape[2:]),
+                          x[-1:, t:]], dim=1)
+
+    return (ee.reshape(1, b * t, *ee.shape[2:]),
+            eo.reshape(1, b * t, *eo.shape[2:]), odd(oe), odd(oo))
+
+
+def subsampling_calls(sp, pid: str, variant: bool, inputs):
+    """(kernel call, plain call, library call, the conv in channels_last or
+    None, faults) of P1 (``variant``: with copies) or P2 (with the linear)
+    on ``inputs``; the faults at B 1 with copies or for P2, at B 16 the
+    batch edge (P1 only)."""
+    ee, eo, oe, oo, w, wl, x1 = inputs
+    b, t = ee.shape[:2]
+    blocks = (ee, eo, oe, oo)
+    swapped = w.clone()
+    swapped[[1, 2]] = w[[2, 1]]
+    w4 = sp.conv_weight(w)
+    if x1 is not None:
+        cl = torch.channels_last
+        x1c, w4c = (x1.contiguous(memory_format=cl),
+                    w4.contiguous(memory_format=cl))
+    if (pid == "P1") != variant:
+        lib_cl = None          # P1 aligned, P2 with the linear: no conv
+    elif x1 is not None:
+        lib_cl = lambda: sp.conv_library(x1c, w4c, padding=1)
+    else:
+        fn_cl, args_cl = sp.conv_cl_library(*blocks, w)
+        lib_cl = lambda: fn_cl(*args_cl)
+    if pid == "P1":
+        taps = sp.TAPS[variant]
+        if x1 is not None:
+            lib = lambda: sp.conv_library(x1, w4, padding=1)
+            merged = batch_merged(blocks)
+            faults = (("a tile that reads across a batch edge",
+                       lambda: sp.taps_product(*merged, w, taps).view(
+                           ee.shape)),)
+        else:
+            fn, args = sp.taps_library(*blocks, w, variant)
+            lib = lambda: fn(*args)
+            faults = (
+                ("the misaligned taps read aligned", lambda: sp.taps_product(
+                    *blocks, w, tuple((k, dt, 0) for k, dt, _ in taps))),
+                ("the odd-time blocks' hi offset dropped",
+                 lambda: sp.taps_product(*blocks, w, tuple(
+                     (k, 0, df) for k, _, df in taps))),
+                ("two taps' weights swapped",
+                 lambda: sp.taps_product(*blocks, swapped, taps)))
+        return (lambda: sp.taps_product(*blocks, w, taps),
+                lambda: sp.taps_plain(*blocks, w, taps), lib, lib_cl,
+                faults if variant else ())
+    w2 = w.view(9 * D_MODEL, D_MODEL)
+    lin = wl if variant else None
+    if x1 is None:
+        fn, args = sp.im2col_library(*blocks, w2, lin)
+        lib = lambda: fn(*args)
+    elif variant:
+        wl_t = wl.t().contiguous()
+        lib = lambda: sp.conv_linear_library(x1c, w4c, wl_t, padding=1)
+    else:
+        lib = lambda: sp.conv_library(x1, w4, padding=1)
+
+    def relu_skipped():
+        # what P2 with the linear would return without its ReLU
+        with full_fp32():
+            s2 = sp.patch_plain(*blocks).float() @ w2.float()
+            s2b = s2.to(ee.dtype).reshape(b, t, -1)
+            return (s2b.float() @ wl.float()).to(ee.dtype)
+
+    faults = () if x1 is not None else (
+        ("two taps' weights swapped", lambda: sp.im2col_product(
+            *blocks, swapped.view(9 * D_MODEL, D_MODEL), lin)),
+        *((("ReLU skipped before the linear", relu_skipped),) if variant
+          else ()))
+    return (lambda: sp.im2col_product(*blocks, w2, lin),
+            lambda: sp.im2col_plain(*blocks, w2, lin), lib, lib_cl, faults)
+
+
+def subsampling_probe_phase(dev):
+    """P1-P3: P1 and P2 against their plain versions at SUB_SHAPES (the
+    planted faults at SUB_FAULTS, the batch edge at B 16), two calls
+    bit-equal, each timed by CUDA events and by the profile's kernel sum
+    beside its bound, its plain version and the library call; P3's ceiling
+    against the card's opt-in limit, 2 x exact at every granted size; then
+    the probe's own ``main``, from zeroed launch counts.  Returns ({id: JSON
+    row}, {wrapper: launches in ``main``})."""
+    from gigaam_tpu_torch.probes import subsampling_probe as sp
+
+    readings = defaultdict(dict)
+    for pid, b, t, variant in SUB_SHAPES:
+        inputs = subsampling_inputs(sp, pid, b, t, variant, dev)
+        kernel, plain, lib, lib_cl, faults = subsampling_calls(
+            sp, pid, variant, inputs)
+        shape = f"B {b}, T {t}, {SUB_PROBES[pid][2][variant]}"
+        label = f"{pid} {SUB_PROBES[pid][0]} {shape}"
+        got = kernel()
+        if not torch.equal(kernel(), got):
+            raise AssertionError(f"{label}: two calls differ")
+        valid = torch.ones(b, t, dtype=torch.bool, device=dev)
+        err, rel = check_kernel(
+            label, got, plain(), valid, 1,
+            faults if (b, t) in (SUB_FAULTS, SUB_ROW[:2]) else ())
+        ms = time_ms(kernel)
+        split = device_ms(kernel)
+        sum_ms = sum(split.values())
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        lib_ms = time_ms(lib)
+        lib_cl_ms = None if lib_cl is None else time_ms(lib_cl)
+        bms, by = subsampling_bound(pid, b, t, variant)
+        graph_ms = None
+        if b > 1:
+            # B 16's graph replays (the script's shapes get theirs from
+            # main) and where each call's device time goes, by kernel
+            graph_ms = device_timeit(lambda _: kernel(), [got], k=5) * 1e3
+            for name, times in (
+                    ("kernel", split), ("library", device_ms(lib)),
+                    ("channels_last", {} if lib_cl is None
+                     else device_ms(lib_cl))):
+                top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+                print(f"  {label} {name} on the card by kernel (sum "
+                      f"{sum(times.values()):.4f} ms): " + json.dumps(
+                          [[k[:70], round(v, 4)] for k, v in top]),
+                      flush=True)
+            # the profile leaves gaps between calls, events and graph
+            # replays none: the SM clock and power under the gapless load
+            for name, fn in (("kernel", kernel), ("library", lib),
+                             ("channels_last", lib_cl)):
+                if fn is None or pid != "P1":
+                    continue
+                s_ms, samples = sustained_ms(fn)
+                clocks = sorted(c for c, _ in samples)
+                watts = sorted(w for _, w in samples)
+                print(f"  {label} {name} sustained: {s_ms:.4f} ms a call "
+                      f"over 400 calls; {len(samples)} samples, SM clock "
+                      f"{clocks[0] if clocks else 0:.0f}-"
+                      f"{clocks[-1] if clocks else 0:.0f} MHz (median "
+                      f"{np.median(clocks) if clocks else 0:.0f}), power "
+                      f"median {np.median(watts) if watts else 0:.1f} W, "
+                      f"max {watts[-1] if watts else 0:.1f} W", flush=True)
+        cl_text = ("" if lib_cl_ms is None
+                   else f", channels_last {lib_cl_ms:.4f} ms")
+        graph_text = ("" if graph_ms is None
+                      else f", {graph_ms:.4f} ms by graph replays")
+        print(f"{label}: max_abs_err {err:.3e}, {rel:.4f} x RMS (limit "
+              f"{KERNEL_REL}); kernel {ms:.4f} ms by events, {sum_ms:.4f} ms "
+              f"on the card{graph_text}; plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms{cl_text}, bound {bms:.4f} ms ({by})",
+              flush=True)
+        readings[pid][(b, t, variant)] = dict(
+            ms=ms, sum_ms=sum_ms, graph_ms=graph_ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_cl_ms=lib_cl_ms, max_abs_err=err, shape=shape)
+        del inputs, kernel, plain, lib, lib_cl, faults, got
+        torch.cuda.empty_cache()
+
+    # P3: the ceiling is the card's opt-in limit; 2 x comes back exactly at
+    # every granted size, and the next size is refused
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    x = torch.randn(8, 1024, device=dev).to(torch.bfloat16)
+    sizes = [kb * 1024 for kb in sp.SMEM_LADDER_KB if kb * 1024 <= limit]
+    for n_bytes in sizes:
+        if not torch.equal(sp.smem_copy(x, n_bytes)[0], x * 2):
+            raise AssertionError(f"P3 at {n_bytes} bytes: not 2 x")
+    try:
+        sp.smem_copy(x, limit + 1024)
+    except sp.SharedMemoryRefused as e:
+        print(f"P3 smem_copy: 2 x exact at {len(sizes)} sizes up to {limit} "
+              f"bytes; {limit + 1024} refused ({e})", flush=True)
+    else:
+        raise AssertionError(f"P3: {limit + 1024} bytes were granted")
+    kernel = lambda: sp.smem_copy(x, limit)[0]
+    p3 = dict(ms=time_ms(kernel), sum_ms=sum(device_ms(kernel).values()),
+              graph_ms=None, plain_ms=time_ms(lambda: sp.vmem_plain(x, limit)),
+              library_ms=time_ms(lambda: x * 2), library_cl_ms=None,
+              max_abs_err=0.0,
+              shape=f"x [8, 1024] through {limit} bytes of shared memory")
+    p3["bound_ms"], p3["bound_by"] = bound(4 * x.numel(), 0, 0)
+    print(f"P3 smem_copy: {json.dumps(p3)}", flush=True)
+
+    # the probe's main path: the script's main at its shapes
+    sp.reset_launch_counts()
+    results = sp.main()
+    launches = {fn.__name__: fn.launches for fn in sp.KERNELS}
+    print("subsampling_probe " + json.dumps(results), flush=True)
+    print(f"subsampling_probe launches {launches}", flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"the subsampling probe's main launched "
+                             f"{launches}")
+    vmem = results["vmem"]
+    if vmem["max_scratch_bytes"] != limit or "fail_at_mb" not in vmem:
+        raise AssertionError(f"P3's ceiling {vmem}, the card's opt-in limit "
+                             f"{limit}")
+    torch.cuda.empty_cache()
+
+    def probe_us(pid, b, t, variant):
+        """The probe's own graph-replay reading of a B 1 shape."""
+        if b != 1:
+            return None
+        if pid == "P1":
+            key = f"taps_tb{t}_" + ("with_copies" if variant else "aligned")
+        else:
+            key = f"im2col_lin_tb{t}" if variant else f"im2col_tb{t}"
+        return results[key]["us"]
+
+    rows = {}
+    for pid, r in readings.items():
+        entries = {k: dict(v, probe_us=probe_us(pid, *k))
+                   for k, v in r.items()}
+        main = entries.pop(SUB_ROW)
+        rows[pid] = dict(main, also=list(entries.values()))
+    rows["P3"] = dict(p3, probe_us=None, also=[])
+    return rows, launches
+
+
+def subsampling_kernel_rows(rows: dict, launches: dict) -> list:
+    """The kernels line's rows of P1-P3."""
+    return [{
+        "name": f"{pid} {wrapper}", "route": "cuda",
+        "source": "gigaam_tpu_torch/csrc/subsampling_probe.cu",
+        "replaces": repl, "launches": launches[wrapper], **{
+            key: rows[pid][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "sum_ms", "graph_ms", "library_cl_ms",
+                "probe_us", "shape", "also")}}
+        for pid, (wrapper, repl, _) in SUB_PROBES.items()]
+
+
 def counts() -> dict:
     return {"K3": fa.fused_mha.launches,
             "K2": fa.folded_rotary_attention.launches,
@@ -1668,7 +2022,8 @@ def main() -> int:
                      "out_proj_kernel<2, 128, false>",
                      "out_proj_kernel<1, 64, true>",
                      "out_proj_kernel<1, 64, false>", "ffn_fold_kernel",
-                     "glu_fold_kernel", "dw_proj_kernel") + ablation_kernels
+                     "glu_fold_kernel", "dw_proj_kernel", "taps_kernel",
+                     "probe_gemm_kernel") + ablation_kernels
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
@@ -1685,6 +2040,8 @@ def main() -> int:
     rows["K6"] = bwd_kernel_phase(gen, dev, relpos=True)
     ablation_rows, ablation_launches = ablation_phase(gen, dev)
     fold_rows, fold_launches = fold_probe_phase(dev)
+    torch.cuda.empty_cache()
+    sub_rows, sub_launches = subsampling_probe_phase(dev)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
@@ -1741,6 +2098,7 @@ def main() -> int:
             "shape": r["shape"], "also": r.get("also", [])})
     kernels += ablation_kernel_rows(ablation_rows, ablation_launches)
     kernels += fold_probe_kernel_rows(fold_rows, fold_launches)
+    kernels += subsampling_kernel_rows(sub_rows, sub_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

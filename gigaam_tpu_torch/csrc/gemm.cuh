@@ -1,10 +1,11 @@
 // Building blocks of the TMA-fed `wgmma` GEMMs: the projection GEMMs
-// (projection.cu) and the FFN and conv-module fold probes (fold_probes.cu),
-// sm_90a.  A [64 * kWG, kBN] output tile of A [M, K] . B [K, N] with A read
-// K-major and B, a row-major [in, out] weight, read MN-major (the transpose
-// bit), both brought into shared memory by the Tensor Memory Accelerator
-// (TMA) through a ring of kStages stages and multiplied with `wgmma`, one
-// warpgroup per 64 rows of the tile, fp32 accumulation.
+// (projection.cu), the FFN and conv-module fold probes (fold_probes.cu) and
+// the conv2d-subsampling probes (subsampling_probe.cu), sm_90a.  A
+// [64 * kWG, kBN] output tile of A [M, K] . B [K, N] with A read K-major and
+// B, a row-major [in, out] weight, read MN-major (the transpose bit), both
+// brought into shared memory by the Tensor Memory Accelerator (TMA) through
+// a ring of kStages stages and multiplied with `wgmma`, one warpgroup per 64
+// rows of the tile, fp32 accumulation.
 //
 // The ring (TmaRing).  Stage s has two barriers in shared memory: full[s]
 // completes when the TMA copies of its tiles have landed (one arrival that
@@ -105,6 +106,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(c2), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -424,14 +435,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map of `rank` dimensions (innermost first), byte strides of
-// dimensions 1.., the box and its swizzle; false on failure.  Boxes reaching
-// past the tensor are zero-filled.
+// a bf16 tensor map of `rank` <= 5 dimensions (innermost first), byte
+// strides of dimensions 1.., the box and its swizzle; false on failure.
+// Boxes reaching past the tensor are zero-filled.
 inline bool bf16_map(CUtensorMap* map, const void* base, int rank,
                      const cuuint64_t* dims, const cuuint64_t* strides,
                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode != nullptr &&
          encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                 const_cast<void*>(base), dims, strides, box, unit,

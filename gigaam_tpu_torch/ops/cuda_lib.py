@@ -57,6 +57,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_conv_fold": [_P] * 15 + [_I] * 2 + [_P],
         "gigaam_fold_probes_occupancy": [_P],
     },
+    "subsampling_probe": {
+        "gigaam_taps": [_P] * 8 + [_I] * 4 + [_P],
+        "gigaam_im2col": [_P] * 6 + [_I] * 3 + [_P],
+        "gigaam_probe_gemm": [_P] * 4 + [_I] * 5 + [_P],
+        "gigaam_smem_probe": [_P, _P, _I, _P, _P],
+        "gigaam_subsampling_probe_occupancy": [_P],
+    },
 }
 
 
@@ -163,8 +170,8 @@ def _template_args(args: Optional[str]) -> str:
 
 def dynamic_resources() -> Dict[str, Dict[str, int]]:
     """Per kernel that sizes its shared memory at launch (the rel-pos
-    kernels, the projection GEMMs, one entry per tile configuration, and
-    the fold probes' kernels):
+    kernels, the projection GEMMs, one entry per tile configuration, the
+    fold probes' kernels and the subsampling probes' products):
     the dynamic shared memory in bytes and how many blocks one SM holds at
     a time, as the CUDA runtime reports them for the current card."""
     out: Dict[str, Dict[str, int]] = {}
@@ -178,7 +185,9 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
               "out_proj_kernel<2, 128, true>",
               "out_proj_kernel<1, 64, true>")),
             ("fold_probes", "gigaam_fold_probes_occupancy",
-             ("ffn_fold_kernel", "glu_fold_kernel", "dw_proj_kernel"))):
+             ("ffn_fold_kernel", "glu_fold_kernel", "dw_proj_kernel")),
+            ("subsampling_probe", "gigaam_subsampling_probe_occupancy",
+             ("taps_kernel", "probe_gemm_kernel"))):
         pairs = (ctypes.c_int * (2 * len(kernels)))()
         check(getattr(library(name), fn)(pairs), fn)
         for i, kernel in enumerate(kernels):

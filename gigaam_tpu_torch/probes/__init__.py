@@ -11,4 +11,8 @@ measurement, not a path of the model: nothing else in the port calls it.
   residual included, each folded into hand-written kernels and timed
   against the stock compositions (``benchmarks/pallas_ffn_fold_probe.py``,
   ``benchmarks/pallas_conv_fold_probe.py``).
+* ``subsampling_probe``: the subsampling's stride-2 conv as nine tap
+  products (P1) and as an im2col patch with one long product (P2), each
+  timed against cuDNN's conv, and the largest shared memory a block is
+  granted (P3) (``benchmarks/pallas_subsampling_probe.py``).
 """

@@ -183,8 +183,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     """A fresh interpreter imports the port, runs CPU forwards of the rotary
     (v3_ctc) and the rel-pos (v2_ctc, emo) models, imports the training CLI
     and takes one CPU train step, times a CPU call of the SDPA ablation's
-    full variant with the port's ``device_timeit``, and has imported neither
-    ``jax`` nor ``gigaam_tpu``."""
+    full variant with the port's ``device_timeit``, runs the fold probes and
+    the subsampling probe's P1 on the CPU, and has imported neither ``jax``
+    nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
         "import gigaam_tpu_torch as gt\n"
@@ -224,6 +225,10 @@ def test_port_runs_without_jax_or_the_jax_package():
         "for probe in fp.PROBES:\n"
         "    r = fp.run(2, 8, 1, probe, device='cpu')\n"
         "    print('fold', probe, r[fp.FOLD_KEY[probe]] > 0)\n"
+        "from gigaam_tpu_torch.probes import subsampling_probe as ssp\n"
+        "ssp.D, ssp.CALLS = 64, 1\n"
+        "r = ssp.probe_taps(2, True, device='cpu')\n"
+        "print('subsampling', r['us'] > 0 and r['library_us'] > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -237,6 +242,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "probe True" in out.stdout
     assert "fold ffn True" in out.stdout
     assert "fold conv True" in out.stdout
+    assert "subsampling True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
