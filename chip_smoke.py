@@ -90,7 +90,21 @@ Phases, each fatal on failure:
    P3's shared-memory ceiling against the card's opt-in limit, with 2 x
    exact at every granted size; then the probe's own ``main``, from zeroed
    launch counts, printed as a ``subsampling_probe`` line in microseconds;
-11. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
+11. the attention-fold probes (P6-P8,
+   ``gigaam_tpu_torch/probes/attn_fold_probes.py``): P6 (nb 2 and 4), P7
+   (foldA: per-head N-48 products; foldB: N-128 lane slices) and P8 (the
+   residual added in fp32) against their plain versions at the scripts'
+   shapes, the main path's B 16, T' 500 and, for P7, B 1, T' 500 (at B 128
+   the first and last 8 batch rows), three calls bit-equal, with planted
+   faults at B 8, T 512 (RoPE sign flipped, key mask ignored, bq left
+   unscaled, q zeroed, Wv swapped for Wk; foldA's head h reading head h+1's
+   block; P8's LayerNorm skipped and residual left out), each timed by CUDA
+   events, by the profile's kernel sum (and its four stages) and by graph
+   replays beside its bound, its plain version, the script's baseline, K2
+   (P8: K1) and the lean stock path; P8 against K1 and each against the
+   fp32 module; then the probes' own ``main``, from zeroed launch counts,
+   printed as an ``attn_fold_probes`` line in microseconds;
+12. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
    (4 steps, SpecAugment, validation on the first batch), then
@@ -101,7 +115,7 @@ Phases, each fatal on failure:
    the positional parameters got a gradient, and that ``eval_step`` after
    the steps sees the new weights; per step wall time, peak memory, the
    forward/backward/optimizer split and a profile;
-12. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
+13. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
    bf16 loss and gradients against the port's CPU fp32 ones.
 
 The last two lines of output are a JSON object with every kernel's numbers
@@ -110,7 +124,9 @@ numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
 the profile's kernel sum, and their ``main``'s reading, ``ablation_us``,
 ``fold_us`` or ``probe_us``; the fold probes' also ``baseline_ms``, the
 in-model path, the subsampling probes' ``graph_ms`` and ``library_cl_ms``,
-the conv in ``channels_last``) and
+the conv in ``channels_last``; the attention-fold probes' also
+``stages_ms``, ``baseline_*``, ``K2_*`` or ``K1_*`` and, for P8,
+``k1_vs_p8``) and
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device.
 """
@@ -1570,6 +1586,287 @@ def subsampling_kernel_rows(rows: dict, launches: dict) -> list:
         for pid, (wrapper, repl, _) in SUB_PROBES.items()]
 
 
+# P6-P8, the attention-fold probes: the scripts' shapes, then the main
+# path's B 16, T' 500 (K1's call) and, for P7, B 1, T' 500 (K2's); the JSON
+# rows at B 16, T' 500, the planted faults at B 8, T 512.  P6 runs where its
+# nb divides B; P8 at its script's (B, T, nb) and at B 16 with nb 2, K1's
+# own row tile there
+ATTN_FOLD_SHAPES = ((8, 512), (32, 512), (16, 768), (128, 768), (16, 500),
+                    (1, 500))
+ATTN_FOLD_LNRES_NB = {(8, 512): 1, (32, 512): 1, (128, 768): 4, (16, 500): 2}
+ATTN_FOLD_MAIN, ATTN_FOLD_FAULTS = (16, 500), (8, 512)
+# label -> (wrapper, nb, the `pallas_call` it replaces)
+ATTN_FOLD = {
+    "P6 nb2": ("fold_nb", 2, "benchmarks/pallas_attn_fold_probe.py:205"),
+    "P6 nb4": ("fold_nb", 4, "benchmarks/pallas_attn_fold_probe.py:205"),
+    "P7 foldA": ("fold_heads", 1, "benchmarks/pallas_attn_fold_probe.py:247"),
+    "P7 foldB": ("fold_lane_slices", 1,
+                 "benchmarks/pallas_attn_fold_probe.py:247"),
+    "P8": ("fold_lnres", None, "benchmarks/pallas_attn_lnres_probe.py:123"),
+}
+# the probes' stages by kernel name (foldA's Q/K/V GEMM is qkv_head_kernel)
+ATTN_FOLD_STAGES = (("row pass", "ln_rope_kernel"), ("QKV GEMM", "qkv_"),
+                    ("K3 SDPA", "sdpa_kernel"),
+                    ("output GEMM", "out_proj_kernel"))
+# at B 128 the plain version's fp32 scores alone would be 4.8 GB: the
+# kernel runs on the whole batch and its first and last rows are held to
+# the plain version on those rows (rows are independent, so this is exact)
+SAMPLED_ROWS = 8
+
+
+def compared_rows(b: int) -> torch.Tensor:
+    if b <= 2 * SAMPLED_ROWS:
+        return torch.arange(b)
+    return torch.cat([torch.arange(SAMPLED_ROWS),
+                      torch.arange(b - SAMPLED_ROWS, b)])
+
+
+def attn_fold_kernel(afp, label: str, w, x, valid, nb: int):
+    wrapper = getattr(afp, ATTN_FOLD[label][0])
+    if wrapper in (afp.fold_nb, afp.fold_lnres):
+        return wrapper(w, x, valid, nb)
+    return wrapper(w, x, valid)
+
+
+def attn_fold_plain(afp, label: str, w, x, valid):
+    if label == "P8":
+        return afp.lnres_plain(w, x, valid)
+    return afp.fold_plain(w, x, valid, heads=label == "P7 foldA")
+
+
+def attn_fold_faults(afp, label: str, w, x, valid, nb: int):
+    """The planted faults, each fed through the variant's inputs (P8's
+    LayerNorm and residual through what the kernel would return without
+    them: foldB's kernel on x plus x, and on LN(x))."""
+    f = w.fold
+    call = lambda ww=w, vv=valid: attn_fold_kernel(afp, label, ww, x, vv, nb)
+    fold = lambda **kw: dataclasses.replace(w, fold=dataclasses.replace(f, **kw))
+    zero = lambda a: None if a is None else torch.zeros_like(a)
+    faults = [
+        ("RoPE sign flipped", lambda: call(dataclasses.replace(w, sin=-w.sin))),
+        ("key mask ignored", lambda: call(vv=torch.ones_like(valid))),
+        ("bq left unscaled", lambda: call(fold(bq=f.bq * math.sqrt(D_HEAD)))),
+        ("q zeroed", lambda: call(dataclasses.replace(
+            fold(wq=zero(f.wq), bq=zero(f.bq)), wq_heads=zero(w.wq_heads)))),
+        ("Wv swapped for Wk", lambda: call(fold(wv=f.wk, bv=f.bk)))]
+    if label == "P7 foldA":
+        faults.append(("head h reading head h+1's weight block",
+                       lambda: call(dataclasses.replace(
+                           w, wq_heads=w.wq_heads.roll(-1, 0).contiguous(),
+                           wk_heads=w.wk_heads.roll(-1, 0).contiguous()))))
+    if label == "P8":
+        xn = fa.ln_rope_plain(x, w.cos, w.sin, N_HEADS, f.ln_scale,
+                              f.ln_bias)[0]
+        faults += [
+            ("LayerNorm skipped",
+             lambda: x + afp.fold_lane_slices(w, x, valid)),
+            ("residual left out", lambda: afp.fold_lane_slices(w, xn, valid))]
+    return faults
+
+
+def timed(fn, x) -> dict:
+    """ms by CUDA events, by the profile's kernel sum and by
+    ``device_timeit``'s graph replays (40 calls a replay), and the profile's
+    kernel times by name."""
+    split = device_ms(fn)
+    return dict(ms=time_ms(fn), sum_ms=sum(split.values()),
+                graph_ms=device_timeit(lambda _: fn(), [x], k=40) * 1e3,
+                split=split)
+
+
+def attn_fold_probe_phase(dev):
+    """P6-P8: each variant against its plain version at ATTN_FOLD_SHAPES on
+    peaked weights (``attention_params``) and the scripts' ragged lengths,
+    three calls bit-equal, the planted faults at ATTN_FOLD_FAULTS; each
+    timed (events, profile sum with its four stages, graph replays) beside
+    its bound, its plain version, the script's baseline, K2 (P8: K1) and
+    the lean stock path; P8 against K1 and both against the fp32 module;
+    then the probes' own ``main`` from zeroed launch counts.  Returns ({row
+    name: JSON row}, {wrapper: launches in ``main``})."""
+    from gigaam_tpu_torch.probes import attn_fold_probes as afp
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    bf = torch.bfloat16
+    readings = defaultdict(dict)
+    for b, t in ATTN_FOLD_SHAPES:
+        attn, ln = attention_params(gen, dev)
+        x = attention_input(gen, b, t, dev)
+        valid = torch.from_numpy(afp.ragged_valid(b, t)).to(dev)
+        cos, sin, cos_w, sin_w, r = afp._tables(t, dev)
+        weights = {
+            "P7": afp.prepare_fold(attn, cos_w, sin_w, r, bf,
+                                   per_head_weights=True, divide=True),
+            "P6": afp.prepare_fold(attn, cos_w, sin_w, r, bf),
+            "P8": afp.prepare_fold(attn, cos_w, sin_w, r, bf, ln_params=ln)}
+        mask = valid[:, None, None, :]
+        lcos, lsin = afp.lean_tables(cos, sin, bf)
+        p16 = {n: {k: v.to(bf) for k, v in p.items()} for n, p in attn.items()}
+        lw, lw8 = afp.lean_weights(attn, bf), afp.lean_weights(attn, bf, ln)
+        w6, w8 = weights["P6"], weights["P8"]
+        stock = {
+            "fold": {"baseline": lambda: afp.baseline(p16, x, cos, sin, valid),
+                     "K2": lambda: fa.folded_rotary_attention(
+                         w6.fold, x, cos, sin, valid, N_HEADS),
+                     "lean": lambda: afp.fold_lean(lw, x, lcos, lsin, mask)},
+            "lnres": {"baseline": lambda: afp.lnres_baseline(w8, ln, x, valid),
+                      "K1": lambda: fa.folded_rotary_attention_lnres(
+                          w8.fold, x, cos, sin, valid, N_HEADS),
+                      "lean": lambda: afp.lnres_lean(lw8, x, lcos, lsin,
+                                                     mask)}}
+        stock_ms = {}
+        rows = compared_rows(b).to(dev)
+        xs, vs = x[rows], valid[rows]
+        for label, (wrapper, nb, _) in ATTN_FOLD.items():
+            lnres = label == "P8"
+            if lnres:
+                nb = ATTN_FOLD_LNRES_NB.get((b, t))
+            if nb is None or b % nb or (label.startswith("P6") and b == 1):
+                continue
+            w = weights[label[:2]]
+            kernel = lambda: attn_fold_kernel(afp, label, w, x, valid, nb)
+            got = kernel()
+            if not all(torch.equal(kernel(), got) for _ in range(2)):
+                raise AssertionError(f"{label} B={b} T={t}: three calls did "
+                                     f"not give the same bits")
+            ref = attn_fold_plain(afp, label, w, xs, vs)
+            faults = (attn_fold_faults(afp, label, w, x, valid, nb)
+                      if (b, t) == ATTN_FOLD_FAULTS else ())
+            err, rel = check_kernel(
+                f"{label} {wrapper} B={b} T={t} nb {nb}", got[rows], ref, vs,
+                1, [(name, lambda fn=fn: fn()[rows]) for name, fn in faults],
+                residual=xs if lnres else None)
+            kind = "lnres" if lnres else "fold"
+            if kind not in stock_ms:
+                stock_ms[kind] = {k: timed(fn, x) for k, fn in
+                                  stock[kind].items()}
+                if (b, t) == ATTN_FOLD_MAIN:
+                    # where the stock paths' device time goes, by kernel
+                    for name, st in stock_ms[kind].items():
+                        top = sorted(st["split"].items(),
+                                     key=lambda kv: -kv[1])[:8]
+                        print(f"  {kind} {name} B={b} T={t} on the card by "
+                              f"kernel (sum {st['sum_ms']:.4f} ms): "
+                              + json.dumps([[k[:60], round(v, 4)]
+                                            for k, v in top]), flush=True)
+            times = timed(kernel, x)
+            stages = {stage: sum(v for k, v in times["split"].items()
+                                 if name in k)
+                      for stage, name in ATTN_FOLD_STAGES}
+            plain_ms = time_ms(lambda: attn_fold_plain(afp, label, w, xs, vs),
+                               iters=3, warmup=1)
+            bms, by = fold_bound(b, t, lnres)
+            sm = stock_ms[kind]
+            own = "K1" if lnres else "K2"
+            print(f"{label} {wrapper} B={b} T={t} nb {nb}: max_abs_err "
+                  f"{err:.3e}, {rel:.4f} x RMS (limit {KERNEL_REL}), three "
+                  f"calls bit-equal; kernel {times['ms']:.4f} ms by events, "
+                  f"{times['sum_ms']:.4f} on the card ("
+                  + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                  + f"), {times['graph_ms']:.4f} by graph replays; plain "
+                  f"{plain_ms:.4f} ms" + ("" if len(rows) == b else
+                                          f" on {len(rows)} of {b} rows")
+                  + f"; bound {bms:.4f} ms ({by}); baseline "
+                  f"{sm['baseline']['sum_ms']:.4f} card / "
+                  f"{sm['baseline']['graph_ms']:.4f} graph, {own} "
+                  f"{sm[own]['sum_ms']:.4f} / {sm[own]['graph_ms']:.4f}, lean "
+                  f"{sm['lean']['sum_ms']:.4f} / {sm['lean']['graph_ms']:.4f}",
+                  flush=True)
+            reading = dict(
+                shape=f"B {b}, T' {t}, nb {nb}", max_abs_err=err,
+                ms=times["ms"], sum_ms=times["sum_ms"],
+                graph_ms=times["graph_ms"], stages_ms=stages,
+                plain_ms=plain_ms, plain_rows=len(rows), bound_ms=bms,
+                bound_by=by, library_ms=sm["lean"]["ms"],
+                library_sum_ms=sm["lean"]["sum_ms"],
+                library_graph_ms=sm["lean"]["graph_ms"],
+                baseline_ms=sm["baseline"]["ms"],
+                baseline_sum_ms=sm["baseline"]["sum_ms"],
+                baseline_graph_ms=sm["baseline"]["graph_ms"],
+                **{f"{own}_{k}": sm[own][k]
+                   for k in ("ms", "sum_ms", "graph_ms")})
+            if lnres:
+                reading["k1_vs_p8"] = p8_against_k1(
+                    afp, attn, ln, w, x, valid, got, rows, b, t)
+            readings[label][(b, t)] = reading
+            del got, ref, faults, kernel
+        del x, weights, stock, stock_ms, w6, w8
+        torch.cuda.empty_cache()
+
+    # the probes' main path: their main, both scripts at their shapes
+    afp.reset_launch_counts()
+    results = afp.main()
+    launches = {fn.__name__: fn.launches for fn in afp.KERNELS}
+    print("attn_fold_probes " + json.dumps(results), flush=True)
+    print(f"attn_fold_probes launches {launches}", flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"the attention-fold probes' main launched "
+                             f"{launches}")
+    torch.cuda.empty_cache()
+    main_key = {"P6 nb2": "foldC_nb2_us", "P6 nb4": "foldC_nb4_us",
+                "P7 foldA": "foldA_us", "P7 foldB": "foldB_laneslice_us",
+                "P8": "foldLN_us"}
+    rows = {}
+    for label, r in readings.items():
+        script = "lnres" if label == "P8" else "fold"
+        entries = [dict(v, probe_us=results[script][f"b{b}_t{t}"][
+            main_key[label]] if f"b{b}_t{t}" in results[script] else None)
+            for (b, t), v in r.items()]
+        main = next(e for (b, t), e in zip(r, entries)
+                    if (b, t) == ATTN_FOLD_MAIN)
+        rows[label] = dict(main, also=[e for e in entries if e is not main])
+    # P6's one wrapper: nb 2's row, nb 4's readings under "also"
+    nb4 = rows.pop("P6 nb4")
+    rows["P6 nb2"]["also"] += [nb4] + nb4.pop("also")
+    print(f"attention-fold probe phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, launches
+
+
+def p8_against_k1(afp, attn, ln, w, x, valid, got, rows, b: int, t: int):
+    """Where the residual is rounded: P8 (added to the fp32 accumulator)
+    against K1 (added in bf16 to the rounded output) on the same inputs, and
+    each against the module in fp32 (the plain version on fp32 weights and
+    the widened x, no rounding point), on the compared rows' valid frames;
+    in absolute terms and in units of the RMS of the module term."""
+    cos_w, sin_w = w.cos.repeat(1, N_HEADS), w.sin.repeat(1, N_HEADS)
+    r = torch.from_numpy(afp.rope_tables_wide(w.cos[:1].cpu().numpy(),
+                                              w.sin[:1].cpu().numpy())[2])
+    w32 = afp.prepare_fold(attn, cos_w, sin_w, r.to(x.device), torch.float32,
+                           ln_params=ln)
+    xs, vs = x[rows], valid[rows]
+    ref = afp.lnres_plain(w32, xs.float(), vs)[vs]
+    k1 = fa.folded_rotary_attention_lnres(w.fold, x, w.cos, w.sin, valid,
+                                          N_HEADS)[rows][vs].float()
+    p8 = got[rows][vs].float()
+    rms = float((ref - xs[vs].float()).pow(2).mean().sqrt())
+    out = {}
+    for name, a, bb in (("p8_minus_k1", p8, k1), ("p8_minus_fp32", p8, ref),
+                        ("k1_minus_fp32", k1, ref)):
+        d = (a - bb).abs()
+        out[name] = {"max_abs": float(d.max()),
+                     "max_in_rms": float(d.max()) / rms,
+                     "mean_abs": float(d.mean()),
+                     "rms_in_rms": float(d.pow(2).mean().sqrt()) / rms}
+    print(f"P8 against K1 B={b} T={t}: " + "; ".join(
+        f"{k} max {v['max_abs']:.3e} ({v['max_in_rms']:.4f} x RMS of the "
+        f"module term), mean {v['mean_abs']:.3e}, RMS "
+        f"{v['rms_in_rms']:.5f} x" for k, v in out.items()), flush=True)
+    return out
+
+
+def attn_fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
+    """The kernels line's rows of P6, P7 (foldA and foldB) and P8."""
+    names = {"P6 nb2": "P6", "P7 foldA": "P7 foldA", "P7 foldB": "P7 foldB",
+             "P8": "P8"}
+    return [{
+        "name": f"{names[label]} {ATTN_FOLD[label][0]}", "route": "cuda",
+        "source": "gigaam_tpu_torch/csrc/attn_fold_probe.cu",
+        "replaces": ATTN_FOLD[label][2],
+        "launches": launches[ATTN_FOLD[label][0]], **rows[label]}
+        for label in names]
+
+
 def counts() -> dict:
     return {"K3": fa.fused_mha.launches,
             "K2": fa.folded_rotary_attention.launches,
@@ -2018,12 +2315,21 @@ def main() -> int:
     wgmma_kernels = ("sdpa_kernel", "sdpa_bwd_dq_kernel", "sdpa_bwd_dkv_kernel",
                      "relpos_sdpa_kernel", "relpos_bwd_dq_kernel",
                      "relpos_bwd_dkv_kernel", "qkv_kernel<2, 128>",
-                     "qkv_kernel<1, 128>", "out_proj_kernel<2, 128, true>",
-                     "out_proj_kernel<2, 128, false>",
-                     "out_proj_kernel<1, 64, true>",
-                     "out_proj_kernel<1, 64, false>", "ffn_fold_kernel",
+                     "qkv_kernel<1, 128>", "out_proj_kernel<2, 128, 1>",
+                     "out_proj_kernel<2, 128, 0>",
+                     "out_proj_kernel<1, 64, 1>",
+                     "out_proj_kernel<1, 64, 0>", "ffn_fold_kernel",
                      "glu_fold_kernel", "dw_proj_kernel", "taps_kernel",
                      "probe_gemm_kernel") + ablation_kernels
+    # the attention-fold probes' GEMMs; the instances that K1/K2's library
+    # also compiles carry the probe library's name (kernel_resources)
+    wgmma_kernels += (
+        "qkv_kernel<1, 128> (attn_fold_probe)",
+        "qkv_kernel<2, 128> (attn_fold_probe)", "qkv_kernel<4, 128>",
+        "qkv_head_kernel", "out_proj_kernel<1, 128, 0>",
+        "out_proj_kernel<2, 128, 0> (attn_fold_probe)",
+        "out_proj_kernel<4, 128, 0>", "out_proj_kernel<1, 128, 2>",
+        "out_proj_kernel<2, 128, 2>", "out_proj_kernel<4, 128, 2>")
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
@@ -2042,6 +2348,8 @@ def main() -> int:
     fold_rows, fold_launches = fold_probe_phase(dev)
     torch.cuda.empty_cache()
     sub_rows, sub_launches = subsampling_probe_phase(dev)
+    torch.cuda.empty_cache()
+    attn_fold_rows, attn_fold_launches = attn_fold_probe_phase(dev)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
@@ -2099,6 +2407,7 @@ def main() -> int:
     kernels += ablation_kernel_rows(ablation_rows, ablation_launches)
     kernels += fold_probe_kernel_rows(fold_rows, fold_launches)
     kernels += subsampling_kernel_rows(sub_rows, sub_launches)
+    kernels += attn_fold_probe_kernel_rows(attn_fold_rows, attn_fold_launches)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

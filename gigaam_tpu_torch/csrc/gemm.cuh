@@ -1,6 +1,7 @@
 // Building blocks of the TMA-fed `wgmma` GEMMs: the projection GEMMs
-// (projection.cu), the FFN and conv-module fold probes (fold_probes.cu) and
-// the conv2d-subsampling probes (subsampling_probe.cu), sm_90a.  A
+// (projection.cuh, for projection.cu and attn_fold_probe.cu), the FFN and
+// conv-module fold probes (fold_probes.cu) and the conv2d-subsampling probes
+// (subsampling_probe.cu), sm_90a.  A
 // [64 * kWG, kBN] output tile of A [M, K] . B [K, N] with A read K-major and
 // B, a row-major [in, out] weight, read MN-major (the transpose bit), both
 // brought into shared memory by the Tensor Memory Accelerator (TMA) through
@@ -38,6 +39,10 @@
 //     product of N 32 reads half a box: it starts 64 bytes into the box's
 //     rows, which, like the K-major k-step, leaves the address bits that
 //     the swizzle reads untouched.
+//   * 128-byte swizzle, K-major B (attn_fold_probe.cu's per-head weight
+//     blocks laid out [48 rows of N, K]): the A layout with N in place of
+//     the rows, boxes [48, 64], read without the transpose bit
+//     (wgmma_ss_nt48).
 
 #pragma once
 
@@ -224,6 +229,32 @@ __device__ __forceinline__ void wgmma_ss_tb<128>(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+// d[64, 48] += A[64, 16] . B[48, 16]^T: A and B both K-major tiles in shared
+// memory (no transpose bit), as the attention-fold probe's per-head
+// projection reads a head's weight block laid out [48, K]
+__device__ __forceinline__ void wgmma_ss_nt48(float (&d)[24], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, "
+      "%24, %25, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 

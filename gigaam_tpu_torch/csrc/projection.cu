@@ -63,9 +63,11 @@
 //   * Each wrapper call encodes its tensor maps on the host (the pointers
 //     change from call to call) and opts each kernel in to its shared memory
 //     once per device.
+//   * The GEMM kernels are templates of projection.cuh, which the
+//     attention-fold probes (attn_fold_probe.cu) instantiate at other row
+//     tiles and with a third epilogue.
 
-#include "gemm.cuh"
-
+#include "projection.cuh"
 
 using namespace gigaam;
 
@@ -84,24 +86,6 @@ struct RowArgs {
   bf16* xn;            // [B*T, D], written with LayerNorm only
   bf16* xr;            // [B*T, D]
   int m, t, d;
-};
-
-struct QkvArgs {
-  const bf16* xr;      // A of the q and k columns
-  const bf16* xv;      // A of the v columns: xn (K1) or x (K2)
-  const bf16* w[3];    // Wq (pre-scaled), Wk, Wv: [D, D] bf16, [in, out]
-  const float* bias[3];
-  bf16* out[3];        // q, k, v: [B, H, T, 48] bf16
-  int m, t, d, n_heads;
-};
-
-struct OutArgs {
-  const bf16* o;       // [B, H, T, 48] bf16
-  const bf16* w;       // Wo [D, D] bf16
-  const float* bias;   // bo [D] fp32
-  const bf16* residual;  // [B*T, D], or null: no residual (K2)
-  bf16* out;           // [B*T, D] bf16
-  int t, d, n_heads;
 };
 
 // One warp a row; lane l holds the row's 16-byte chunks l, l + 32, ...
@@ -180,175 +164,6 @@ __global__ void __launch_bounds__(kRowWarps * 32) ln_rope_kernel(RowArgs a) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// the GEMMs
-// ---------------------------------------------------------------------------
-
-template <int kWG, int kBN>
-struct QkvTile {
-  static constexpr int kBM = 64 * kWG, kBK = 64, kStages = 3;
-  static constexpr int kABytes = kBM * kBK * 2, kBBytes = kBK * kBN * 2;
-  static constexpr int kSmem = kStages * (kABytes + kBBytes) + kSmemAlign;
-};
-
-// a K tile is kHeads heads of O (48 columns each) against Wo's 48 kHeads
-// rows, which follow each other
-template <int kWG, int kBN>
-struct OutTile {
-  static constexpr int kBM = 64 * kWG, kHeads = 2, kStages = 2;
-  static constexpr int kBK = kD * kHeads;
-  static constexpr int kABytes = kBM * kBK * 2, kBBytes = kBK * kBN * 2;
-  static constexpr int kSmem = kStages * (kABytes + kBBytes) + kSmemAlign;
-};
-
-struct QkvMaps {
-  CUtensorMap a[2];   // xr, then xv: [M, D], boxes [64 kWG rows, 64], 128 B swizzle
-  CUtensorMap w[3];   // Wq, Wk, Wv: [D, D], boxes [64 rows, 64 columns], 128 B swizzle
-};
-
-struct OutMaps {
-  CUtensorMap o;      // O as [B*H, T, 48], boxes [1, 64 kWG, 16], 32 B swizzle
-  CUtensorMap w;      // Wo: [D, D], boxes [48 rows, 64 columns], 128 B swizzle
-};
-
-// grid (3 D / kBN column tiles, row tiles of 64 kWG)
-template <int kWG, int kBN>
-__global__ void __launch_bounds__(kWG * kThreads)
-qkv_kernel(const __grid_constant__ QkvMaps maps, QkvArgs a) {
-  using Tile = QkvTile<kWG, kBN>;
-  extern __shared__ unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[Tile::kStages], empty[Tile::kStages];
-  const int tiles_per_w = a.d / kBN;
-  const int which = blockIdx.x / tiles_per_w;   // 0: q, 1: k, 2: v
-  const int n0 = (blockIdx.x % tiles_per_w) * kBN;
-  const int m0 = blockIdx.y * Tile::kBM;
-  const int wg = threadIdx.x / kThreads;
-  const CUtensorMap* map_a = &maps.a[which < 2 ? 0 : 1];
-  const CUtensorMap* map_w = &maps.w[which];
-
-  float acc[kBN / 2];
-  gemm_tma_ring<kWG, kBN, Tile::kBK, Tile::kStages, Tile::kABytes,
-                Tile::kBBytes>(
-      acc, aligned_smem(smem), full, empty, a.d / Tile::kBK,
-      [&](uint32_t sa, uint32_t sb, int kt, uint32_t bar) {
-        tma_load_2d(sa, map_a, kt * Tile::kBK, m0, bar);
-#pragma unroll
-        for (int j = 0; j < kBN / 64; ++j)
-          tma_load_2d(sb + j * Tile::kBK * 128, map_w, n0 + 64 * j,
-                      kt * Tile::kBK, bar);
-      },
-      [&](uint32_t sa, int kk) {
-        return swizzled_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024,
-                             kSwizzle128);
-      },
-      [&](uint32_t sb, int kk) { return weight_desc<Tile::kBK>(sb, kk); });
-
-  const int row0 = m0 + wg * 64;
-  bf16* out = a.out[which];
-  store_tile_chunks<kBN>(acc, a.bias[which] + n0,
-                         [&](int row, int chunk, uint4 val) {
-    const int m = row0 + row;
-    if (m >= a.m) return;
-    const int n = n0 + chunk * 8;        // 8 columns never straddle a head
-    const int b = m / a.t, t = m % a.t;
-    *reinterpret_cast<uint4*>(
-        out + (((size_t)b * a.n_heads + n / kD) * a.t + t) * kD + n % kD) = val;
-  });
-}
-
-// grid (D / kBN column tiles, B * row tiles of 64 kWG per batch element)
-template <int kWG, int kBN, bool kRes>
-__global__ void __launch_bounds__(kWG * kThreads)
-out_proj_kernel(const __grid_constant__ OutMaps maps, OutArgs a) {
-  using Tile = OutTile<kWG, kBN>;
-  extern __shared__ unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[Tile::kStages], empty[Tile::kStages];
-  const int tiles_per_b = (a.t + Tile::kBM - 1) / Tile::kBM;
-  const int b = blockIdx.y / tiles_per_b;
-  const int t0 = (blockIdx.y % tiles_per_b) * Tile::kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int wg = threadIdx.x / kThreads;
-  constexpr int kBoxA = Tile::kBM * 32;   // one 16-column box of O
-
-  float acc[kBN / 2];
-  gemm_tma_ring<kWG, kBN, Tile::kBK, Tile::kStages, Tile::kABytes,
-                Tile::kBBytes>(
-      acc, aligned_smem(smem), full, empty, a.n_heads / Tile::kHeads,
-      [&](uint32_t sa, uint32_t sb, int kt, uint32_t bar) {
-        const int h0 = kt * Tile::kHeads;
-        // box i: columns 16 (i % 3) .. 16 (i % 3) + 15 of head h0 + i / 3
-#pragma unroll
-        for (int i = 0; i < Tile::kBK / 16; ++i)
-          tma_load_3d(sa + i * kBoxA, &maps.o, 16 * (i % 3), t0,
-                      b * a.n_heads + h0 + i / 3, bar);
-#pragma unroll
-        for (int j = 0; j < kBN / 64; ++j)
-          tma_load_2d(sb + j * Tile::kBK * 128, &maps.w, n0 + 64 * j,
-                      h0 * kD, bar);
-      },
-      [&](uint32_t sa, int kk) {
-        return swizzled_desc(sa + kk * kBoxA + wg * 64 * 32, 16, 256,
-                             kSwizzle32);
-      },
-      [&](uint32_t sb, int kk) { return weight_desc<Tile::kBK>(sb, kk); });
-
-  const int row0 = t0 + wg * 64;
-  store_tile_chunks<kBN>(acc, a.bias + n0, [&](int row, int chunk, uint4 val) {
-    const int t = row0 + row;
-    if (t >= a.t) return;
-    const size_t at = ((size_t)b * a.t + t) * a.d + n0 + chunk * 8;
-    if (kRes) {
-      // the module output is rounded to bf16 first, then the residual is
-      // added in bf16 (rounded once more)
-      float y[8], res[8];
-      unpack8(val, y);
-      unpack8(*reinterpret_cast<const uint4*>(a.residual + at), res);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] = __fadd_rn(y[e], res[e]);
-      val = pack8(y);
-    }
-    *reinterpret_cast<uint4*>(a.out + at) = val;
-  });
-}
-
-// ---------------------------------------------------------------------------
-// host side
-// ---------------------------------------------------------------------------
-
-template <int kWG, int kBN>
-cudaError_t launch_qkv(const QkvArgs& a, cudaStream_t s) {
-  using Tile = QkvTile<kWG, kBN>;
-  QkvMaps maps;
-  bool ok = matrix_map(&maps.a[0], a.xr, a.m, a.d, Tile::kBM) &&
-            matrix_map(&maps.a[1], a.xv, a.m, a.d, Tile::kBM);
-  for (int i = 0; i < 3; ++i)
-    ok = ok && matrix_map(&maps.w[i], a.w[i], a.d, a.d, Tile::kBK);
-  if (!ok) return cudaErrorInvalidValue;
-  dim3 grid(3 * a.d / kBN, (a.m + Tile::kBM - 1) / Tile::kBM);
-  return launch<qkv_kernel<kWG, kBN>>(grid, kWG * kThreads, Tile::kSmem, s,
-                                     maps, a);
-}
-
-template <int kWG, int kBN>
-cudaError_t launch_out(const OutArgs& a, int batch, cudaStream_t s) {
-  using Tile = OutTile<kWG, kBN>;
-  OutMaps maps;
-  const cuuint64_t dims[3] = {kD, (cuuint64_t)a.t,
-                              (cuuint64_t)batch * a.n_heads};
-  const cuuint64_t strides[2] = {kD * 2, (cuuint64_t)a.t * kD * 2};
-  const cuuint32_t box[3] = {16, (cuuint32_t)Tile::kBM, 1};
-  if (!bf16_map(&maps.o, a.o, 3, dims, strides, box,
-                CU_TENSOR_MAP_SWIZZLE_32B) ||
-      !matrix_map(&maps.w, a.w, a.d, a.d, Tile::kBK))
-    return cudaErrorInvalidValue;
-  dim3 grid(a.d / kBN, batch * ((a.t + Tile::kBM - 1) / Tile::kBM));
-  if (a.residual != nullptr)
-    return launch<out_proj_kernel<kWG, kBN, true>>(grid, kWG * kThreads,
-                                                   Tile::kSmem, s, maps, a);
-  return launch<out_proj_kernel<kWG, kBN, false>>(grid, kWG * kThreads,
-                                                  Tile::kSmem, s, maps, a);
-}
-
 // 128-row tiles when they give every SM a block, else 64-row tiles
 bool wide_rows(int row_tiles_of_128, int col_tiles) {
   return row_tiles_of_128 * col_tiles >= sm_count();
@@ -393,22 +208,8 @@ int gigaam_qkv_proj(const void* xr, const void* xv, const void* wq,
                     const void* wk, const void* wv, const void* bq,
                     const void* bk, const void* bv, void* q, void* k, void* v,
                     int batch, int t, int d, int n_heads, void* stream) {
-  QkvArgs a;
-  a.xr = static_cast<const bf16*>(xr);
-  a.xv = static_cast<const bf16*>(xv);
-  a.w[0] = static_cast<const bf16*>(wq);
-  a.w[1] = static_cast<const bf16*>(wk);
-  a.w[2] = static_cast<const bf16*>(wv);
-  a.bias[0] = static_cast<const float*>(bq);
-  a.bias[1] = static_cast<const float*>(bk);
-  a.bias[2] = static_cast<const float*>(bv);
-  a.out[0] = static_cast<bf16*>(q);
-  a.out[1] = static_cast<bf16*>(k);
-  a.out[2] = static_cast<bf16*>(v);
-  a.m = batch * t;
-  a.t = t;
-  a.d = d;
-  a.n_heads = n_heads;
+  const QkvArgs a = qkv_args(xr, xv, wq, wk, wv, bq, bk, bv, q, k, v, batch,
+                             t, d, n_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(wide_rows((a.m + 127) / 128, 3 * d / 128)
                               ? launch_qkv<2, 128>(a, s)
@@ -421,19 +222,14 @@ int gigaam_qkv_proj(const void* xr, const void* xv, const void* wq,
 int gigaam_out_proj(const void* o, const void* wo, const void* bo,
                     const void* residual, void* out, int batch, int t, int d,
                     int n_heads, void* stream) {
-  OutArgs a;
-  a.o = static_cast<const bf16*>(o);
-  a.w = static_cast<const bf16*>(wo);
-  a.bias = static_cast<const float*>(bo);
-  a.residual = static_cast<const bf16*>(residual);
-  a.out = static_cast<bf16*>(out);
-  a.t = t;
-  a.d = d;
-  a.n_heads = n_heads;
+  const OutArgs a = out_args(o, wo, bo, residual, out, t, d, n_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(wide_rows(batch * ((t + 127) / 128), d / 128)
-                              ? launch_out<2, 128>(a, batch, s)
-                              : launch_out<1, 64>(a, batch, s));
+  const bool wide = wide_rows(batch * ((t + 127) / 128), d / 128);
+  if (residual != nullptr)
+    return static_cast<int>(wide ? launch_out<2, 128, kBf16Residual>(a, batch, s)
+                                 : launch_out<1, 64, kBf16Residual>(a, batch, s));
+  return static_cast<int>(wide ? launch_out<2, 128, kNoResidual>(a, batch, s)
+                               : launch_out<1, 64, kNoResidual>(a, batch, s));
 }
 
 // For each GEMM configuration (qkv <2, 128>, qkv <1, 128>, out <2, 128>,
@@ -445,9 +241,9 @@ int gigaam_projection_occupancy(int* out) {
                        QkvTile<2, 128>::kSmem, out)) != cudaSuccess ||
       (err = occupancy(qkv_kernel<1, 128>, kThreads, QkvTile<1, 128>::kSmem,
                        out + 2)) != cudaSuccess ||
-      (err = occupancy(out_proj_kernel<2, 128, true>, 2 * kThreads,
+      (err = occupancy(out_proj_kernel<2, 128, kBf16Residual>, 2 * kThreads,
                        OutTile<2, 128>::kSmem, out + 4)) != cudaSuccess ||
-      (err = occupancy(out_proj_kernel<1, 64, true>, kThreads,
+      (err = occupancy(out_proj_kernel<1, 64, kBf16Residual>, kThreads,
                        OutTile<1, 64>::kSmem, out + 6)) != cudaSuccess)
     return static_cast<int>(err);
   return 0;

@@ -57,6 +57,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_conv_fold": [_P] * 15 + [_I] * 2 + [_P],
         "gigaam_fold_probes_occupancy": [_P],
     },
+    "attn_fold_probe": {
+        "gigaam_probe_qkv": [_P] * 11 + [_I] * 5 + [_P],
+        "gigaam_probe_qkv_heads": [_P] * 11 + [_I] * 4 + [_P],
+        "gigaam_probe_out_proj": [_P] * 5 + [_I] * 5 + [_P],
+        "gigaam_attn_fold_probe_occupancy": [_P],
+    },
     "subsampling_probe": {
         "gigaam_taps": [_P] * 8 + [_I] * 4 + [_P],
         "gigaam_im2col": [_P] * 6 + [_I] * 3 + [_P],
@@ -99,8 +105,8 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False,
     one ``nvcc`` process each, all started together.  Returns the wall seconds spent; raises with the
     compiler's output if any build fails.  ``verbose`` adds ``-Xptxas -v``
     and prints what the compiler reports (registers, shared memory, spills);
-    each compiler's output is also appended to ``logs`` when given, for
-    ``kernel_resources``.
+    each compiler's output is also appended to ``logs`` when given, under a
+    line ``[nvcc <name>]``, for ``kernel_resources``.
     """
     todo = [n for n in names if force or _stale(n)]
     if not todo:
@@ -120,7 +126,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False,
     for name, so, tmp, proc in procs:
         out, _ = proc.communicate()
         if logs is not None:
-            logs.append(out)
+            logs.append(f"[nvcc {name}]\n{out}")
         if verbose and out:
             print(f"[nvcc {name}]\n{out}", flush=True)
         if proc.returncode == 0:
@@ -137,22 +143,31 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False,
 def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
     """Per ``__global__`` function in the output of a verbose build:
     registers, spill bytes (stores + loads) and static shared memory, as
-    ptxas reports them."""
+    ptxas reports them.  Where the log holds the reports of several
+    libraries, each after its ``[nvcc <name>]`` line as ``build`` writes
+    them, a kernel that an earlier library already reported (a template of
+    a shared header that two sources instantiate) is named ``<kernel>
+    (<name>)``."""
     out: Dict[str, Dict[str, int]] = {}
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
         r"(\d+) bytes spill loads.*?Used (\d+) registers(?:[^\n]*?"
         r"(\d+) bytes smem)?", re.S)
-    for mangled, st, ld, regs, smem in entry.findall(log):
-        # ..._<file>_cu_<hash><len><name>[I<template arguments>E]E...: the
-        # kernels' names are lower-case words ending in _kernel; template
-        # arguments are bool (Lb0E, Lb1E) or int (Li<n>E) literals
-        name = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)E)?E", mangled)
-        key = mangled if not name else name.group(1) + _template_args(
-            name.group(2))
-        out[key] = {
-            "registers": int(regs), "spill_bytes": int(st) + int(ld),
-            "static_smem_bytes": int(smem or 0)}
+    parts = re.split(r"^\[nvcc (\w+)\]$", log, flags=re.M)
+    for library, text in zip([None] + parts[1::2], parts[::2]):
+        for mangled, st, ld, regs, smem in entry.findall(text):
+            # ..._<file>_cu_<hash><len><name>[I<template arguments>E]E...:
+            # the kernels' names are lower-case words ending in _kernel;
+            # template arguments are bool (Lb0E, Lb1E) or int (Li<n>E)
+            # literals
+            name = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)E)?E", mangled)
+            key = mangled if not name else name.group(1) + _template_args(
+                name.group(2))
+            if key in out:
+                key = f"{key} ({library})"
+            out[key] = {
+                "registers": int(regs), "spill_bytes": int(st) + int(ld),
+                "static_smem_bytes": int(smem or 0)}
     return out
 
 
@@ -170,8 +185,11 @@ def _template_args(args: Optional[str]) -> str:
 
 def dynamic_resources() -> Dict[str, Dict[str, int]]:
     """Per kernel that sizes its shared memory at launch (the rel-pos
-    kernels, the projection GEMMs, one entry per tile configuration, the
-    fold probes' kernels and the subsampling probes' products):
+    kernels, the projection GEMMs, one entry per tile configuration and
+    epilogue (the third template argument: 0 no residual, 1 the residual
+    added in bf16, 2 in fp32), the fold probes' kernels, the subsampling
+    probes' products and the attention-fold probes' GEMMs, named as
+    ``kernel_resources`` names them):
     the dynamic shared memory in bytes and how many blocks one SM holds at
     a time, as the CUDA runtime reports them for the current card."""
     out: Dict[str, Dict[str, int]] = {}
@@ -182,12 +200,18 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
              ("relpos_bwd_dq_kernel", "relpos_bwd_dkv_kernel")),
             ("projection", "gigaam_projection_occupancy",
              ("qkv_kernel<2, 128>", "qkv_kernel<1, 128>",
-              "out_proj_kernel<2, 128, true>",
-              "out_proj_kernel<1, 64, true>")),
+              "out_proj_kernel<2, 128, 1>", "out_proj_kernel<1, 64, 1>")),
             ("fold_probes", "gigaam_fold_probes_occupancy",
              ("ffn_fold_kernel", "glu_fold_kernel", "dw_proj_kernel")),
             ("subsampling_probe", "gigaam_subsampling_probe_occupancy",
-             ("taps_kernel", "probe_gemm_kernel"))):
+             ("taps_kernel", "probe_gemm_kernel")),
+            ("attn_fold_probe", "gigaam_attn_fold_probe_occupancy",
+             ("qkv_kernel<1, 128> (attn_fold_probe)",
+              "qkv_kernel<2, 128> (attn_fold_probe)", "qkv_kernel<4, 128>",
+              "qkv_head_kernel", "out_proj_kernel<1, 128, 0>",
+              "out_proj_kernel<2, 128, 0> (attn_fold_probe)",
+              "out_proj_kernel<4, 128, 0>", "out_proj_kernel<1, 128, 2>",
+              "out_proj_kernel<2, 128, 2>", "out_proj_kernel<4, 128, 2>"))):
         pairs = (ctypes.c_int * (2 * len(kernels)))()
         check(getattr(library(name), fn)(pairs), fn)
         for i, kernel in enumerate(kernels):

@@ -300,7 +300,10 @@ def ln_rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 def _folded_plain(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, valid: torch.Tensor, n_heads: int,
-                  lnres: bool) -> torch.Tensor:
+                  lnres: bool, fp32_residual: bool = False) -> torch.Tensor:
+    """The module's plain math.  With ``lnres`` the residual x is added in
+    x's dtype to the rounded output (K1), or with ``fp32_residual`` in fp32
+    to the output before its one rounding (the attention-fold probe P8)."""
     dt = x.dtype
     with full_fp32():
         xin, xr = ln_rope_plain(x, cos, sin, n_heads,
@@ -313,7 +316,10 @@ def _folded_plain(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
         o = _sdpa_plain(q, k, v, valid, 1.0)            # wq carries the scale
         b, h, t, d = o.shape
         merged = o.transpose(1, 2).reshape(b, t, h * d)
-        out = (merged.float() @ w.wo.float() + w.bo).to(dt)
+        out = merged.float() @ w.wo.float() + w.bo
+        if fp32_residual:
+            return (out + x.float()).to(dt)
+        out = out.to(dt)
     return out + x if lnres else out
 
 

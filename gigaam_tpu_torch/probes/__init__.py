@@ -15,4 +15,10 @@ measurement, not a path of the model: nothing else in the port calls it.
   products (P1) and as an im2col patch with one long product (P2), each
   timed against cuDNN's conv, and the largest shared memory a block is
   granted (P3) (``benchmarks/pallas_subsampling_probe.py``).
+* ``attn_fold_probes``: the rotary attention module as K1/K2 run it, with
+  the projection GEMMs tiled other ways (64-row tiles with N-128 or per-head
+  N-48 columns, 128- and 256-row tiles: P6, P7) and with the residual added
+  in fp32 (P8), timed against the composed path, K2/K1 and a lean stock
+  path (``benchmarks/pallas_attn_fold_probe.py``,
+  ``benchmarks/pallas_attn_lnres_probe.py``).
 """

@@ -184,8 +184,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     (v3_ctc) and the rel-pos (v2_ctc, emo) models, imports the training CLI
     and takes one CPU train step, times a CPU call of the SDPA ablation's
     full variant with the port's ``device_timeit``, runs the fold probes and
-    the subsampling probe's P1 on the CPU, and has imported neither ``jax``
-    nor ``gigaam_tpu``."""
+    the subsampling probe's P1 on the CPU, runs both attention-fold probe
+    runners on the CPU at width 96, and has imported neither ``jax`` nor
+    ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
         "import gigaam_tpu_torch as gt\n"
@@ -229,6 +230,12 @@ def test_port_runs_without_jax_or_the_jax_package():
         "ssp.D, ssp.CALLS = 64, 1\n"
         "r = ssp.probe_taps(2, True, device='cpu')\n"
         "print('subsampling', r['us'] > 0 and r['library_us'] > 0)\n"
+        "from gigaam_tpu_torch.probes import attn_fold_probes as afp\n"
+        "afp.D, afp.H, afp.DH, afp.CALLS = 96, 2, 48, 1\n"
+        "r = afp.run(2, 16, device='cpu')\n"
+        "print('attn fold', r['foldA_us'] > 0 and r['foldC_nb2_us'] > 0)\n"
+        "r = afp.run_lnres(2, 16, 2, device='cpu')\n"
+        "print('attn lnres', r['foldLN_us'] > 0 and r['K1_us'] > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -243,12 +250,33 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "fold ffn True" in out.stdout
     assert "fold conv True" in out.stdout
     assert "subsampling True" in out.stdout
+    assert "attn fold True" in out.stdout
+    assert "attn lnres True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """Every Python source of the port (and ``chip_smoke.py``) imports
+    neither JAX nor the JAX package nor ``benchmarks``; every CUDA source
+    includes only system headers and the port's own ``csrc`` headers."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
+    cuda = []
     for root, _, files in os.walk(os.path.join(REPO, "gigaam_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+        cuda += [os.path.join(root, f) for f in files
+                 if f.endswith((".cu", ".cuh"))]
+    rel = {os.path.relpath(p, REPO) for p in paths + cuda}
+    assert {"gigaam_tpu_torch/probes/attn_fold_probes.py",
+            "gigaam_tpu_torch/csrc/attn_fold_probe.cu",
+            "gigaam_tpu_torch/csrc/projection.cuh"} <= rel
+    for path in cuda:
+        with open(path) as f:
+            for line in f:
+                if line.startswith("#include"):
+                    name = line.split()[1]
+                    assert name.startswith("<") or os.path.isfile(
+                        os.path.join(os.path.dirname(path),
+                                     name.strip('"'))), (path, line)
+                    assert "gigaam_tpu/" not in name and "jax" not in name
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
