@@ -116,9 +116,27 @@ Phases, each fatal on failure:
    the steps sees the new weights; per step wall time, peak memory, the
    forward/backward/optimizer split and a profile;
 13. one train step at full width but 2 layers, batch 4 of 2-4 s: the card's
-   bf16 loss and gradients against the port's CPU fp32 ones.
+   bf16 loss and gradients against the port's CPU fp32 ones;
+14. RNNT and SentencePiece: full-width v3_rnnt (random weights from a seed,
+   bf16 encoder, fp32 head, the joint's blank logit raised by a fixed
+   ``RNNT_BLANK_BIAS``) through ``transcribe`` on 20 s (K2) and
+   ``_decode_batch`` on 16 clips of 10-20 s (K1), asserted from the launch
+   counts and profiled, each with its greedy label loop alone on the same
+   encoded batch (graph replays, host reads, iterations, device and wall
+   ms, and the eager loop's); then, on the batch's encoded output, under
+   a blank bias of +1e4 (exactly T' iterations) and the moderate one
+   (0.2-0.6 tokens a frame, asserted): the CUDA-graph decode bit-equal to
+   the eager loop on the card, equal to the port's CPU fp32 decode of the
+   same tensor (tokens, frames, counts; log-probs within 1e-4), the
+   smallest top-1/top-2 margin of its decisions, host reads at most
+   ceil(iterations / chunk) + 1, and the wall time by chunk length (16, 32,
+   64); then full-width v3_e2e_rnnt (its joint unbiased) and v3_e2e_ctc
+   with a synthetic 512-piece SentencePiece model, one ``transcribe`` on
+   20 s (K2) and one ``_decode_batch`` of 16 (K1) each, launch counts
+   asserted, their texts' lengths printed.
 
-The last two lines of output are a JSON object with every kernel's numbers
+Before the card's line, an ``rnnt`` line holds phase 14's numbers.  The
+last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
 the profile's kernel sum, and their ``main``'s reading, ``ablation_us``,
@@ -133,6 +151,7 @@ there is no CUDA device.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import json
@@ -154,7 +173,15 @@ import gigaam_tpu_torch as gt
 from gigaam_tpu_torch.audio import save_wav
 from gigaam_tpu_torch.config import RU_VOCAB, SAMPLE_RATE, make_preset
 from gigaam_tpu_torch.data import AudioDataset, write_manifest
-from gigaam_tpu_torch.models.heads import ctc_log_probs
+from gigaam_tpu_torch.decode import rnnt_greedy
+from gigaam_tpu_torch.decode.rnnt_greedy import RNNTGreedyDecoder, trip_count
+from gigaam_tpu_torch.decode.tokenizer import write_sp_model
+from gigaam_tpu_torch.models.heads import (
+    ctc_log_probs,
+    rnnt_joint_enc_proj,
+    rnnt_joint_step_preproj,
+    rnnt_predict_sequence,
+)
 from gigaam_tpu_torch.ops import cuda_lib
 from gigaam_tpu_torch.ops import fused_attention as fa
 from gigaam_tpu_torch.ops.attention import rotary_mha
@@ -1876,9 +1903,10 @@ def counts() -> dict:
             "K6": fa.relpos_mha_bwd.launches}
 
 
-def profile_calls(label: str, fn, calls: int, wall_ms: float) -> None:
-    """Print device busy time, idle share, launches and device time by group
-    per call of ``fn``, from ``calls`` calls under ``torch.profiler``."""
+def profile_calls(label: str, fn, calls: int, wall_ms: float) -> dict:
+    """Print (and return) device busy time, idle share, launches and device
+    time by group per call of ``fn``, from ``calls`` calls under
+    ``torch.profiler``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -1901,19 +1929,22 @@ def profile_calls(label: str, fn, calls: int, wall_ms: float) -> None:
         groups[group] += ms
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    print("  profile " + json.dumps({
+    record = {
         "call": label, "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall_ms,
         "launches": sum(n for _, n in kernels.values()),
         "groups_ms": groups,
-        "top_kernels": [[k[:90], ms, n] for k, (ms, n) in top]}), flush=True)
+        "top_kernels": [[k[:90], ms, n] for k, (ms, n) in top]}
+    print("  profile " + json.dumps(record), flush=True)
+    return record
 
 
 def run_path(label: str, fn, kernel: str, n_layers: int, calls: int = 3):
     """Warm ``fn`` once, then run it ``calls`` times from zeroed counts and
     assert that only ``kernel``'s wrapper ran, once per layer per call; then
     profile ``calls`` more calls.  The wall time per call comes from the
-    unprofiled calls."""
+    unprofiled calls.  Returns (the last output, the kernel's launches, the
+    profile's record)."""
     fn()
     torch.cuda.synchronize()
     fa.reset_launch_counts()
@@ -1928,15 +1959,14 @@ def run_path(label: str, fn, kernel: str, n_layers: int, calls: int = 3):
           f"warm-up), launches {got}", flush=True)
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
-    profile_calls(label, fn, calls, wall_ms)
-    return out, got[kernel]
+    return out, got[kernel], profile_calls(label, fn, calls, wall_ms)
 
 
 def main_path(model, rng, card: str) -> dict:
     n_layers = model.cfg.encoder.n_layers
     launches = {}
     wav20 = synth_wav(20.0, rng)
-    res, launches["K2"] = run_path(
+    res, launches["K2"], _ = run_path(
         "transcribe 20 s, batch 1 (K2)",
         lambda: model.transcribe(wav20, word_timestamps=True), "K2", n_layers)
     if not (isinstance(res.text, str) and isinstance(res.words, list)):
@@ -1945,7 +1975,7 @@ def main_path(model, rng, card: str) -> dict:
           f"card {card}", flush=True)
 
     wavs16 = [synth_wav(s, rng) for s in np.linspace(10.0, 20.0, 16)]
-    outs, launches["K1"] = run_path(
+    outs, launches["K1"], _ = run_path(
         "_decode_batch 16 x 10-20 s (K1)",
         lambda: model._decode_batch(wavs16, word_timestamps=True), "K1",
         n_layers)
@@ -1954,7 +1984,7 @@ def main_path(model, rng, card: str) -> dict:
     print(f"  _decode_batch: 16 results; card {card}", flush=True)
 
     wav_long = synth_wav(K3_SECONDS, rng)
-    (enc, enc_len), launches["K3"] = run_path(
+    (enc, enc_len), launches["K3"], _ = run_path(
         f"encode_batch {K3_SECONDS:.0f} s, T'={K3_T} (K3)",
         lambda: model.encode_batch([wav_long]), "K3", n_layers)
     if (tuple(enc.shape) != (1, K3_T, D_MODEL) or int(enc_len[0]) != K3_T
@@ -1971,7 +2001,7 @@ def relpos_main_path(asr, emo, rng, card: str) -> int:
     of K1-K3.  Returns K5's launches over the three paths."""
     n_layers = asr.cfg.encoder.n_layers
     wav20 = synth_wav(20.0, rng)
-    res, n_transcribe = run_path(
+    res, n_transcribe, _ = run_path(
         "v2_ctc transcribe 20 s, batch 1 (K5)",
         lambda: asr.transcribe(wav20, word_timestamps=True), "K5", n_layers)
     if not (isinstance(res.text, str) and isinstance(res.words, list)):
@@ -1980,7 +2010,7 @@ def relpos_main_path(asr, emo, rng, card: str) -> int:
           f"words; card {card}", flush=True)
 
     wavs16 = [synth_wav(s, rng) for s in np.linspace(10.0, 20.0, 16)]
-    outs, n_batch = run_path(
+    outs, n_batch, _ = run_path(
         "v2_ctc _decode_batch 16 x 10-20 s (K5)",
         lambda: asr._decode_batch(wavs16, word_timestamps=True), "K5",
         n_layers)
@@ -1989,7 +2019,7 @@ def relpos_main_path(asr, emo, rng, card: str) -> int:
     print(f"  v2_ctc _decode_batch: 16 results; card {card}", flush=True)
 
     wav10 = synth_wav(10.0, rng)
-    probs, n_emo = run_path("emo get_probs 10 s, T'=251 (K5)",
+    probs, n_emo, _ = run_path("emo get_probs 10 s, T'=251 (K5)",
                             lambda: emo.get_probs(wav10), "K5",
                             emo.cfg.encoder.n_layers)
     values = np.array(list(probs.values()))
@@ -2287,6 +2317,303 @@ def training_reference_phase(name: str, manifest: str) -> None:
     if not all(r <= TRAIN_GRAD_RTOL for r in rels.values()):
         raise AssertionError(f"{name}: gradient error {rels}")
 
+# ---------------------------------------------------------------------------
+# RNNT transcription and the SentencePiece tokenizer
+# ---------------------------------------------------------------------------
+
+# Added to the joint's blank logit.  A random joint argmaxes to a non-blank
+# token at almost every step, so every frame would burn max_symbols steps;
+# BLANK_ALL makes every step blank: exactly T' steps, the trip count of a
+# trained model (benchmarks/run_benchmarks.py:160-167).  RNNT_BLANK_BIAS,
+# fixed, makes the batch of 16 clips of seed 12 emit RNNT_RATE tokens a
+# frame: the bias of the main-path calls.  It was read off a scan on the
+# card (0.84: 0.62 tokens a frame, 0.85: 0.40, 0.86: 0.27): a random joint
+# varies little with its input, so the rate falls steeply with the bias.
+BLANK_ALL = 1e4
+RNNT_BLANK_BIAS = 0.85
+RNNT_RATE = (0.2, 0.6)
+RNNT_CHUNKS = (16, 32, 64)
+# the card's fp32 decode against the port's CPU fp32 decode of the same
+# encoded batch: the same ops in another order (cuBLAS, MKL), log-probs of
+# magnitude <= ~10
+RNNT_LOGP_ATOL = 1e-4
+SP_PIECES = 512
+
+
+def sp_model_pieces(n: int) -> list:
+    """A SentencePiece vocabulary of ``n`` pieces: unk, two control pieces,
+    the 256 byte-fallback pieces, then the word boundary, the letters,
+    word-initial letters and letter pairs."""
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    letters = RU_VOCAB[1:]
+    normal = (["\u2581"] + letters + ["\u2581" + c for c in letters]
+              + [a + b for a in letters for b in letters])
+    pieces += [(p, -1.0 - 0.01 * i, 1)
+               for i, p in enumerate(normal[:n - len(pieces)])]
+    return pieces
+
+
+def set_blank_bias(model, base: float, bias: float) -> None:
+    """The joint's blank logit bias = its drawn value ``base`` + ``bias``
+    (an in-place update: the decoder's graphs are captured again)."""
+    with torch.no_grad():
+        model.head["joint"]["out"]["b"][model.blank_id] = base + bias
+
+
+def decode_call(model, enc, lens, chunk: int, eager: bool = False):
+    """One decode of ``enc`` by the model's decoder: (outputs on the host,
+    host reads, graph replays, wall ms)."""
+    dec = model.rnnt
+    fn = dec.decode_eager if eager else dec.decode
+    reads, replays = dec.host_reads, dec.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(model.head, enc, lens,
+             max_symbols=model.cfg.decoding.max_symbols_per_step,
+             with_logps=True, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return ([o.cpu() for o in out], dec.host_reads - reads,
+            dec.replays - replays, wall)
+
+
+def loop_share(label: str, model, wavs, call: dict, card: str) -> dict:
+    """The decode loop of one main-path call, alone on that call's encoded
+    output: graph replays, host reads, iterations, device ms (profile sum)
+    and wall, and the eager loop's wall; its share of the call's device
+    busy time."""
+    enc, lens = model.encode_batch(wavs)
+    ms = model.cfg.decoding.max_symbols_per_step
+    chunk = rnnt_greedy.CHUNK
+    out, reads, replays, wall = decode_call(model, enc, lens, chunk)
+    iters = trip_count(out[1].numpy(), out[2].numpy(), lens.cpu().numpy(),
+                       ms, enc.shape[1])
+    if reads > math.ceil(iters / chunk) + 1:
+        raise AssertionError(f"{label}: {reads} host reads for {iters} "
+                             f"iterations at chunk {chunk}")
+    args = dict(max_symbols=ms, with_logps=True, chunk=chunk)
+    by_kernel = device_ms(lambda: model.rnnt.decode(model.head, enc, lens,
+                                                    **args), calls=1)
+    graph_ms = sum(by_kernel.values())
+    _, eager_reads, _, eager_wall = decode_call(model, enc, lens, chunk,
+                                                eager=True)
+    row = {"call": label, "iterations": iters, "host_reads": reads,
+           "graph_replays": replays, "tokens": int(out[2].sum()),
+           "frames": int(lens.sum()),
+           "graph_device_ms": graph_ms, "graph_wall_ms": wall,
+           "graph_us_per_iteration": 1e3 * graph_ms / max(iters, 1),
+           "graph_wall_us_per_iteration": 1e3 * wall / max(iters, 1),
+           "eager_wall_ms": eager_wall,
+           "eager_wall_us_per_iteration": 1e3 * eager_wall / max(iters, 1),
+           "loop_share_of_call_busy": graph_ms / call["device_busy_ms"],
+           "call_wall_ms": call["wall_ms"],
+           "call_device_busy_ms": call["device_busy_ms"],
+           "call_idle_share": call["idle_share"],
+           "call_launches": call["launches"],
+           "top_kernels_ms": [[k[:60], v] for k, v in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:6]]}
+    print(f"  decode loop of {label}: {iters} iterations, {reads} host "
+          f"reads, {replays} graph replays; graph {graph_ms:.3f} ms device, "
+          f"{wall:.3f} ms wall; eager {eager_wall:.3f} ms wall "
+          f"({eager_reads} reads); "
+          f"{row['loop_share_of_call_busy']:.3f} of the call's device busy "
+          f"time; card {card}", flush=True)
+    return row
+
+
+def decision_margins(head, enc, lens, out, max_symbols: int) -> float:
+    """The smallest top-1 minus top-2 log-prob over the decisions the greedy
+    loop took, from a teacher-forced replay on the CPU in fp32: at frame t
+    of sample b, one decision per token emitted there and one more (the
+    blank) unless the symbol cap was hit."""
+    tokens, frames, counts = out[0], out[1], out[2]
+    smallest = math.inf
+    with torch.inference_mode(), full_fp32():
+        enc_proj = rnnt_joint_enc_proj(head, enc)
+        for b in range(enc.shape[0]):
+            n = int(counts[b])
+            pred = rnnt_predict_sequence(head, tokens[b:b + 1, :n].long())[0]
+            per_frame = np.bincount(frames[b, :n].numpy(),
+                                    minlength=int(lens[b]))
+            t_idx, u_idx, u = [], [], 0
+            for t in range(int(lens[b])):
+                k = int(per_frame[t])
+                steps = k + (1 if k < max_symbols else 0)
+                t_idx += [t] * steps
+                u_idx += range(u, u + steps)
+                u += k
+            if not t_idx:
+                continue
+            logp = rnnt_joint_step_preproj(head, enc_proj[b, t_idx],
+                                           pred[u_idx])
+            top = logp.topk(2, dim=-1).values
+            smallest = min(smallest, float((top[:, 0] - top[:, 1]).min()))
+    return smallest
+
+
+def decode_checks(model, base: float, wavs, card: str) -> dict:
+    """On the encoded batch of ``wavs``, under each blank bias: the graph
+    decode bit-equal to the eager loop on the card, and equal to the port's
+    CPU fp32 decode of the same encoded tensor (log-probs within
+    RNNT_LOGP_ATOL), the host reads bounded, and the chunk A/B."""
+    enc, lens = model.encode_batch(wavs)
+    enc_cpu, lens_cpu = enc.float().cpu(), lens.cpu()
+    cpu_head = copy.deepcopy(model.head).cpu()
+    ms = model.cfg.decoding.max_symbols_per_step
+    rows = {}
+    for name, bias in (("blank_all", BLANK_ALL),
+                       ("blank_moderate", RNNT_BLANK_BIAS)):
+        set_blank_bias(model, base, bias)
+        with torch.no_grad():
+            cpu_head["joint"]["out"]["b"][model.blank_id] = base + bias
+        graph, reads, _, _ = decode_call(model, enc, lens, rnnt_greedy.CHUNK)
+        eager, _, _, _ = decode_call(model, enc, lens, rnnt_greedy.CHUNK,
+                                     eager=True)
+        if not all(torch.equal(g, e) for g, e in zip(graph, eager)):
+            raise AssertionError(f"{name}: the graph decode differs from "
+                                 f"the eager loop on the card")
+        ref = RNNTGreedyDecoder().decode(cpu_head, enc_cpu, lens_cpu,
+                                         max_symbols=ms, with_logps=True)
+        if not all(torch.equal(g, r) for g, r in zip(graph[:3], ref[:3])):
+            raise AssertionError(f"{name}: card and CPU decodes differ")
+        logp_err = float((graph[3] - ref[3]).abs().max())
+        if not logp_err <= RNNT_LOGP_ATOL:
+            raise AssertionError(f"{name}: log-prob error {logp_err}")
+        iters = trip_count(graph[1].numpy(), graph[2].numpy(),
+                           lens_cpu.numpy(), ms, enc.shape[1])
+        if reads > math.ceil(iters / rnnt_greedy.CHUNK) + 1:
+            raise AssertionError(f"{name}: {reads} host reads for {iters} "
+                                 f"iterations")
+        rate = float(graph[2].sum()) / float(lens_cpu.sum())
+        if bias == BLANK_ALL and (iters != int(lens_cpu.max())
+                                  or int(graph[2].sum()) != 0):
+            raise AssertionError(f"{name}: {iters} iterations, "
+                                 f"{int(graph[2].sum())} tokens")
+        margin = decision_margins(cpu_head, enc_cpu, lens_cpu, ref, ms)
+        ab = {}
+        for chunk in RNNT_CHUNKS + RNNT_CHUNKS[::-1]:
+            decode_call(model, enc, lens, chunk)          # capture, warm
+            walls = [decode_call(model, enc, lens, chunk)[3]
+                     for _ in range(2)]
+            ab.setdefault(str(chunk), []).extend(walls)
+        ab_ms = {c: float(np.median(w)) for c, w in ab.items()}
+        rows[name] = {"bias": bias, "iterations": iters, "host_reads": reads,
+                      "tokens_per_frame": rate, "logp_max_abs_err": logp_err,
+                      "min_top2_margin": margin, "chunk_wall_ms": ab_ms}
+        print(f"rnnt decode checks, {name} (+{bias:g}), batch 16, "
+              f"T'={enc.shape[1]}: graph == eager on the card (tokens, "
+              f"frames, counts, logps bit-equal); == CPU fp32 (tokens, "
+              f"frames, counts; logps max_abs {logp_err:.2e}, tol "
+              f"{RNNT_LOGP_ATOL}); {iters} iterations, {reads} host reads "
+              f"(chunk {rnnt_greedy.CHUNK}); {rate:.3f} tokens a frame; "
+              f"smallest top-1/top-2 margin {margin:.4f}; wall ms per decode "
+              f"by chunk (median of 4) {ab_ms}; card {card}", flush=True)
+    lo, hi = RNNT_RATE
+    if not lo <= rows["blank_moderate"]["tokens_per_frame"] <= hi:
+        raise AssertionError(f"blank bias {RNNT_BLANK_BIAS}: "
+                             f"{rows['blank_moderate']['tokens_per_frame']} "
+                             f"tokens a frame, outside {RNNT_RATE}")
+    set_blank_bias(model, base, RNNT_BLANK_BIAS)
+    return rows
+
+
+def rnnt_path(card: str) -> dict:
+    """Full-width v3_rnnt (random weights from seed 0, bf16 encoder, fp32
+    head, the blank bias RNNT_BLANK_BIAS): ``transcribe`` 20 s (K2) and
+    ``_decode_batch`` 16 x 10-20 s (K1), each timed and profiled over one
+    call (a call is 26,000-98,000 kernels, and the profiler's bookkeeping
+    of three took most of a minute) with its decode loop's share; the decode checks on the batch; then v3_e2e_rnnt (its
+    joint unbiased: RNNT_BLANK_BIAS was read off v3_rnnt's head, and an
+    unbiased random joint emits at almost every step, so the texts are
+    long) and v3_e2e_ctc with a synthetic 512-piece SentencePiece model.
+    The clips come from a generator of their own, so the emission rate
+    that fixes RNNT_BLANK_BIAS does not depend on the phases before."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    model = gt.load_model("rnnt", init="random", seed=0)
+    n_layers = model.cfg.encoder.n_layers
+    base = float(model.head["joint"]["out"]["b"][model.blank_id])
+    set_blank_bias(model, base, RNNT_BLANK_BIAS)
+    report = {"seconds_by_step": {}}
+    launches = {"K1": 0, "K2": 0}
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+
+    wav20 = synth_wav(20.0, rng)
+    res, n, prof = run_path(
+        "v3_rnnt transcribe 20 s, batch 1 (K2)",
+        lambda: model.transcribe(wav20, word_timestamps=True), "K2", n_layers,
+        calls=1)
+    if not (isinstance(res.text, str) and isinstance(res.words, list)):
+        raise AssertionError(f"transcribe returned {res!r}")
+    launches["K2"] += n
+    print(f"  v3_rnnt transcribe: {len(res.text)} chars, {len(res.words)} "
+          f"words; card {card}", flush=True)
+    lap("load, transcribe")
+    report["transcribe"] = loop_share("v3_rnnt transcribe 20 s", model,
+                                      [wav20], prof, card)
+    lap("transcribe's loop")
+    wavs16 = [synth_wav(sec, rng) for sec in np.linspace(10.0, 20.0, 16)]
+    outs, n, prof = run_path(
+        "v3_rnnt _decode_batch 16 x 10-20 s (K1)",
+        lambda: model._decode_batch(wavs16, word_timestamps=True), "K1",
+        n_layers, calls=1)
+    if len(outs) != 16 or not all(isinstance(t, str) for t, _ in outs):
+        raise AssertionError("_decode_batch returned a malformed batch")
+    launches["K1"] += n
+    print(f"  v3_rnnt _decode_batch: text lengths "
+          f"{[len(t) for t, _ in outs]}; card {card}", flush=True)
+    lap("_decode_batch")
+    report["decode_batch"] = loop_share("v3_rnnt _decode_batch 16", model,
+                                        wavs16, prof, card)
+    lap("_decode_batch's loop")
+    report["checks"] = decode_checks(model, base, wavs16, card)
+    lap("decode checks")
+    report["captures"] = model.rnnt.captures
+    del model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        sp = os.path.join(root, "sp512.model")
+        write_sp_model(sp, sp_model_pieces(SP_PIECES))
+        for name in ("v3_e2e_rnnt", "v3_e2e_ctc"):
+            cfg = make_preset(name)
+            cfg = dataclasses.replace(cfg, decoding=dataclasses.replace(
+                cfg.decoding, model_path=sp))
+            model = gt.GigaAMASR(cfg, seed=0)
+            if len(model.tokenizer) != SP_PIECES or model.blank_id != SP_PIECES:
+                raise AssertionError(f"{name}: {len(model.tokenizer)} pieces")
+            # one call each, from zeroed counts: the unbiased RNNT loop
+            # runs T' x max_symbols steps, too many to profile in the phase
+            fa.reset_launch_counts()
+            res = model.transcribe(wav20, word_timestamps=True)
+            outs = model._decode_batch(wavs16, word_timestamps=True)
+            torch.cuda.synchronize()
+            got = counts()
+            want = {k: (n_layers if k in ("K1", "K2") else 0) for k in got}
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, expected "
+                                     f"{want}")
+            if len(outs) != 16 or not all(isinstance(t, str) for t, _ in outs):
+                raise AssertionError(f"{name}: malformed batch")
+            launches["K2"] += got["K2"]
+            launches["K1"] += got["K1"]
+            lengths = [len(res.text)] + [len(t) for t, _ in outs]
+            print(f"  {name} with a {SP_PIECES}-piece SentencePiece model: "
+                  f"transcribe 20 s (K2) and _decode_batch 16 x 10-20 s "
+                  f"(K1), launches {got}; text lengths {lengths} "
+                  f"(transcribe, then the batch); card {card}", flush=True)
+            report[name] = {"text_lengths": lengths}
+            lap(name)
+            del model
+            torch.cuda.empty_cache()
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2376,6 +2703,9 @@ def main() -> int:
         for name in ("v3_ctc", "v2_ctc"):
             training_reference_phase(name, manifest)
     launches["K4"], launches["K6"] = train_launches["K4"], train_launches["K6"]
+    rnnt = rnnt_path(card)
+    for key in ("K1", "K2"):
+        launches[key] += rnnt["launches"][key]
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -2408,6 +2738,7 @@ def main() -> int:
     kernels += fold_probe_kernel_rows(fold_rows, fold_launches)
     kernels += subsampling_kernel_rows(sub_rows, sub_launches)
     kernels += attn_fold_probe_kernel_rows(attn_fold_rows, attn_fold_launches)
+    print("rnnt " + json.dumps(rnnt))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -69,10 +69,14 @@ class MixedDict(nn.ModuleDict):
         return key in self._parameters or super().__contains__(key)
 
 
-def as_module(tree: Dict[str, Any]) -> nn.Module:
+def as_module(tree: Union[Dict[str, Any], list]) -> nn.Module:
     """A nested dict of tensors -> ``nn.ModuleDict`` of ``nn.ParameterDict``
-    leaves, ``MixedDict`` where a node holds both.  No parameter requires a
-    gradient: a trainer switches that on for the leaves it updates."""
+    leaves, ``MixedDict`` where a node holds both, ``nn.ModuleList`` for a
+    list (the RNNT predictor's LSTM layers, in order).  No parameter
+    requires a gradient: a trainer switches that on for the leaves it
+    updates."""
+    if isinstance(tree, (list, tuple)):
+        return nn.ModuleList([as_module(v) for v in tree])
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict({
             k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})

@@ -1,11 +1,16 @@
-"""User-facing model classes: GigaAM (encoder), GigaAMASR (CTC head) and
-GigaAMEmo (emotion head), ported from ``gigaam_tpu/models/model.py``.
+"""User-facing model classes: GigaAM (encoder), GigaAMASR (CTC or RNNT
+head) and GigaAMEmo (emotion head), ported from
+``gigaam_tpu/models/model.py``.
 
 * Audio is padded to 1-second buckets, as in the JAX package.
-* Activations run in bfloat16 on CUDA and float32 on the CPU.
+* Activations run in bfloat16 on CUDA and float32 on the CPU; the RNNT head
+  runs in float32.
 * Everything from the log-mel to the greedy CTC mask runs on the device
   with no host sync in between (only shapes steer control flow); one
   transfer then brings labels, mask, per-frame log-probs and lengths back.
+  The RNNT label loop reads one flag per chunk of steps
+  (``decode/rnnt_greedy.py``), then one transfer brings tokens, frames,
+  counts, log-probs and lengths back.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from ..config import (
     CTCHeadConfig,
     EmoHeadConfig,
     ModelConfig,
+    RNNTHeadConfig,
 )
 from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
+from ..decode.rnnt_greedy import RNNTGreedyDecoder, rnnt_extract
 from ..decode.timestamps import compute_frame_shift, frames_to_words
 from ..decode.tokenizer import Tokenizer
 from ..frontend import LogMelFrontend, num_frames
@@ -148,14 +155,20 @@ class GigaAM(nn.Module):
 
 
 class GigaAMASR(GigaAM):
-    """ASR model with a CTC head (reference ``gigaam/model.py:86-259``)."""
+    """ASR model with a CTC or RNNT head (reference
+    ``gigaam/model.py:86-259``); greedy decoding."""
 
     def __init__(self, cfg: ModelConfig, **kw):
-        if not isinstance(cfg.head, CTCHeadConfig) or cfg.decoding is None:
-            raise NotImplementedError("only CTC heads are ported")
+        if (not isinstance(cfg.head, (CTCHeadConfig, RNNTHeadConfig))
+                or cfg.decoding is None):
+            raise ValueError("GigaAMASR needs a CTC or RNNT head and a "
+                             "decoding config")
         self.tokenizer = Tokenizer(cfg.decoding.vocabulary or [],
                                    cfg.decoding.model_path)
         super().__init__(cfg, **kw)
+        self.blank_id = len(self.tokenizer)
+        self.rnnt = (RNNTGreedyDecoder()
+                     if isinstance(cfg.head, RNNTHeadConfig) else None)
 
     def _ctc_forward(self, wavs: torch.Tensor, lengths: torch.Tensor,
                      pos: Pos):
@@ -166,21 +179,47 @@ class GigaAMASR(GigaAM):
         tok_lp = log_probs.amax(dim=-1)
         return labels, keep, tok_lp, enc_lens
 
+    def _ctc_decode(self, dev_batch, dev_lens, pos):
+        """-> per sample (ids, frames, token log-probs), enc_lens (host)."""
+        labels, keep, tok_lp, enc_lens = (
+            t.cpu().numpy() for t in self._ctc_forward(dev_batch, dev_lens, pos))
+        return [(ids, frames, [float(tok_lp[i, f]) for f in frames])
+                for i, (ids, frames) in enumerate(ctc_extract(labels, keep))
+                ], enc_lens
+
+    def _rnnt_decode(self, dev_batch, dev_lens, pos):
+        """Encode, run the greedy label loop on the device, then bring
+        tokens, frames, counts, log-probs and lengths back in one
+        transfer."""
+        encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
+        tokens, frames, counts, logps = self.rnnt.decode(
+            self.head, encoded, enc_lens,
+            max_symbols=self.cfg.decoding.max_symbols_per_step,
+            with_logps=True)
+        u = tokens.shape[1]
+        host = torch.cat([tokens, frames, logps.view(torch.int32),
+                          counts[:, None], enc_lens[:, None].int()],
+                         dim=1).cpu().numpy()
+        logps_np = np.ascontiguousarray(host[:, 2 * u:3 * u]).view(np.float32)
+        counts_np = host[:, 3 * u]
+        pairs = rnnt_extract(host[:, :u], host[:, u:2 * u], counts_np)
+        return [(ids, fr, logps_np[i, :len(ids)].tolist())
+                for i, (ids, fr) in enumerate(pairs)], host[:, 3 * u + 1]
+
     @torch.inference_mode()
     def _decode_batch(self, wavs: List[np.ndarray], word_timestamps: bool
                       ) -> List[Tuple[str, Optional[List[Word]]]]:
-        """Batched greedy CTC transcription (reference ``model.py:96-124``)."""
+        """Batched greedy transcription (reference ``model.py:96-124``)."""
         dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
-        labels, keep, tok_lp, enc_lens = (
-            t.cpu().numpy() for t in self._ctc_forward(dev_batch, dev_lens, pos))
+        decode = self._ctc_decode if self.rnnt is None else self._rnnt_decode
+        decoded, enc_lens = decode(dev_batch, dev_lens, pos)
         out: List[Tuple[str, Optional[List[Word]]]] = []
-        for i, (ids, frames) in enumerate(ctc_extract(labels, keep)):
+        for i, (ids, frames, logps) in enumerate(decoded):
             words = None
             if word_timestamps:
                 shift = compute_frame_shift(int(lens[i]), int(enc_lens[i]))
-                words = frames_to_words(
-                    self.tokenizer, ids, frames, shift,
-                    token_logps=[float(tok_lp[i, f]) for f in frames])
+                words = frames_to_words(self.tokenizer, ids, frames, shift,
+                                        token_logps=logps)
             out.append((self.tokenizer.decode(ids), words))
         return out
 
@@ -224,6 +263,8 @@ def init_state(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
     if isinstance(cfg.head, (CTCHeadConfig, EmoHeadConfig)):
         state["head"] = {"proj": init_linear(gen, cfg.head.feat_in,
                                              cfg.head.num_classes)}
+    elif isinstance(cfg.head, RNNTHeadConfig):
+        state["head"] = heads_lib.init_rnnt_head(gen, cfg.head)
     return state
 
 

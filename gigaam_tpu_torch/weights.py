@@ -14,6 +14,11 @@ Layouts (JAX -> port):
 * per-layer leaves stacked on a leading layer axis -> one dict per layer.
 * GLU value/gate leaves stay separate; legacy artifacts that fused them
   into one ``pointwise_conv1 {w, b}`` are split by ``migrate_params``.
+* list-valued subtrees (the RNNT predictor's LSTM layers) are saved under
+  digit keys (``decoder/lstm/0/w_ih``) and read back as lists, as the JAX
+  package does (``listify``).
+* a SentencePiece tokenizer travels beside the artifact, under a path
+  relative to it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -39,7 +45,16 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Tree:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
-    return root
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys):
+            return [listify(node[str(i)]) for i in range(len(keys))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
 
 
 def migrate_params(params: Tree) -> Tree:
@@ -81,9 +96,13 @@ def _layer_leaf(path: Tuple[str, ...], a: np.ndarray) -> torch.Tensor:
     return _tensor(a)
 
 
-def _map(tree: Tree, fn, path: Tuple[str, ...] = ()) -> Tree:
-    return {k: _map(v, fn, path + (k,)) if isinstance(v, dict)
-            else fn(path + (k,), v) for k, v in tree.items()}
+def _map(tree: Any, fn, path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` on every leaf of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn(path, tree)
 
 
 def sub_block_from_jax(tree: Tree) -> Tree:
@@ -117,19 +136,27 @@ def params_from_jax(tree: Tree) -> Tree:
     return state
 
 
-def _leaves(tree: Tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+def _leaves(tree: Any):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list, tuple)):
             yield from _leaves(v)
         else:
             yield v
 
 
 def read_artifact(path: str) -> Tuple[ModelConfig, Tree]:
-    """A ``save_model`` pair (``model.npz`` or ``model``) -> (config, state)."""
+    """A ``save_model`` pair (``model.npz`` or ``model``) -> (config, state).
+    A tokenizer path stored relative to the artifact is rebased onto its
+    directory."""
     base = path[:-4] if path.endswith(".npz") else path
     with open(base + ".json") as f:
         cfg = ModelConfig.from_dict(json.load(f))
+    dec = cfg.decoding
+    if dec is not None and dec.model_path and not os.path.isabs(
+            dec.model_path):
+        cfg = dataclasses.replace(cfg, decoding=dataclasses.replace(
+            dec, model_path=os.path.join(os.path.dirname(base) or ".",
+                                         dec.model_path)))
     return cfg, params_from_jax(load_params_npz(base + ".npz"))
 
 
@@ -145,9 +172,12 @@ def load_native(path: str, device=None, **kw):
 # The inverse: the port's modules -> the JAX layout
 # ---------------------------------------------------------------------------
 
-def module_tree(module: torch.nn.Module) -> Tree:
+def module_tree(module: torch.nn.Module) -> Any:
     """A module built by ``models.encoder.as_module`` -> nested dicts of its
-    tensors (parameters first, then child nodes)."""
+    tensors (parameters first, then child nodes); a ``ModuleList`` -> a
+    list."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [module_tree(child) for child in module]
     tree: Tree = dict(module._parameters)
     for name, child in module._modules.items():
         tree[name] = module_tree(child)
@@ -192,10 +222,13 @@ def params_to_jax(model) -> Tree:
     return tree
 
 
-def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts and lists -> ``/``-joined keys (list items under their
+    index)."""
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree))
     out: Dict[str, np.ndarray] = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(_flatten(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = v
@@ -205,24 +238,46 @@ def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def save_model(model, path: str) -> None:
     """Save a port model as the JAX package's native artifact pair: params
     (``<base>.npz``, ``/``-joined keys of the JAX tree) and config
-    (``<base>.json``), readable by ``load_native`` of either package."""
+    (``<base>.json``), readable by ``load_native`` of either package.  A
+    SentencePiece tokenizer is copied next to the npz as
+    ``<name>_tokenizer.model`` and stored by that relative path, so the
+    artifact can move (``gigaam_tpu/models/model.py:777-792``)."""
     base = path[:-4] if path.endswith(".npz") else path
     os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
     np.savez(base + ".npz", **_flatten(params_to_jax(model)))
+    cfg = model.cfg
+    dec = cfg.decoding
+    if dec is not None and dec.model_path:
+        tok_name = os.path.basename(base) + "_tokenizer.model"
+        tok_dst = os.path.join(os.path.dirname(base) or ".", tok_name)
+        # model_path is cwd-relative or absolute (read_artifact rebased an
+        # artifact's own), never relative to the destination
+        src = os.path.abspath(dec.model_path)
+        if src != os.path.abspath(tok_dst):
+            shutil.copyfile(src, tok_dst)
+        cfg = dataclasses.replace(
+            cfg, decoding=dataclasses.replace(dec, model_path=tok_name))
     with open(base + ".json", "w") as f:
-        f.write(model.cfg.to_json())
+        f.write(cfg.to_json())
 
 
 def load_state_into(module: torch.nn.Module, tree: Tree) -> None:
     """Copy a nested dict of tensors (or numpy arrays) into a module built
     by ``as_module``, in place; the structures must match."""
+    if isinstance(module, torch.nn.ModuleList):
+        if len(module) != len(tree):
+            raise ValueError(f"{len(tree)} list items for {len(module)} "
+                             f"modules")
+        for child, sub in zip(module, tree):
+            load_state_into(child, sub)
+        return
     have = module_tree(module)
     if set(have) != set(tree):
         raise ValueError(f"parameter tree mismatch: {sorted(have)} vs "
                          f"{sorted(tree)}")
     with torch.no_grad():
         for k, dst in have.items():
-            if isinstance(dst, dict):
+            if isinstance(dst, (dict, list)):
                 load_state_into(module._modules[k], tree[k])
             else:
                 src = torch.as_tensor(tree[k])

@@ -185,8 +185,10 @@ def test_port_runs_without_jax_or_the_jax_package():
     and takes one CPU train step, times a CPU call of the SDPA ablation's
     full variant with the port's ``device_timeit``, runs the fold probes and
     the subsampling probe's P1 on the CPU, runs both attention-fold probe
-    runners on the CPU at width 96, and has imported neither ``jax`` nor
-    ``gigaam_tpu``."""
+    runners on the CPU at width 96, transcribes with a v3_rnnt model (the
+    greedy label loop) and a SentencePiece e2e_rnnt model, encodes and
+    decodes with a SentencePiece tokenizer, and has imported neither ``jax``
+    nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
         "import gigaam_tpu_torch as gt\n"
@@ -236,6 +238,25 @@ def test_port_runs_without_jax_or_the_jax_package():
         "print('attn fold', r['foldA_us'] > 0 and r['foldC_nb2_us'] > 0)\n"
         "r = afp.run_lnres(2, 16, 2, device='cpu')\n"
         "print('attn lnres', r['foldLN_us'] > 0 and r['K1_us'] > 0)\n"
+        "import os, tempfile\n"
+        "from gigaam_tpu_torch.decode.tokenizer import Tokenizer, write_sp_model\n"
+        "sp = os.path.join(tempfile.mkdtemp(), 'sp.model')\n"
+        "pieces = [('<unk>', 0.0, 2), ('\u2581', -2.0, 1)] + [\n"
+        "    (c, -1.0, 1) for c in 'абвгд'] + [('\u2581аб', -0.5, 1)]\n"
+        "write_sp_model(sp, pieces)\n"
+        "tok = Tokenizer([], sp)\n"
+        "print('sp', tok.decode(tok.encode('аб вг')))\n"
+        "for name in ('v3_rnnt', 'v3_e2e_rnnt'):\n"
+        "    cfg = gt.make_preset(name)\n"
+        "    cfg.encoder = EncoderConfig(\n"
+        "        n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2)\n"
+        "    cfg.head.joint.enc_hidden = 64\n"
+        "    if name == 'v3_e2e_rnnt':\n"
+        "        cfg.decoding.model_path = sp\n"
+        "        cfg.head.decoder.num_classes = len(pieces) + 1\n"
+        "        cfg.head.joint.num_classes = len(pieces) + 1\n"
+        "    m = gt.model_class_for(cfg)(cfg, device='cpu')\n"
+        "    print(name, type(m.transcribe(wav).text), m.rnnt.host_reads > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -252,6 +273,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "subsampling True" in out.stdout
     assert "attn fold True" in out.stdout
     assert "attn lnres True" in out.stdout
+    assert "sp аб вг" in out.stdout
+    assert "v3_rnnt <class 'str'> True" in out.stdout
+    assert "v3_e2e_rnnt <class 'str'> True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -267,7 +291,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     rel = {os.path.relpath(p, REPO) for p in paths + cuda}
     assert {"gigaam_tpu_torch/probes/attn_fold_probes.py",
             "gigaam_tpu_torch/csrc/attn_fold_probe.cu",
-            "gigaam_tpu_torch/csrc/projection.cuh"} <= rel
+            "gigaam_tpu_torch/csrc/projection.cuh",
+            "gigaam_tpu_torch/ops/lstm.py",
+            "gigaam_tpu_torch/decode/rnnt_greedy.py",
+            "gigaam_tpu_torch/decode/tokenizer.py"} <= rel
     for path in cuda:
         with open(path) as f:
             for line in f:

@@ -2,7 +2,14 @@
 and reloaded by the port keeps every leaf bit-exact (in the JAX layout
 after undoing the port's layout changes), as does ``params_from_jax`` on
 the in-memory tree and a legacy fused-GLU artifact through
-``migrate_params``."""
+``migrate_params``.  An RNNT model with two LSTM layers and a
+SentencePiece tokenizer goes both ways: saved by either package and loaded
+by the other, its leaves equal and its layers in order, the tokenizer
+copied beside the artifact under a relative path."""
+
+import json
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -15,9 +22,13 @@ from gigaam_tpu.config import (
     EncoderConfig,
     FeaturesConfig,
     ModelConfig,
+    RNNTDecoderConfig,
+    RNNTHeadConfig,
+    RNNTJointConfig,
     RU_VOCAB,
 )
 from gigaam_tpu.models.model import GigaAMASR, _flatten, save_model
+from gigaam_tpu.models.model import load_native as jax_load_native
 
 import gigaam_tpu_torch as gt
 from gigaam_tpu_torch import weights
@@ -115,3 +126,94 @@ def test_legacy_fused_glu_artifact_migrates(jax_model, tmp_path):
 def test_load_model_rejects_missing_artifact(tmp_path):
     with pytest.raises(FileNotFoundError):
         gt.load_model(str(tmp_path / "absent"), device="cpu")
+
+
+SP_PIECES = ([("<unk>", 0.0, 2)] + [(c, -1.0, 1) for c in "абвгде"]
+             + [("▁пр", -0.5, 1)])
+
+
+def tiny_rnnt_cfg(sp_path):
+    v = len(SP_PIECES) + 1
+    return ModelConfig(
+        model_name="tiny_v3_rnnt", model_class="asr",
+        preprocessor=FeaturesConfig(center=False),
+        encoder=EncoderConfig(feat_in=64, n_layers=2, d_model=64, n_heads=4,
+                              ff_expansion_factor=2, conv_kernel_size=7,
+                              pos_emb_max_len=256),
+        head=RNNTHeadConfig(
+            decoder=RNNTDecoderConfig(pred_hidden=32, pred_rnn_layers=2,
+                                      num_classes=v),
+            joint=RNNTJointConfig(enc_hidden=64, pred_hidden=32,
+                                  joint_hidden=32, num_classes=v)),
+        decoding=DecodingConfig(kind="rnnt_greedy", vocabulary=[],
+                                model_path=sp_path))
+
+
+@pytest.fixture(scope="module")
+def rnnt_model(tmp_path_factory):
+    from gigaam_tpu_torch.decode.tokenizer import write_sp_model
+
+    sp_path = str(tmp_path_factory.mktemp("tok") / "sp.model")
+    write_sp_model(sp_path, SP_PIECES)
+    return GigaAMASR(tiny_rnnt_cfg(sp_path), seed=0)
+
+
+def assert_lstm_layers(port, jax_params):
+    layers = port.head["decoder"]["lstm"]
+    ref = jax_params["head"]["decoder"]["lstm"]
+    assert isinstance(ref, list) and len(layers) == len(ref) == 2
+    for got, want in zip(layers, ref):
+        for name in ("w_ih", "w_hh", "b"):
+            assert np.array_equal(got[name].numpy(), np.asarray(want[name]))
+
+
+def test_params_from_jax_takes_a_live_rnnt_tree(rnnt_model):
+    """The JAX tree as the model holds it (jax arrays, ``lstm`` a list)."""
+    port = gt.GigaAMASR(
+        gt.ModelConfig.from_dict(rnnt_model.cfg.to_dict()),
+        state=gt.params_from_jax(rnnt_model.params), device="cpu")
+    assert_lstm_layers(port, rnnt_model.params)
+    assert_bit_exact(jax_layout(port), _flatten(
+        jax.tree.map(np.asarray, rnnt_model.params)))
+    assert port.blank_id == rnnt_model.blank_id == len(SP_PIECES)
+
+
+def test_rnnt_artifact_from_jax_to_port_and_back(rnnt_model, tmp_path):
+    ref = _flatten(jax.tree.map(np.asarray, rnnt_model.params))
+    save_model(rnnt_model, str(tmp_path / "jax" / "m"))
+    port = gt.load_model(str(tmp_path / "jax" / "m.npz"), device="cpu")
+    assert_lstm_layers(port, rnnt_model.params)
+    assert_bit_exact(jax_layout(port), ref)
+    assert port.cfg.decoding.model_path == os.path.join(
+        str(tmp_path / "jax"), "m_tokenizer.model")
+    assert len(port.tokenizer) == len(SP_PIECES)
+
+    weights.save_model(port, str(tmp_path / "port" / "p"))
+    with open(tmp_path / "port" / "p.json") as f:
+        stored = json.load(f)["decoding"]["model_path"]
+    assert stored == "p_tokenizer.model"
+    with open(tmp_path / "port" / stored, "rb") as a, \
+            open(rnnt_model.cfg.decoding.model_path, "rb") as b:
+        assert a.read() == b.read()
+    # the artifact moves with its tokenizer
+    shutil.move(str(tmp_path / "port"), str(tmp_path / "moved"))
+    back = jax_load_native(str(tmp_path / "moved" / "p.npz"))
+    assert isinstance(back.params["head"]["decoder"]["lstm"], list)
+    assert_bit_exact(_flatten(jax.tree.map(np.asarray, back.params)), ref)
+    assert back.tokenizer.decode([7, 1]) == rnnt_model.tokenizer.decode(
+        [7, 1])
+    again = gt.load_model(str(tmp_path / "moved" / "p"), device="cpu")
+    assert_bit_exact(jax_layout(again), ref)
+    assert again.tokenizer.encode("пр аб") == rnnt_model.tokenizer.encode(
+        "пр аб")
+
+
+def test_port_saved_rnnt_keys_are_the_jax_keys(rnnt_model, tmp_path):
+    port = gt.GigaAMASR(
+        gt.ModelConfig.from_dict(rnnt_model.cfg.to_dict()),
+        state=gt.params_from_jax(rnnt_model.params), device="cpu")
+    weights.save_model(port, str(tmp_path / "p"))
+    with np.load(tmp_path / "p.npz") as z:
+        keys = set(z.files)
+    assert keys == set(_flatten(jax.tree.map(np.asarray, rnnt_model.params)))
+    assert {"head/decoder/lstm/0/w_ih", "head/decoder/lstm/1/b"} <= keys
