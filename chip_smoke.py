@@ -133,9 +133,27 @@ Phases, each fatal on failure:
    64); then full-width v3_e2e_rnnt (its joint unbiased) and v3_e2e_ctc
    with a synthetic 512-piece SentencePiece model, one ``transcribe`` on
    20 s (K2) and one ``_decode_batch`` of 16 (K1) each, launch counts
-   asserted, their texts' lengths printed.
+   asserted, their texts' lengths printed;
+15. longform and alignment: full-width v3_ctc through
+   ``transcribe_longform`` on a 6-minute WAV of speech-like bursts between
+   -80 dBFS gaps (energy VAD, chunk batches of 16, two in flight), launch
+   counts asserted (K1 in every layer of every batch), segments and word
+   times checked; one batch in flight against two (same texts, walls in
+   turns, idle shares, each profiled), the ``_int16_wire`` A/B (same texts,
+   walls, H2D ms), the energy VAD's host ms per audio minute; a random
+   PyanNet at pyannote's widths saved with ``save_vad`` and found through
+   ``GIGAAM_VAD_ARTIFACT`` (one ``transcribe_longform``; its class
+   probabilities on the card against the port's CPU fp32 ones, within
+   1e-4, argmax equal past a 1e-3 margin; device ms per audio minute);
+   ``align_batch`` on 16 clips of 10-20 s with the model's own greedy
+   transcripts (the CTC head centred on the clips and its blank raised so
+   that they hold words) (K1) and ``align`` on one (K2); the DP alone: its
+   CUDA graph bit-equal to the eager loop and to the CPU fp32 DP, its
+   device and wall ms and its share of ``align_batch``; then v2_ctc's
+   ``transcribe_longform`` (K5 in every layer).
 
-Before the card's line, an ``rnnt`` line holds phase 14's numbers.  The
+Before the card's line, an ``rnnt`` line holds phase 14's numbers and a
+``longform`` line phase 15's.  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
@@ -170,12 +188,26 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import gigaam_tpu_torch as gt
+from gigaam_tpu_torch import vad as gt_vad
 from gigaam_tpu_torch.audio import save_wav
 from gigaam_tpu_torch.config import RU_VOCAB, SAMPLE_RATE, make_preset
-from gigaam_tpu_torch.data import AudioDataset, write_manifest
+from gigaam_tpu_torch.data import AudioDataset, normalize_text, write_manifest
 from gigaam_tpu_torch.decode import rnnt_greedy
+from gigaam_tpu_torch.decode.align import (
+    ViterbiAligner,
+    backtrack,
+    pad_targets,
+)
+from gigaam_tpu_torch.decode.ctc_greedy import ctc_greedy_mask
 from gigaam_tpu_torch.decode.rnnt_greedy import RNNTGreedyDecoder, trip_count
 from gigaam_tpu_torch.decode.tokenizer import write_sp_model
+from gigaam_tpu_torch.models.vad_net import (
+    PyanNet,
+    VADNetConfig,
+    init_vad_state,
+    save_vad,
+    sliding_class_probs,
+)
 from gigaam_tpu_torch.models.heads import (
     ctc_log_probs,
     rnnt_joint_enc_proj,
@@ -191,6 +223,7 @@ from gigaam_tpu_torch.ops.rotary import rotary_tables
 from gigaam_tpu_torch.profiling import device_timeit
 from gigaam_tpu_torch.train import train as train_cli
 from gigaam_tpu_torch.train.finetune import FineTuner, TrainConfig
+from gigaam_tpu_torch.types import LongformTranscriptionResult, Segment
 
 # A kernel passes where, on every valid query row,
 #   |got - ref| <= KERNEL_REL * RMS(attention output of ref) + KERNEL_RTOL * |ref|:
@@ -2615,6 +2648,438 @@ def rnnt_path(card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Longform and alignment (phase 15)
+# ---------------------------------------------------------------------------
+
+LONGFORM_SECONDS = 360.0
+LONGFORM_BATCH = 16
+# the card's PyanNet class probabilities against the port's CPU fp32 ones:
+# the same fp32 ops (cuDNN's conv and LSTM with TF32 off against the CPU's)
+# summed in another order; probabilities lie in [0, 1]
+VAD_PROB_ATOL = 1e-4
+# the argmax must agree wherever the top-1/top-2 margin exceeds this
+VAD_MARGIN = 1e-3
+# word times are rounded to the millisecond when shifted to file time
+WORD_TIME_SLACK = 1e-3
+ALIGN_CLIPS = 16
+# A random CTC head gives almost every frame the same label (one token on
+# each of the phase's 16 clips at full width), so its greedy transcripts
+# are a character long.  So that the DP aligns transcripts of a speech-like
+# length, the head is centred on the clips (its bias less the mean
+# encoder frame's logits) and the blank logit raised by the first shift of
+# ALIGN_BLANK_SHIFTS whose greedy transcripts hold at most ALIGN_RATE
+# tokens a frame (Russian speech: ~12-15 characters a second, 25 frames).
+ALIGN_BLANK_SHIFTS = (0.0, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0)
+ALIGN_RATE = 0.5
+
+
+def longform_audio(seconds: float, rng) -> np.ndarray:
+    """Speech-like bursts of 3-12 s (``synth_wav``) between gaps of 0.6-1.5
+    s of noise at about -80 dBFS (RMS 1e-4)."""
+    parts, total, n = [], 0, int(seconds * SAMPLE_RATE)
+    while total < n:
+        burst = synth_wav(rng.uniform(3.0, 12.0), rng)
+        gap = 1e-4 * rng.standard_normal(
+            int(rng.uniform(0.6, 1.5) * SAMPLE_RATE))
+        parts += [burst, gap.astype(np.float32)]
+        total += len(burst) + len(gap)
+    return np.concatenate(parts)[:n]
+
+
+def check_longform(label: str, res, duration: float) -> None:
+    """Segments ordered, inside the audio, at most 30 s long, each word
+    inside its segment (to the millisecond the shift rounds to)."""
+    if not res.segments:
+        raise AssertionError(f"{label}: no segments")
+    prev_end = 0.0
+    for s in res.segments:
+        if not (prev_end <= s.start < s.end <= duration + 1e-6
+                and s.end - s.start <= 30.0 + 1e-6):
+            raise AssertionError(f"{label}: segment {s.start}-{s.end} after "
+                                 f"{prev_end} in {duration} s")
+        for w in s.words or []:
+            if not (s.start - WORD_TIME_SLACK <= w.start <= w.end
+                    <= s.end + WORD_TIME_SLACK):
+                raise AssertionError(f"{label}: word {w} outside segment "
+                                     f"{s.start}-{s.end}")
+        prev_end = s.end
+
+
+def longform_serial(model, path: str, batch: int):
+    """``transcribe_longform`` with one chunk batch in flight: each batch is
+    finalized before the next is submitted.  Returns (result, [wall ms of
+    each batch call])."""
+    segments, bounds = gt_vad.segment_audio_file(path, SAMPLE_RATE,
+                                                  device=model.device)
+    out, walls = [], []
+    for i in range(0, len(segments), batch):
+        t0 = time.perf_counter()
+        res = model._decode_batch(segments[i:i + batch], True,
+                                  pad_rows_to=batch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out += [Segment(text=text, start=s, end=e,
+                        words=[w.shifted(s) for w in words or []])
+                for (s, e), (text, words) in zip(bounds[i:i + batch], res)]
+    return LongformTranscriptionResult(segments=out), walls
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def alternating_walls(fns: dict, rounds: int = 3) -> dict:
+    """Wall ms of each of two calls, in turns (a, b, b, a) ``rounds``
+    times after one warm call each: {name: [walls]}."""
+    (a, fa_), (b, fb) = fns.items()
+    fa_(), fb()
+    walls = {a: [], b: []}
+    for _ in range(rounds):
+        for name, fn in ((a, fa_), (b, fb), (b, fb), (a, fa_)):
+            walls[name].append(wall_ms(fn))
+    return walls
+
+
+def texts_of(res) -> list:
+    return [s.text for s in res.segments]
+
+
+def h2d_ms(fn) -> float:
+    """Device ms of host-to-device copies in one call of ``fn``."""
+    return sum(ms for name, ms in device_ms(fn, calls=1).items()
+               if "HtoD" in name)
+
+
+def assert_launches(label: str, want: dict) -> dict:
+    got = counts()
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+    return got
+
+
+def neural_vad_phase(model, path: str, audio: np.ndarray, root: str,
+                     card: str) -> dict:
+    """Random PyanNet weights at pyannote's widths, saved with ``save_vad``
+    and found through ``GIGAAM_VAD_ARTIFACT``: one ``transcribe_longform``,
+    then the card's class probabilities against the port's CPU fp32 ones
+    on the same audio, and the VAD's device time."""
+    cfg = VADNetConfig()
+    cpu_net = PyanNet(cfg, init_vad_state(cfg, seed=3))
+    artifact = os.path.join(root, "vad_segmentation")
+    save_vad(artifact, cpu_net)
+    os.environ["GIGAAM_VAD_ARTIFACT"] = artifact + ".npz"
+    try:
+        t0 = time.perf_counter()
+        res = model.transcribe_longform(path, fr_batch_size=LONGFORM_BATCH,
+                                        word_timestamps=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        os.environ["GIGAAM_VAD_ARTIFACT"] = "energy"
+    check_longform("neural VAD longform", res, len(audio) / SAMPLE_RATE)
+    card_net = copy.deepcopy(cpu_net).to(model.device)
+    got, times_g = sliding_class_probs(card_net, audio)
+    ref, times_c = sliding_class_probs(cpu_net, audio)
+    if got.shape != ref.shape or not np.array_equal(times_g, times_c):
+        raise AssertionError(f"VAD probs {got.shape} vs {ref.shape}")
+    err = float(np.abs(got - ref).max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > VAD_MARGIN
+    agree = got.argmax(-1) == ref.argmax(-1)
+    if not err <= VAD_PROB_ATOL or not agree[decided].all():
+        raise AssertionError(f"VAD probs max_abs {err} (tol {VAD_PROB_ATOL}),"
+                             f" argmax differs on {int((~agree[decided]).sum())}"
+                             f" frames past the margin")
+    minutes = len(audio) / SAMPLE_RATE / 60.0
+    by_kernel = device_ms(lambda: sliding_class_probs(card_net, audio),
+                          calls=1)
+    vad_wall = min(wall_ms(lambda: sliding_class_probs(card_net, audio))
+                   for _ in range(3))
+    row = {"longform_wall_ms": wall, "segments": len(res.segments),
+           "probs_max_abs_err": err, "frames": int(len(ref)),
+           "frames_past_margin": int(decided.sum()),
+           "argmax_agree_all": float(agree.mean()),
+           "device_ms_per_audio_min": sum(by_kernel.values()) / minutes,
+           "wall_ms_per_audio_min": vad_wall / minutes,
+           "top_kernels_ms": [[k[:60], v] for k, v in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:6]]}
+    print(f"neural VAD: longform {wall:.1f} ms, {len(res.segments)} segments;"
+          f" card vs CPU fp32 probs max_abs {err:.2e} (tol {VAD_PROB_ATOL}),"
+          f" argmax equal on all {int(decided.sum())} of {len(ref)} frames "
+          f"past the margin {VAD_MARGIN}; {row['device_ms_per_audio_min']:.2f}"
+          f" device ms and {row['wall_ms_per_audio_min']:.2f} wall ms per "
+          f"audio minute; card {card}", flush=True)
+    return row
+
+
+def shape_ctc_head(model, clips) -> dict:
+    """Centre the CTC head on ``clips`` and raise its blank logit by the
+    first of ALIGN_BLANK_SHIFTS whose greedy rate is at most ALIGN_RATE
+    tokens a frame (in place); returns the shift and the rate."""
+    head = model.head["proj"]
+    with torch.inference_mode():
+        enc, lens = model.encode_batch(clips)
+        enc = enc.float()
+        valid = torch.arange(enc.shape[1], device=enc.device)[None] < \
+            lens[:, None]
+        mean = enc[valid].mean(dim=0)
+        bias = head["b"] - mean @ head["w"]
+        for shift in ALIGN_BLANK_SHIFTS:
+            b = bias.clone()
+            b[model.blank_id] += shift
+            _, keep = ctc_greedy_mask(torch.log_softmax(
+                enc @ head["w"] + b, dim=-1), lens)
+            rate = float(keep.sum()) / float(lens.sum())
+            if rate <= ALIGN_RATE:
+                break
+    with torch.no_grad():
+        head["b"].copy_(b)
+    return {"blank_shift": shift, "tokens_per_frame": rate}
+
+
+def align_phase(model, rng, card: str) -> dict:
+    """``align_batch`` on 16 clips of 10-20 s with the model's own greedy
+    transcripts (K1), ``align`` on one (K2), then the DP alone on the
+    batch's log-probs: the CUDA graph bit-equal to the eager loop on the
+    card and equal to the CPU fp32 DP, its device and wall ms and its share
+    of ``align_batch``."""
+    n_layers = model.cfg.encoder.n_layers
+    clips = [synth_wav(s, rng) for s in np.linspace(10.0, 20.0, ALIGN_CLIPS)]
+    shape = shape_ctc_head(model, clips)
+    texts = [t for t, _ in model._decode_batch(clips, False)]
+    model.align_batch(clips, texts)                         # warm, capture
+    fa.reset_launch_counts()
+    batch_wall = wall_ms(lambda: model.align_batch(clips, texts))
+    launches = assert_launches("align_batch", {"K1": n_layers})
+    res = model.align_batch(clips, texts)
+    for clip, text, r in zip(clips, texts, res):
+        starts = [w.start for w in r.words]
+        if (starts != sorted(starts) or any(
+                w.end > len(clip) / SAMPLE_RATE + WORD_TIME_SLACK
+                for w in r.words)):
+            raise AssertionError(f"align_batch: words {r.words}")
+    prof = profile_calls(f"align_batch {ALIGN_CLIPS} x 10-20 s (K1)",
+                         lambda: model.align_batch(clips, texts), 1,
+                         batch_wall)
+    model.align(clips[-1], texts[-1])
+    fa.reset_launch_counts()
+    one = model.align(clips[-1], texts[-1])
+    torch.cuda.synchronize()
+    launches["K2"] = assert_launches("align", {"K2": n_layers})["K2"]
+    print(f"  align_batch: {sum(len(r.words) for r in res)} words, "
+          f"{batch_wall:.1f} ms wall; align: {len(one.words)} words; "
+          f"card {card}", flush=True)
+
+    # the DP alone
+    vocab = model.cfg.decoding.vocabulary
+    ids = [model.tokenizer.encode(normalize_text(t, vocab, raw_text=True))
+           for t in texts]
+    per = [pad_targets(i) for i in ids]
+    tg = np.zeros((len(ids), max(len(p) for p in per)), np.int32)
+    for i, p in enumerate(per):
+        tg[i, :len(p)] = p
+    tl = np.array([len(i) for i in ids], np.int32)
+    with torch.inference_mode():
+        dev_batch, dev_lens, _, pos = model._device_batch(clips)
+        lp, enc_lens = model._ctc_logprobs(dev_batch, dev_lens, pos)
+    targets = torch.from_numpy(tg).to(model.device)
+    tlens = torch.from_numpy(tl).to(model.device)
+    args = (lp, enc_lens, targets, tlens, model.blank_id)
+    al = model.aligner
+    graph = [o.cpu() for o in al.align(*args)]
+    eager = [o.cpu() for o in al.align_eager(*args)]
+    ref = ViterbiAligner().align(*(a.cpu() for a in args[:4]),
+                                 model.blank_id)
+    if not all(torch.equal(g, e) for g, e in zip(graph, eager)):
+        raise AssertionError("the DP's graph differs from the eager loop")
+    if not all(torch.equal(g, r) for g, r in zip(graph, ref)):
+        raise AssertionError("the DP on the card differs from the CPU's")
+    bp, fs, score = (o.numpy() for o in graph)
+    lens_np = enc_lens.cpu().numpy()
+    for i, u in enumerate(ids):
+        if not u:
+            continue
+        frames, _ = backtrack(bp[i], int(fs[i]), int(lens_np[i]), len(u))
+        if (not np.isfinite(score[i]) or score[i] <= -1e29
+                or any(b <= a for a, b in zip(frames, frames[1:]))
+                or frames[-1] >= lens_np[i]):
+            raise AssertionError(f"DP sample {i}: score {score[i]}, frames "
+                                 f"{frames[:8]}...")
+    by_kernel = device_ms(lambda: al.align(*args), calls=3)
+    dp_device = sum(by_kernel.values())
+    dp_wall = float(np.median([wall_ms(lambda: al.align(*args))
+                               for _ in range(5)]))
+    eager_wall = float(np.median([wall_ms(lambda: al.align_eager(*args))
+                                  for _ in range(3)]))
+    s = bp.shape[2]
+    row = {"align_batch_wall_ms": batch_wall,
+           "align_batch_device_busy_ms": prof["device_busy_ms"],
+           "align_batch_idle_share": prof["idle_share"],
+           "T": int(lp.shape[1]), "S": int(s),
+           "head_shape": shape, "tokens": [len(u) for u in ids],
+           "dp_graph_device_ms": dp_device, "dp_graph_wall_ms": dp_wall,
+           "dp_eager_wall_ms": eager_wall,
+           "dp_share_of_align_batch_busy": dp_device / prof["device_busy_ms"],
+           "dp_share_of_align_batch_wall": dp_wall / batch_wall,
+           "graph_equals_eager": True, "card_equals_cpu_fp32": True,
+           "captures": al.captures, "launches": launches,
+           "dp_top_kernels_ms": [[k[:60], v] for k, v in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:6]]}
+    print(f"alignment DP, batch {ALIGN_CLIPS}, T'={lp.shape[1]}, S={s}: "
+          f"graph == eager on the card, == CPU fp32 (backpointers, final "
+          f"states, scores bit-equal); graph {dp_device:.3f} ms device, "
+          f"{dp_wall:.3f} ms wall; eager {eager_wall:.3f} ms wall; "
+          f"{row['dp_share_of_align_batch_busy']:.3f} of align_batch's device"
+          f" busy time; card {card}", flush=True)
+    return row
+
+
+def longform_path(card: str) -> dict:
+    """Phase 15: full-width v3_ctc (random weights from seed 0, bf16)
+    through ``transcribe_longform`` on a 6-minute WAV with the energy VAD:
+    launch counts (K1 in all 16 layers of every chunk batch), two batches
+    in flight against one (same texts; walls and idle shares), the int16
+    wire A/B, the energy VAD's host time; the neural VAD; v2_ctc's
+    longform (K5); then ``align_batch`` (K1), ``align`` (K2) and the DP
+    alone."""
+    t0 = time.perf_counter()
+    os.environ["GIGAAM_VAD_ARTIFACT"] = "energy"
+    rng = np.random.default_rng(15)
+    audio = longform_audio(LONGFORM_SECONDS, rng)
+    report = {"seconds_by_step": {}}
+    launches = {"K1": 0, "K2": 0, "K5": 0}
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "longform.wav")
+        save_wav(path, audio)
+        audio = gt.load_audio(path)               # what the model reads
+        duration = len(audio) / SAMPLE_RATE
+        model = gt.load_model("v3_ctc", init="random", seed=0)
+        n_layers = model.cfg.encoder.n_layers
+
+        def longform():
+            return model.transcribe_longform(
+                path, fr_batch_size=LONGFORM_BATCH, word_timestamps=True)
+
+        res = longform()
+        n_seg = len(res.segments)
+        n_batches = -(-n_seg // LONGFORM_BATCH)
+        if n_batches < 2:
+            raise AssertionError(f"{n_seg} segments: fewer than 2 batches")
+        fa.reset_launch_counts()
+        res = longform()
+        torch.cuda.synchronize()
+        launches["K1"] += assert_launches(
+            "longform v3_ctc", {"K1": n_layers * n_batches})["K1"]
+        check_longform("longform v3_ctc", res, duration)
+        lap("load, first longform")
+
+        serial_res, batch_walls = longform_serial(model, path,
+                                                  LONGFORM_BATCH)
+        if texts_of(serial_res) != texts_of(res):
+            raise AssertionError("one batch in flight gives other texts")
+        walls = alternating_walls({
+            "one_in_flight": lambda: longform_serial(model, path,
+                                                     LONGFORM_BATCH),
+            "two_in_flight": longform})
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        prof_two = profile_calls(
+            f"longform {duration:.0f} s, two batches in flight (K1)",
+            longform, 1, med["two_in_flight"])
+        prof_one = profile_calls(
+            f"longform {duration:.0f} s, one batch in flight (K1)",
+            lambda: longform_serial(model, path, LONGFORM_BATCH), 1,
+            med["one_in_flight"])
+        segs = gt_vad.segment_audio_file(path)[1]
+        vad_walls = [wall_ms(lambda: gt_vad.segment_audio_file(path))
+                     for _ in range(3)]
+        energy = [wall_ms(lambda: gt_vad.energy_speech_regions(audio))
+                  for _ in range(5)]
+        report["v3_ctc"] = {
+            "audio_s": duration, "segments": n_seg, "batches": n_batches,
+            "segment_s": [round(e - s, 3) for s, e in segs],
+            "walls_ms": walls, "median_ms": med,
+            "two_over_one": med["two_in_flight"] / med["one_in_flight"],
+            "batch_call_walls_ms": batch_walls,
+            "load_and_vad_wall_ms": float(np.median(vad_walls)),
+            "sum_of_batch_calls_ms": sum(batch_walls),
+            "idle_share_two": prof_two["idle_share"],
+            "idle_share_one": prof_one["idle_share"],
+            "device_busy_ms_two": prof_two["device_busy_ms"],
+            "device_busy_ms_one": prof_one["device_busy_ms"],
+            "energy_vad_host_ms_per_audio_min":
+                float(np.median(energy)) / (duration / 60.0),
+            "audio_s_per_s_two": duration / (med["two_in_flight"] / 1e3)}
+        print(f"longform v3_ctc {duration:.0f} s, {n_seg} segments in "
+              f"{n_batches} batches of {LONGFORM_BATCH}: two in flight "
+              f"{med['two_in_flight']:.1f} ms, one {med['one_in_flight']:.1f}"
+              f" ms (median of {len(walls['two_in_flight'])}, in turns); "
+              f"idle share {prof_two['idle_share']:.3f} / "
+              f"{prof_one['idle_share']:.3f}; same texts; card {card}",
+              flush=True)
+        lap("two vs one in flight")
+
+        def wire(on: bool):
+            model._int16_wire = on
+            try:
+                return longform()
+            finally:
+                model._int16_wire = False
+
+        if texts_of(wire(True)) != texts_of(res):
+            raise AssertionError("the int16 wire changes the texts")
+        wire_walls = alternating_walls({"fp32": lambda: wire(False),
+                                        "int16": lambda: wire(True)})
+        report["int16_wire"] = {
+            "median_ms": {k: float(np.median(v))
+                          for k, v in wire_walls.items()},
+            "h2d_ms": {"fp32": h2d_ms(lambda: wire(False)),
+                       "int16": h2d_ms(lambda: wire(True))},
+            "same_texts": True}
+        print(f"int16 wire: {report['int16_wire']}; card {card}", flush=True)
+        lap("int16 wire")
+
+        report["neural_vad"] = neural_vad_phase(model, path, audio, root,
+                                                card)
+        lap("neural VAD")
+        report["align"] = align_phase(model, rng, card)
+        launches["K1"] += report["align"]["launches"]["K1"]
+        launches["K2"] += report["align"]["launches"]["K2"]
+        lap("alignment")
+        del model
+        torch.cuda.empty_cache()
+
+        asr = v2_ctc()
+        asr.transcribe_longform(path, fr_batch_size=LONGFORM_BATCH)
+        fa.reset_launch_counts()
+        v2_wall = wall_ms(lambda: asr.transcribe_longform(
+            path, fr_batch_size=LONGFORM_BATCH, word_timestamps=True))
+        launches["K5"] += assert_launches(
+            "longform v2_ctc",
+            {"K5": asr.cfg.encoder.n_layers * n_batches})["K5"]
+        v2 = asr.transcribe_longform(path, fr_batch_size=LONGFORM_BATCH,
+                                     word_timestamps=True)
+        check_longform("longform v2_ctc", v2, duration)
+        report["v2_ctc"] = {"wall_ms": v2_wall, "segments": len(v2.segments)}
+        print(f"longform v2_ctc: {v2_wall:.1f} ms, {len(v2.segments)} "
+              f"segments (K5 in every layer); card {card}", flush=True)
+        del asr
+        torch.cuda.empty_cache()
+        lap("v2_ctc longform")
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2706,6 +3171,9 @@ def main() -> int:
     rnnt = rnnt_path(card)
     for key in ("K1", "K2"):
         launches[key] += rnnt["launches"][key]
+    longform = longform_path(card)
+    for key in ("K1", "K2", "K5"):
+        launches[key] += longform["launches"][key]
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -2739,6 +3207,7 @@ def main() -> int:
     kernels += subsampling_kernel_rows(sub_rows, sub_launches)
     kernels += attn_fold_probe_kernel_rows(attn_fold_rows, attn_fold_launches)
     print("rnnt " + json.dumps(rnnt))
+    print("longform " + json.dumps(longform))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

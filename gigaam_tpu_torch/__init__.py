@@ -22,16 +22,23 @@ from .config import (
     make_preset,
 )
 from .models.model import GigaAM, GigaAMASR, GigaAMEmo, model_class_for
-from .types import TranscriptionResult, Word
+from .types import (
+    LongformTranscriptionResult,
+    Segment,
+    TranscriptionResult,
+    Word,
+)
 from .weights import load_native, params_from_jax
 
 __all__ = [
     "GigaAM",
     "GigaAMASR",
     "GigaAMEmo",
+    "LongformTranscriptionResult",
     "ModelConfig",
     "RU_VOCAB",
     "SAMPLE_RATE",
+    "Segment",
     "TranscriptionResult",
     "Word",
     "load_audio",
@@ -43,7 +50,8 @@ __all__ = [
 
 
 def load_model(name: str, device: Optional[Union[str, torch.device]] = None,
-               init: str = "weights", seed: int = 0) -> GigaAM:
+               init: str = "weights", seed: int = 0,
+               bf16_encoder: bool = False, **kw) -> GigaAM:
     """A model by preset name or from a ``save_model`` artifact.
 
     * ``init="random"`` with a preset name (``"v3_ctc"``, ``"ctc"``,
@@ -54,18 +62,26 @@ def load_model(name: str, device: Optional[Union[str, torch.device]] = None,
       with its ``.json`` beside it), read by ``load_native``.
 
     ``device=None`` means the card; it raises on a host without CUDA.
+    ``bf16_encoder`` casts the encoder weights to bfloat16 on a CUDA device
+    (the reference's ``fp16_encoder``; the JAX package casts off the CPU);
+    on the CPU it does nothing.  ``kw`` (``compute_dtype``,
+    ``use_fused_attention``) go to the model class.
     """
     if init not in ("weights", "random"):
         raise ValueError(f"init must be 'weights' or 'random', got {init!r}")
+    local = os.path.expanduser(name)
     if init == "random":
         cfg = _placeholder_vocabulary(make_preset(name))
-        return model_class_for(cfg)(cfg, device=device, seed=seed)
-    local = os.path.expanduser(name)
-    if os.path.isfile(local) or os.path.isfile(local + ".npz"):
-        return load_native(local, device=device)
-    raise FileNotFoundError(
-        f"no artifact at {name!r}: pass a save_model .npz/.json pair, or "
-        f"init='random' with a preset name")
+        model = model_class_for(cfg)(cfg, device=device, seed=seed, **kw)
+    elif os.path.isfile(local) or os.path.isfile(local + ".npz"):
+        model = load_native(local, device=device, **kw)
+    else:
+        raise FileNotFoundError(
+            f"no artifact at {name!r}: pass a save_model .npz/.json pair, "
+            f"or init='random' with a preset name")
+    if bf16_encoder and model.device.type == "cuda":
+        model.cast_encoder()
+    return model
 
 
 def _placeholder_vocabulary(cfg: ModelConfig) -> ModelConfig:

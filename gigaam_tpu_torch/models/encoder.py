@@ -206,10 +206,11 @@ class ConformerEncoder(nn.Module):
             ConformerLayer(lp, cfg.n_heads) for lp in state["layers"])
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor, pos: Pos,
-                compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+                compute_dtype: torch.dtype, use_fused: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The inference forward: (encoded, out_lengths)."""
         return conformer_forward(self, feats, lengths, self.cfg, pos,
-                                 compute_dtype)[:2]
+                                 compute_dtype, use_fused=use_fused)[:2]
 
 
 BNStats = Optional[Dict[str, torch.Tensor]]
@@ -217,7 +218,8 @@ BNStats = Optional[Dict[str, torch.Tensor]]
 
 def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
                    valid: torch.Tensor, cfg: EncoderConfig, train: bool,
-                   bn_train: bool) -> Tuple[torch.Tensor, BNStats]:
+                   bn_train: bool, use_fused: bool = True
+                   ) -> Tuple[torch.Tensor, BNStats]:
     """One Conformer layer (``gigaam/encoder.py:473-498``), with the JAX
     package's attention dispatch (``encoder.py:301-347``):
 
@@ -229,7 +231,10 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
       module + residual in one fold);
     * rotary, T' <= _MAX_FOLD_T, smaller batch: LN, then K2 (the module
       fold);
-    * rotary, longer T': LN, then ``rotary_mha`` with its SDPA core on K3.
+    * rotary, longer T': LN, then ``rotary_mha`` with its SDPA core on K3;
+    * ``use_fused=False`` (the caller's choice, ``GigaAM``'s
+      ``use_fused_attention``): LN, then ``rotary_mha``/``relpos_mha``
+      composed of PyTorch ops, no kernel of ours.
 
     ``bn_train`` makes the conv module's BatchNorm use batch statistics; a
     trainer with a frozen encoder passes ``train`` without it.  Returns (x, that BatchNorm's new running stats or None).  On the CPU
@@ -242,8 +247,8 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
     if cfg.self_attention_model == "rel_pos":
         y = layer_norm(lp["norm_self_att"], residual)
         residual = residual + relpos_mha(lp["self_attn"], y, pos, valid,
-                                         cfg.n_heads, use_fused=True)
-    elif t <= _MAX_FOLD_T and not train:
+                                         cfg.n_heads, use_fused=use_fused)
+    elif use_fused and t <= _MAX_FOLD_T and not train:
         cos, sin = pos
         w = lp.folded_weights(x.dtype)
         if b >= _LNRES_MIN_BATCH:
@@ -257,7 +262,7 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
         y = layer_norm(lp["norm_self_att"], residual)
         cos, sin = pos
         residual = residual + rotary_mha(lp["self_attn"], y, cos, sin, valid,
-                                         cfg.n_heads, use_fused=True)
+                                         cfg.n_heads, use_fused=use_fused)
 
     y = layer_norm(lp["norm_conv"], residual)
     y, new_stats = conformer_conv(lp["conv"], y, valid, cfg.conv_norm_type,
@@ -271,14 +276,16 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
 def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
                       lengths: torch.Tensor, cfg: EncoderConfig, pos: Pos,
                       compute_dtype: torch.dtype = torch.float32,
-                      train: bool = False, bn_train: Optional[bool] = None
+                      train: bool = False, bn_train: Optional[bool] = None,
+                      use_fused: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, BNStats]:
     """feats [B, T, F] (time-major), lengths [B] in feature frames, pos =
     (cos, sin) sliced to T' for rotary, or the [2T'-1, D] table for
     rel-pos.  ``train`` takes the differentiable attention path;
     ``bn_train`` (``train`` unless given) switches BatchNorm to batch
-    statistics.  Returns (encoded [B, T', D], out_lengths [B], new BatchNorm
-    stats): with ``bn_train`` and a batch-norm conv module the stats are
+    statistics; ``use_fused=False`` keeps the attention off the kernels
+    (``_layer_forward``).  Returns (encoded [B, T', D], out_lengths [B],
+    new BatchNorm stats): with ``bn_train`` and a batch-norm conv module the stats are
     ``{"mean", "var"}``, each [n_layers, D], stacked on a layer axis as the
     JAX package's layer scan returns them; else None.
 
@@ -302,10 +309,11 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
     for lp in encoder.layers:
         if remat:
             x, new_stats = checkpoint(_layer_forward, lp, x, pos, valid, cfg,
-                                      train, bn_train, use_reentrant=False)
+                                      train, bn_train, use_fused,
+                                      use_reentrant=False)
         else:
             x, new_stats = _layer_forward(lp, x, pos, valid, cfg, train,
-                                          bn_train)
+                                          bn_train, use_fused)
         stats.append(new_stats)
     bn_stats = None
     if bn_train and cfg.conv_norm_type == "batch_norm":

@@ -2,20 +2,27 @@
 head) and GigaAMEmo (emotion head), ported from
 ``gigaam_tpu/models/model.py``.
 
-* Audio is padded to 1-second buckets, as in the JAX package.
-* Activations run in bfloat16 on CUDA and float32 on the CPU; the RNNT head
-  runs in float32.
+* Audio is padded to 1-second buckets (``bucket``), as in the JAX package.
+* Activations run in bfloat16 on CUDA and float32 on the CPU unless the
+  caller names a ``compute_dtype``; the RNNT head runs in float32.
 * Everything from the log-mel to the greedy CTC mask runs on the device
-  with no host sync in between (only shapes steer control flow); one
-  transfer then brings labels, mask, per-frame log-probs and lengths back.
-  The RNNT label loop reads one flag per chunk of steps
-  (``decode/rnnt_greedy.py``), then one transfer brings tokens, frames,
-  counts, log-probs and lengths back.
+  with no host sync in between (only shapes steer control flow).  The
+  padded batch goes to the card from pinned memory without blocking the
+  host; the results come back the same way into pinned buffers, followed
+  by a CUDA event, and ``finalize`` waits on that event only
+  (``_host_copies``).  So ``transcribe_longform`` keeps two chunk batches
+  in flight: batch i+1's forward is queued before batch i's results are
+  read.  The RNNT label loop reads one flag per chunk of steps
+  (``decode/rnnt_greedy.py``), so an RNNT submit returns only after its
+  loop ends (the JAX package's contract too): there, only batch i's host
+  decode overlaps batch i+1's encoder.
+* ``align``/``align_batch``: CTC forced alignment, one encoder forward for
+  the batch and the Viterbi DP on the device (``decode/align.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,13 +37,20 @@ from ..config import (
     ModelConfig,
     RNNTHeadConfig,
 )
+from ..data import normalize_text
+from ..decode.align import ViterbiAligner, backtrack, pad_targets
 from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
 from ..decode.rnnt_greedy import RNNTGreedyDecoder, rnnt_extract
 from ..decode.timestamps import compute_frame_shift, frames_to_words
 from ..decode.tokenizer import Tokenizer
 from ..frontend import LogMelFrontend, num_frames
 from ..ops.conformer_ops import static_subsampled_length
-from ..types import TranscriptionResult, Word
+from ..types import (
+    LongformTranscriptionResult,
+    Segment,
+    TranscriptionResult,
+    Word,
+)
 from . import heads as heads_lib
 from .encoder import (
     ConformerEncoder,
@@ -50,18 +64,53 @@ from .encoder import (
 BUCKET_SAMPLES = SAMPLE_RATE  # pad waveforms to 1 s buckets
 
 
-def bucket_length(n: int) -> int:
-    return max(BUCKET_SAMPLES,
-               ((n + BUCKET_SAMPLES - 1) // BUCKET_SAMPLES) * BUCKET_SAMPLES)
+def bucket_length(n: int, bucket: int = BUCKET_SAMPLES) -> int:
+    return max(bucket, ((n + bucket - 1) // bucket) * bucket)
 
 
-def pad_wav_batch(wavs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+def pad_wav_batch(wavs: List[np.ndarray], bucket: int = BUCKET_SAMPLES
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Zero-pad a list of waveforms to a common bucketed length."""
     from ..native import collate
 
     lens = np.array([len(w) for w in wavs], dtype=np.int32)
-    max_len = bucket_length(int(lens.max()))
+    max_len = bucket_length(int(lens.max()), bucket)
     return collate(wavs, max_len), lens
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to the card from pinned memory without
+    blocking the host (a pageable copy waits for the whole stream, the
+    forward queued before it included)."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _host_copies(*tensors: torch.Tensor) -> Callable[[], List[np.ndarray]]:
+    """Queue the copies of ``tensors`` to the host; returns a function that
+    waits for them and gives them as numpy arrays.
+
+    On CUDA each copy goes, without blocking, into a pinned buffer, and a
+    CUDA event is recorded after them: the wait is on that event only, not
+    on what is queued behind it (the next chunk batch's forward).  On the
+    CPU the arrays are the tensors' own."""
+    if not tensors[0].is_cuda:
+        arrays = [t.numpy() for t in tensors]
+        return lambda: arrays
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> List[np.ndarray]:
+        done.synchronize()
+        return [h.numpy() for h in host]
+
+    return wait
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]
@@ -76,17 +125,33 @@ def resolve_device(device: Optional[Union[str, torch.device]]
 
 
 class GigaAM(nn.Module):
-    """Encoder model (reference ``gigaam/model.py:16-83``)."""
+    """Encoder model (reference ``gigaam/model.py:16-83``).
+
+    ``compute_dtype`` (None: bfloat16 on CUDA, float32 on the CPU) is the
+    activations' dtype.  ``use_fused_attention`` (None: True) routes the
+    attention through the hand-written kernels (K1/K2/K3, K5); False runs
+    it composed of PyTorch ops, on every device: the caller's choice,
+    never a fallback.  It is kept on the model, not in ``cfg``, so that a
+    config shared by several models is never modified.  ``_int16_wire``
+    (off) sends the padded batch to the device as int16 and dequantizes
+    it there: half the host-to-device bytes, at most 1.5e-5 of amplitude
+    error (none for audio read from 16-bit files)."""
 
     def __init__(self, cfg: ModelConfig, state: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, compute_dtype: Optional[torch.dtype] = None,
+                 use_fused_attention: Optional[bool] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.device = device
-        self.compute_dtype = (torch.bfloat16 if device.type == "cuda"
-                              else torch.float32)
+        if compute_dtype is None:
+            compute_dtype = (torch.bfloat16 if device.type == "cuda"
+                             else torch.float32)
+        self.compute_dtype = compute_dtype
+        self.use_fused_attention = (True if use_fused_attention is None
+                                    else bool(use_fused_attention))
+        self._int16_wire = False
         if state is None:
             state = init_state(cfg, seed)
         self.frontend = LogMelFrontend(cfg.preprocessor)
@@ -107,9 +172,11 @@ class GigaAM(nn.Module):
 
     def _encode(self, wavs: torch.Tensor, lengths: torch.Tensor, pos: Pos
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if wavs.dtype == torch.int16:           # the int16 wire
+            wavs = wavs.float() * (1.0 / 32768.0)
         feats, feat_lens = self.frontend(wavs, lengths)
         return self.encoder(feats.transpose(1, 2), feat_lens, pos,
-                            self.compute_dtype)
+                            self.compute_dtype, self.use_fused_attention)
 
     def _pos_for(self, padded_samples: int) -> Pos:
         """The positional input for a padded batch: (cos, sin) for rotary,
@@ -122,11 +189,16 @@ class GigaAM(nn.Module):
             return self.pos_tables.rotary(t_sub, self.device)
         return self.pos_tables.relpos(t_sub, self.device)
 
-    def _device_batch(self, wavs: List[np.ndarray]):
-        batch, lens = pad_wav_batch(wavs)
-        return (torch.from_numpy(batch).to(self.device),
-                torch.from_numpy(lens).to(self.device), lens,
-                self._pos_for(batch.shape[1]))
+    def _device_batch(self, wavs: List[np.ndarray],
+                      bucket: int = BUCKET_SAMPLES):
+        """(padded batch and lengths on the device, host lengths, pos)."""
+        batch, lens = pad_wav_batch(wavs, bucket)
+        pos = self._pos_for(batch.shape[1])
+        if self._int16_wire:
+            batch = np.clip(np.rint(batch * 32768.0), -32768,
+                            32767).astype(np.int16)
+        return (_to_device(batch, self.device),
+                _to_device(lens, self.device), lens, pos)
 
     @torch.inference_mode()
     def encode_batch(self, wavs: List[np.ndarray]
@@ -156,7 +228,8 @@ class GigaAM(nn.Module):
 
 class GigaAMASR(GigaAM):
     """ASR model with a CTC or RNNT head (reference
-    ``gigaam/model.py:86-259``); greedy decoding."""
+    ``gigaam/model.py:86-259``); greedy decoding, longform transcription
+    and, for CTC heads, forced alignment."""
 
     def __init__(self, cfg: ModelConfig, **kw):
         if (not isinstance(cfg.head, (CTCHeadConfig, RNNTHeadConfig))
@@ -167,8 +240,9 @@ class GigaAMASR(GigaAM):
                                    cfg.decoding.model_path)
         super().__init__(cfg, **kw)
         self.blank_id = len(self.tokenizer)
-        self.rnnt = (RNNTGreedyDecoder()
-                     if isinstance(cfg.head, RNNTHeadConfig) else None)
+        is_ctc = isinstance(cfg.head, CTCHeadConfig)
+        self.rnnt = None if is_ctc else RNNTGreedyDecoder()
+        self.aligner = ViterbiAligner() if is_ctc else None
 
     def _ctc_forward(self, wavs: torch.Tensor, lengths: torch.Tensor,
                      pos: Pos):
@@ -179,49 +253,115 @@ class GigaAMASR(GigaAM):
         tok_lp = log_probs.amax(dim=-1)
         return labels, keep, tok_lp, enc_lens
 
-    def _ctc_decode(self, dev_batch, dev_lens, pos):
-        """-> per sample (ids, frames, token log-probs), enc_lens (host)."""
-        labels, keep, tok_lp, enc_lens = (
-            t.cpu().numpy() for t in self._ctc_forward(dev_batch, dev_lens, pos))
-        return [(ids, frames, [float(tok_lp[i, f]) for f in frames])
-                for i, (ids, frames) in enumerate(ctc_extract(labels, keep))
-                ], enc_lens
+    def _ctc_logprobs(self, wavs: torch.Tensor, lengths: torch.Tensor,
+                      pos: Pos) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full posteriors [B, T', V] in fp32 and enc_lens: the
+        alignment's input."""
+        encoded, enc_lens = self._encode(wavs, lengths, pos)
+        return heads_lib.ctc_log_probs(self.head, encoded), enc_lens
 
-    def _rnnt_decode(self, dev_batch, dev_lens, pos):
-        """Encode, run the greedy label loop on the device, then bring
-        tokens, frames, counts, log-probs and lengths back in one
-        transfer."""
+    def _ctc_submit(self, dev_batch, dev_lens, pos, n: int):
+        """Queue the CTC forward and its results' copy to the host; returns
+        the host half: per sample (ids, frames, token log-probs), and
+        enc_lens, for the first ``n`` rows."""
+        labels, keep, tok_lp, enc_lens = self._ctc_forward(dev_batch,
+                                                           dev_lens, pos)
+        wait = _host_copies(labels[:n], keep[:n], tok_lp[:n], enc_lens[:n])
+
+        def decode_host():
+            labels, keep, tok_lp, enc_lens = wait()
+            return [(ids, frames, [float(tok_lp[i, f]) for f in frames])
+                    for i, (ids, frames) in enumerate(ctc_extract(labels,
+                                                                  keep))
+                    ], enc_lens
+
+        return decode_host
+
+    def _rnnt_submit(self, dev_batch, dev_lens, pos, n: int):
+        """Encode and run the greedy label loop on the device (it reads one
+        flag per chunk of steps, so this returns after the loop), then
+        queue tokens, frames, counts, log-probs and lengths of the first
+        ``n`` rows to the host as one tensor; returns the host half."""
         encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
         tokens, frames, counts, logps = self.rnnt.decode(
             self.head, encoded, enc_lens,
             max_symbols=self.cfg.decoding.max_symbols_per_step,
             with_logps=True)
         u = tokens.shape[1]
-        host = torch.cat([tokens, frames, logps.view(torch.int32),
-                          counts[:, None], enc_lens[:, None].int()],
-                         dim=1).cpu().numpy()
-        logps_np = np.ascontiguousarray(host[:, 2 * u:3 * u]).view(np.float32)
-        counts_np = host[:, 3 * u]
-        pairs = rnnt_extract(host[:, :u], host[:, u:2 * u], counts_np)
-        return [(ids, fr, logps_np[i, :len(ids)].tolist())
-                for i, (ids, fr) in enumerate(pairs)], host[:, 3 * u + 1]
+        wait = _host_copies(torch.cat(
+            [tokens, frames, logps.view(torch.int32), counts[:, None],
+             enc_lens[:, None].int()], dim=1)[:n])
+
+        def decode_host():
+            host = wait()[0]
+            logps_np = np.ascontiguousarray(
+                host[:, 2 * u:3 * u]).view(np.float32)
+            pairs = rnnt_extract(host[:, :u], host[:, u:2 * u],
+                                 host[:, 3 * u])
+            return [(ids, fr, logps_np[i, :len(ids)].tolist())
+                    for i, (ids, fr) in enumerate(pairs)], host[:, 3 * u + 1]
+
+        return decode_host
 
     @torch.inference_mode()
-    def _decode_batch(self, wavs: List[np.ndarray], word_timestamps: bool
-                      ) -> List[Tuple[str, Optional[List[Word]]]]:
-        """Batched greedy transcription (reference ``model.py:96-124``)."""
-        dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
-        decode = self._ctc_decode if self.rnnt is None else self._rnnt_decode
-        decoded, enc_lens = decode(dev_batch, dev_lens, pos)
-        out: List[Tuple[str, Optional[List[Word]]]] = []
-        for i, (ids, frames, logps) in enumerate(decoded):
-            words = None
-            if word_timestamps:
-                shift = compute_frame_shift(int(lens[i]), int(enc_lens[i]))
-                words = frames_to_words(self.tokenizer, ids, frames, shift,
-                                        token_logps=logps)
-            out.append((self.tokenizer.decode(ids), words))
-        return out
+    def _decode_batch_submit(
+        self, wavs: List[np.ndarray], word_timestamps: bool,
+        beam_size: int = 1, pad_rows_to: int = 0,
+        bucket: int = BUCKET_SAMPLES, lm=None, lm_weight: float = 0.5,
+        token_bonus: float = 0.0,
+    ) -> Callable[[], List[Tuple[str, Optional[List[Word]]]]]:
+        """Queue the device work of a batch; returns ``finalize()``
+        (``gigaam_tpu/models/model.py:345-466``).
+
+        A caller may submit the next batch before finalizing this one:
+        ``finalize()`` waits for this batch's results only (a CUDA event
+        after their copy to pinned host buffers) and returns the
+        ``_decode_batch`` list.  ``pad_rows_to`` pads the row count with
+        filler rows (zeros of the shortest length), dropped before any host
+        decode; ``bucket`` is the padding granularity in samples (padded
+        frames are masked: the results do not change).  Beam search and LM
+        fusion (``beam_size > 1``, ``lm``) are not ported yet."""
+        if lm is not None and beam_size <= 1:
+            raise ValueError("LM shallow fusion requires beam_size > 1")
+        if beam_size > 1 or lm is not None:
+            raise NotImplementedError(
+                "beam search and LM shallow fusion are not ported yet "
+                "(ROADMAP Queue 1 item 10); use beam_size=1, lm=None")
+        n = len(wavs)
+        if pad_rows_to > n:
+            filler = np.zeros(min(len(w) for w in wavs), np.float32)
+            wavs = list(wavs) + [filler] * (pad_rows_to - n)
+        dev_batch, dev_lens, lens, pos = self._device_batch(wavs, bucket)
+        submit = self._ctc_submit if self.rnnt is None else self._rnnt_submit
+        decode_host = submit(dev_batch, dev_lens, pos, n)
+
+        def finalize() -> List[Tuple[str, Optional[List[Word]]]]:
+            decoded, enc_lens = decode_host()
+            out: List[Tuple[str, Optional[List[Word]]]] = []
+            for i, (ids, frames, logps) in enumerate(decoded):
+                words = None
+                if word_timestamps:
+                    shift = compute_frame_shift(int(lens[i]),
+                                                int(enc_lens[i]))
+                    words = frames_to_words(self.tokenizer, ids, frames,
+                                            shift, token_logps=logps)
+                out.append((self.tokenizer.decode(ids), words))
+            return out
+
+        return finalize
+
+    def _decode_batch(
+        self, wavs: List[np.ndarray], word_timestamps: bool,
+        beam_size: int = 1, pad_rows_to: int = 0,
+        bucket: int = BUCKET_SAMPLES, lm=None, lm_weight: float = 0.5,
+        token_bonus: float = 0.0,
+    ) -> List[Tuple[str, Optional[List[Word]]]]:
+        """Batched greedy transcription (reference ``model.py:96-124``):
+        ``_decode_batch_submit`` with the same keywords, finalized."""
+        return self._decode_batch_submit(
+            wavs, word_timestamps, beam_size=beam_size,
+            pad_rows_to=pad_rows_to, bucket=bucket, lm=lm,
+            lm_weight=lm_weight, token_bonus=token_bonus)()
 
     def transcribe(self, wav_file: Union[str, np.ndarray],
                    word_timestamps: bool = False) -> TranscriptionResult:
@@ -232,6 +372,131 @@ class GigaAMASR(GigaAM):
                 "Too long wav file, use 'transcribe_longform' method.")
         text, words = self._decode_batch([wav], word_timestamps)[0]
         return TranscriptionResult(text=text, words=words)
+
+    def transcribe_longform(
+        self, wav_file: Union[str, np.ndarray],
+        word_timestamps: bool = False, fr_batch_size: int = 16,
+        beam_size: int = 1, bucket: int = BUCKET_SAMPLES, lm=None,
+        lm_weight: float = 0.5, token_bonus: float = 0.0, **kwargs,
+    ) -> LongformTranscriptionResult:
+        """VAD-segmented batched transcription (reference
+        ``model.py:195-259``; JAX ``model.py:616-669``).
+
+        ``vad.segment_audio_file`` (``**kwargs`` go to it; a neural VAD
+        artifact runs on this model's device) cuts the audio into 15-22 s
+        chunks; batches of ``fr_batch_size`` chunks, their rows padded to
+        ``fr_batch_size``, go through ``_decode_batch_submit`` with two
+        batches in flight: batch i+1 is submitted before batch i is
+        finalized.  Word times are shifted by their segment's start."""
+        from collections import deque
+
+        from ..vad import segment_audio_file
+
+        segments, boundaries = segment_audio_file(
+            wav_file, SAMPLE_RATE, device=self.device, **kwargs)
+        if not segments:
+            return LongformTranscriptionResult(segments=[])
+
+        def submit(i: int):
+            return i, self._decode_batch_submit(
+                segments[i:i + fr_batch_size], word_timestamps,
+                beam_size=beam_size, pad_rows_to=fr_batch_size,
+                bucket=bucket, lm=lm, lm_weight=lm_weight,
+                token_bonus=token_bonus)
+
+        starts = list(range(0, len(segments), fr_batch_size))
+        inflight = deque([submit(starts[0])])
+        result: List[Segment] = []
+        for k in range(len(starts)):
+            if k + 1 < len(starts):
+                inflight.append(submit(starts[k + 1]))
+            i, finalize = inflight.popleft()
+            for j, (text, words) in enumerate(finalize()):
+                start, end = boundaries[i + j]
+                if word_timestamps:
+                    result.append(Segment(
+                        text=text, start=start, end=end,
+                        words=[w.shifted(start) for w in words or []]))
+                else:
+                    result.append(Segment(text=text, start=start, end=end))
+        return LongformTranscriptionResult(segments=result)
+
+    def align(self, wav_file: Union[str, np.ndarray],
+              text: str) -> TranscriptionResult:
+        """CTC forced alignment: word timestamps for a KNOWN transcript
+        (JAX ``model.py:518-534``), the most probable CTC path that emits
+        exactly ``text``; each word's confidence is exp(mean frame
+        posterior) over the frames the path spends on it.  CTC models only.
+        Raises ``ValueError`` when the transcript cannot fit the audio."""
+        return self.align_batch([wav_file], [text])[0]
+
+    @torch.inference_mode()
+    def align_batch(self, wav_files: List[Union[str, np.ndarray]],
+                    texts: List[str]) -> List[TranscriptionResult]:
+        """Batched :meth:`align`: one encoder forward for the batch, then
+        the Viterbi DP on the device over all samples, the targets padded
+        to a shared bucket (JAX ``model.py:536-614``)."""
+        if self.aligner is None:
+            raise ValueError("align() requires a CTC model "
+                             "(v*_ctc / e2e_ctc); RNNT has no frame-level "
+                             "alignment lattice")
+        if len(wav_files) != len(texts):
+            raise ValueError(f"{len(wav_files)} wavs vs {len(texts)} texts")
+        if not wav_files:
+            return []
+        wavs = [self.prepare_wav(w) for w in wav_files]
+        for i, w in enumerate(wavs):
+            if len(w) > LONGFORM_THRESHOLD_SEC * SAMPLE_RATE:
+                raise ValueError(
+                    f"wav {i} too long for align(): VAD-segment it first "
+                    "(transcribe_longform covers unknown-transcript audio)")
+        # the training pipeline's normalization: char models filter to the
+        # vocabulary, SentencePiece models do not
+        vocab = (self.cfg.decoding.vocabulary if self.tokenizer.charwise
+                 else None)
+        ids_list = [self.tokenizer.encode(normalize_text(t, vocab,
+                                                         raw_text=True))
+                    for t in texts]
+
+        n = len(wavs)
+        dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
+        log_probs, enc_lens = self._ctc_logprobs(dev_batch, dev_lens, pos)
+        per_sample = [pad_targets(ids) for ids in ids_list]
+        targets = np.zeros((n, max(t.shape[0] for t in per_sample)),
+                           np.int32)
+        for i, t in enumerate(per_sample):
+            targets[i, :t.shape[0]] = t
+        tlens = np.asarray([len(ids) for ids in ids_list], np.int32)
+        bp, final_state, scores = self.aligner.align(
+            log_probs, enc_lens, _to_device(targets, self.device),
+            _to_device(tlens, self.device), self.blank_id)
+        bp, final_state, scores, enc_lens, log_probs = _host_copies(
+            bp, final_state, scores, enc_lens, log_probs)()
+        # enc_len 0 (a clip shorter than one frontend hop) would read frame
+        # 0's alphas: no path exists, whatever the score says
+        bad = [i for i in range(n) if ids_list[i] and (
+            enc_lens[i] <= 0 or not np.isfinite(scores[i])
+            or scores[i] <= -1e29)]
+        if bad:
+            raise ValueError(
+                f"transcript does not fit the audio for sample(s) {bad}: no "
+                f"CTC path emits it within the encoder frames "
+                f"({[(len(ids_list[i]), int(enc_lens[i])) for i in bad]} "
+                f"as (tokens, frames))")
+        out: List[TranscriptionResult] = []
+        for i, ids in enumerate(ids_list):
+            if not ids:
+                out.append(TranscriptionResult(text="", words=[]))
+                continue
+            enc_len = int(enc_lens[i])
+            frames, logps = backtrack(bp[i], int(final_state[i]), enc_len,
+                                      len(ids), log_probs[i], targets[i])
+            shift = compute_frame_shift(int(lens[i]), enc_len)
+            out.append(TranscriptionResult(
+                text=self.tokenizer.decode(ids),
+                words=frames_to_words(self.tokenizer, ids, frames, shift,
+                                      token_logps=logps)))
+        return out
 
 
 class GigaAMEmo(GigaAM):

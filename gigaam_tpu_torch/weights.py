@@ -312,3 +312,74 @@ def init_encoder_from_artifact(model, path: str) -> None:
                          f"has {len(model.encoder.layers)}")
     for layer, tree in zip(model.encoder.layers, enc["layers"]):
         load_state_into(layer, tree)
+
+
+# ---------------------------------------------------------------------------
+# The PyanNet VAD (``models/vad_net.py``)
+# ---------------------------------------------------------------------------
+
+def _c(a) -> torch.Tensor:
+    """A C-contiguous writable CPU copy of a numpy (or JAX) array."""
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def vad_params_from_jax(params: Tree) -> Tree:
+    """The JAX PyanNet tree (``init_vad_params``, ``load_vad``) -> the
+    port's state:
+
+    * sinc taps [K, 1, F] -> [F, 1, K]; conv ``w`` [K, Cin, Cout] ->
+      [Cout, Cin, K];
+    * LSTM layer k, direction ``fwd``/``bwd``: ``w_ih`` [in, 4H] ->
+      ``weight_ih_l{k}`` [4H, in] (``_reverse`` for ``bwd``), ``w_hh``
+      likewise; the pre-summed ``b`` -> ``bias_ih_l{k}`` and a zero
+      ``bias_hh_l{k}`` (gate order [i, f, g, o] on both sides);
+    * ``norms`` (one list, whose entries may share one dict in the JAX
+      init), linears and the classifier: copies."""
+    def leaves(node):
+        return {k: _c(v) for k, v in node.items()}
+
+    lstm: Tree = {}
+    for k, layer in enumerate(params["lstm"]):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            p = layer[direction]
+            lstm[f"weight_ih_l{k}{suffix}"] = _c(np.asarray(p["w_ih"]).T)
+            lstm[f"weight_hh_l{k}{suffix}"] = _c(np.asarray(p["w_hh"]).T)
+            lstm[f"bias_ih_l{k}{suffix}"] = _c(p["b"])
+            lstm[f"bias_hh_l{k}{suffix}"] = torch.zeros(
+                np.asarray(p["b"]).shape)
+    return {
+        "wav_norm": leaves(params["wav_norm"]),
+        "sinc": {"taps": _c(np.asarray(params["sinc"]["taps"])
+                            .transpose(2, 1, 0))},
+        "norms": [leaves(n) for n in params["norms"]],
+        "convs": [{"w": _c(np.asarray(c["w"]).transpose(2, 1, 0)),
+                   "b": _c(c["b"])} for c in params["convs"]],
+        "lstm": lstm,
+        "linear": [leaves(lin) for lin in params["linear"]],
+        "classifier": leaves(params["classifier"]),
+    }
+
+
+def vad_params_to_jax(net) -> Tree:
+    """The inverse of ``vad_params_from_jax``: a ``PyanNet`` -> the JAX
+    tree as numpy arrays (the LSTM's two biases summed into ``b``)."""
+    def leaves(node):
+        return {k: _numpy(v) for k, v in node.items()}
+
+    sd = {k: _numpy(v) for k, v in net.lstm.state_dict().items()}
+    lstm = [{direction: {"w_ih": sd[f"weight_ih_l{k}{suffix}"].T.copy(),
+                         "w_hh": sd[f"weight_hh_l{k}{suffix}"].T.copy(),
+                         "b": sd[f"bias_ih_l{k}{suffix}"]
+                         + sd[f"bias_hh_l{k}{suffix}"]}
+             for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))}
+            for k in range(net.cfg.lstm_layers)]
+    return {
+        "wav_norm": leaves(net.wav_norm),
+        "sinc": {"taps": _numpy(net.sinc["taps"]).transpose(2, 1, 0).copy()},
+        "norms": [leaves(n) for n in net.norms],
+        "convs": [{"w": _numpy(c["w"]).transpose(2, 1, 0).copy(),
+                   "b": _numpy(c["b"])} for c in net.convs],
+        "lstm": lstm,
+        "linear": [leaves(lin) for lin in net.linear],
+        "classifier": leaves(net.classifier),
+    }

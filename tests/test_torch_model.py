@@ -187,7 +187,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     the subsampling probe's P1 on the CPU, runs both attention-fold probe
     runners on the CPU at width 96, transcribes with a v3_rnnt model (the
     greedy label loop) and a SentencePiece e2e_rnnt model, encodes and
-    decodes with a SentencePiece tokenizer, and has imported neither ``jax``
+    decodes with a SentencePiece tokenizer, saves and runs a PyanNet VAD
+    artifact, runs ``transcribe_longform`` with the neural and the energy
+    VAD, ``align`` and ``align_batch``, and has imported neither ``jax``
     nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
@@ -257,6 +259,33 @@ def test_port_runs_without_jax_or_the_jax_package():
         "        cfg.head.joint.num_classes = len(pieces) + 1\n"
         "    m = gt.model_class_for(cfg)(cfg, device='cpu')\n"
         "    print(name, type(m.transcribe(wav).text), m.rnnt.host_reads > 0)\n"
+        "from gigaam_tpu_torch import vad\n"
+        "from gigaam_tpu_torch.models.vad_net import (\n"
+        "    PyanNet, VADNetConfig, init_vad_state, load_vad_regions_fn,\n"
+        "    save_vad)\n"
+        "vcfg = VADNetConfig(sinc_filters=8, sinc_kernel=31, conv_channels=6,\n"
+        "                    lstm_hidden=8, lstm_layers=1, linear_hidden=8,\n"
+        "                    linear_layers=1, window_s=0.5, step_s=0.25)\n"
+        "art = os.path.join(tempfile.mkdtemp(), 'vad_segmentation')\n"
+        "save_vad(art, PyanNet(vcfg, init_vad_state(vcfg)))\n"
+        "tone = 0.3 * np.sin(np.arange(3 * 16000) / 5.0).astype(np.float32)\n"
+        "long = np.concatenate([tone, np.zeros(16000, np.float32)] * 10)\n"
+        "regions = load_vad_regions_fn(art, device='cpu')(long)\n"
+        "print('vad', isinstance(regions, list),\n"
+        "      len(vad.segment_audio_file(long)[0]) > 1)\n"
+        "cfg = gt.make_preset('v3_ctc')\n"
+        "cfg.encoder = EncoderConfig(\n"
+        "    n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2)\n"
+        "cfg.head.feat_in = 64\n"
+        "m = gt.GigaAMASR(cfg, device='cpu')\n"
+        "os.environ['GIGAAM_VAD_ARTIFACT'] = art + '.npz'\n"
+        "r = m.transcribe_longform(long, fr_batch_size=2, word_timestamps=True)\n"
+        "print('longform neural', type(r).__name__)\n"
+        "os.environ['GIGAAM_VAD_ARTIFACT'] = 'energy'\n"
+        "r = m.transcribe_longform(long, fr_batch_size=2)\n"
+        "print('longform energy', len(r.segments) > 1)\n"
+        "print('align', type(m.align(tone, 'аб')).__name__,\n"
+        "      len(m.align_batch([tone, tone[:16000]], ['а', 'б'])))\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -276,6 +305,10 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "sp аб вг" in out.stdout
     assert "v3_rnnt <class 'str'> True" in out.stdout
     assert "v3_e2e_rnnt <class 'str'> True" in out.stdout
+    assert "vad True True" in out.stdout
+    assert "longform neural LongformTranscriptionResult" in out.stdout
+    assert "longform energy True" in out.stdout
+    assert "align TranscriptionResult 2" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():

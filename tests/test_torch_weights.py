@@ -5,7 +5,10 @@ the in-memory tree and a legacy fused-GLU artifact through
 ``migrate_params``.  An RNNT model with two LSTM layers and a
 SentencePiece tokenizer goes both ways: saved by either package and loaded
 by the other, its leaves equal and its layers in order, the tokenizer
-copied beside the artifact under a relative path."""
+copied beside the artifact under a relative path.  The PyanNet VAD tree
+(``vad_params_from_jax``) goes to the port's layout and back leaf for
+leaf, and a JAX ``save_vad`` artifact reads through the port's
+``load_vad`` into the same state."""
 
 import json
 import os
@@ -217,3 +220,63 @@ def test_port_saved_rnnt_keys_are_the_jax_keys(rnnt_model, tmp_path):
         keys = set(z.files)
     assert keys == set(_flatten(jax.tree.map(np.asarray, rnnt_model.params)))
     assert {"head/decoder/lstm/0/w_ih", "head/decoder/lstm/1/b"} <= keys
+
+
+# ---------------------------------------------------------------------------
+# The PyanNet VAD
+# ---------------------------------------------------------------------------
+
+def vad_cfg():
+    from gigaam_tpu.models.vad_net import VADNetConfig
+
+    return VADNetConfig(sinc_filters=8, sinc_kernel=31, conv_channels=6,
+                        lstm_hidden=8, lstm_layers=3, linear_hidden=8,
+                        linear_layers=2)
+
+
+def test_vad_params_from_jax_round_trip():
+    """JAX tree -> the port's layout (taps and convs to torch's, the LSTM
+    transposed under ``nn.LSTM``'s names, its bias in ``bias_ih``) -> back,
+    bit-exact; the layouts checked on one leaf each."""
+    from gigaam_tpu.models.vad_net import init_vad_params
+
+    from gigaam_tpu_torch.models.vad_net import PyanNet, VADNetConfig
+
+    cfg = vad_cfg()
+    tree = jax.tree.map(np.asarray, init_vad_params(jax.random.PRNGKey(3),
+                                                    cfg))
+    # a bias that is not zero, so that the bias move is seen
+    tree["lstm"][1]["bwd"]["b"] = np.arange(32, dtype=np.float32)
+    state = weights.vad_params_from_jax(tree)
+    np.testing.assert_array_equal(state["sinc"]["taps"].numpy(),
+                                  tree["sinc"]["taps"].transpose(2, 1, 0))
+    np.testing.assert_array_equal(state["convs"][1]["w"].numpy(),
+                                  tree["convs"][1]["w"].transpose(2, 1, 0))
+    np.testing.assert_array_equal(
+        state["lstm"]["weight_hh_l1_reverse"].numpy(),
+        tree["lstm"][1]["bwd"]["w_hh"].T)
+    np.testing.assert_array_equal(state["lstm"]["bias_ih_l1_reverse"],
+                                  np.arange(32))
+    assert not state["lstm"]["bias_hh_l1_reverse"].any()
+    net = PyanNet(VADNetConfig(**vars(cfg)), state)
+    back = weights.vad_params_to_jax(net)
+    assert (jax.tree.structure(back) == jax.tree.structure(tree))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_jax_vad_artifact_reads_into_the_same_state(tmp_path):
+    from gigaam_tpu.models.vad_net import init_vad_params, save_vad
+
+    from gigaam_tpu_torch.models.vad_net import load_vad
+
+    cfg = vad_cfg()
+    params = init_vad_params(jax.random.PRNGKey(4), cfg)
+    save_vad(str(tmp_path / "vad"), cfg, params)
+    got_cfg, state = load_vad(str(tmp_path / "vad"))
+    assert vars(got_cfg) == vars(cfg)
+    want = weights.vad_params_from_jax(jax.tree.map(np.asarray, params))
+    assert jax.tree.structure(state) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(want)):
+        assert a.shape == b.shape and bool((a == b).all())
