@@ -150,10 +150,35 @@ Phases, each fatal on failure:
    that they hold words) (K1) and ``align`` on one (K2); the DP alone: its
    CUDA graph bit-equal to the eager loop and to the CPU fp32 DP, its
    device and wall ms and its share of ``align_batch``; then v2_ctc's
-   ``transcribe_longform`` (K5 in every layer).
+   ``transcribe_longform`` (K5 in every layer);
+16. beam decoding and n-gram fusion: full-width v3_rnnt (the blank bias
+   and the LM's token bonus of BEAM_SHAPE, at which the K-4 beam, plain
+   and fused with a char trigram trained by ``train_lm_from_texts`` on
+   seeded synthetic Russian text, emits 0.2-0.8 tokens a frame on the
+   batch, asserted: at phase 14's bias the beam emits nothing) at beam 4
+   through ``transcribe`` on 20 s (K2) and ``_decode_batch`` on 16 clips
+   of 10-20 s with the trigram (its dense table on the card) (K1), launch
+   counts asserted, each
+   profiled, each with its beam alone on the call's encoded output
+   (expansions, host reads at most ceil(expansions / chunk) + 1, graph
+   replays, device and wall us per expansion, the loop's share of the
+   call's busy time; for the batch the CUDA graphs bit-equal to the eager
+   loop); on the
+   batch: equal to the port's CPU fp32 beam of the same tensor on every
+   row whose decisions all lie more than BEAM_TIE_GAP from a tie (rows
+   and gaps printed), ``lm_weight`` 0 equal to no LM, K 1 equal to the
+   greedy decoder on every row where no decision's cumulative scores tie
+   exactly in fp32 (greedy's argmax then takes the label, the beam's pool
+   the blank); then full-width v3_e2e_rnnt with the synthetic 512-piece
+   SentencePiece model (shaped the same way) and a SentencePiece trigram
+   (its sparse table) through
+   ``_decode_batch`` of 16 (K1), and a bigram whose dense and sparse
+   tables give equal tokens; then v3_ctc ``_decode_batch`` of 16 at beam 8
+   with the char trigram (the host prefix beam; the head centred and its
+   blank raised as in phase 15) (K1), device ms and host beam ms a clip.
 
-Before the card's line, an ``rnnt`` line holds phase 14's numbers and a
-``longform`` line phase 15's.  The
+Before the card's line, an ``rnnt`` line holds phase 14's numbers, a
+``longform`` line phase 15's and an ``rnnt_beam`` line phase 16's.  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
@@ -192,13 +217,14 @@ from gigaam_tpu_torch import vad as gt_vad
 from gigaam_tpu_torch.audio import save_wav
 from gigaam_tpu_torch.config import RU_VOCAB, SAMPLE_RATE, make_preset
 from gigaam_tpu_torch.data import AudioDataset, normalize_text, write_manifest
-from gigaam_tpu_torch.decode import rnnt_greedy
+from gigaam_tpu_torch.decode import rnnt_beam, rnnt_greedy
 from gigaam_tpu_torch.decode.align import (
     ViterbiAligner,
     backtrack,
     pad_targets,
 )
 from gigaam_tpu_torch.decode.ctc_greedy import ctc_greedy_mask
+from gigaam_tpu_torch.decode.rnnt_beam import RNNTBeamDecoder
 from gigaam_tpu_torch.decode.rnnt_greedy import RNNTGreedyDecoder, trip_count
 from gigaam_tpu_torch.decode.tokenizer import write_sp_model
 from gigaam_tpu_torch.models.vad_net import (
@@ -333,6 +359,23 @@ def sustained_ms(fn, calls: int = 400):
     return ms, samples
 
 
+def device_kernels(prof) -> dict:
+    """{name: (device us, count)} of a profile's device activities (kernels,
+    copies, sets), from the profiler's raw events: ``key_averages`` builds
+    an event tree at ~100 us an event, which the 10^5-10^6 kernels of an
+    RNNT call turn into minutes.  Spans mirrored on the device timeline
+    (user annotations, the optimizer's range) are not activities."""
+    out = {}
+    for evt in prof.profiler.kineto_results.events():
+        if (evt.device_type() != torch.autograd.DeviceType.CUDA
+                or evt.is_user_annotation()
+                or evt.name().startswith("Optimizer.")):
+            continue
+        us, n = out.get(evt.name(), (0.0, 0))
+        out[evt.name()] = (us + evt.duration_ns() / 1e3, n + 1)
+    return out
+
+
 def device_ms(fn, calls: int = 10, attempts: int = 3) -> dict:
     """Device time per call of ``fn`` by kernel name, from ``calls`` calls
     under ``torch.profiler`` (after one unprofiled call).  A profile that
@@ -345,12 +388,8 @@ def device_ms(fn, calls: int = 10, attempts: int = 3) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        out = defaultdict(float)
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-            if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-                out[evt.key] += us / 1e3 / calls
+        out = {name: us / 1e3 / calls
+               for name, (us, _) in device_kernels(prof).items() if us > 0}
         if out:
             return out
     raise AssertionError("the profiler recorded no device time")
@@ -1944,17 +1983,8 @@ def profile_calls(label: str, fn, calls: int, wall_ms: float) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        # the optimizer's own range is mirrored on the device timeline: it
-        # is a span over kernels counted already, not a kernel
-        span = (getattr(evt, "is_user_annotation", False)
-                or evt.key.startswith("Optimizer."))
-        if (us > 0 and not span
-                and evt.device_type == torch.autograd.DeviceType.CUDA):
-            kernels[evt.key] = (us / 1e3 / calls, evt.count // calls)
+    kernels = {name: (us / 1e3 / calls, n // calls)
+               for name, (us, n) in device_kernels(prof).items() if us > 0}
     groups = defaultdict(float)
     for name, (ms, _) in kernels.items():
         group = next(g for g, pattern in PROFILE_GROUPS
@@ -3080,6 +3110,393 @@ def longform_path(card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Beam decoding and n-gram fusion (phase 16)
+# ---------------------------------------------------------------------------
+
+BEAM = 4
+CTC_BEAM = 8
+LM_WEIGHT = 0.3
+# A random joint's emission rate is a steep step in its blank bias, and the
+# K-4 beam keeps the all-blank hypothesis at a bias where greedy still
+# emits (phase 14's RNNT_BLANK_BIAS: greedy 0.40 tokens a frame, the beam
+# none); an LM trained on real text then penalises the random model's
+# tokens.  So each model gets (blank bias, token bonus): the bias at which
+# the plain K-4 beam emits 0.2-0.8 tokens a frame on the phase's batch, and
+# the LM's token bonus at which the fused beam does too (the two knobs a
+# user tunes).  Read off a bisection on the card: v3_rnnt plain 0.565,
+# fused 0.689 tokens a frame; v3_e2e_rnnt 0.546 and 0.597.
+BEAM_SHAPE = {"v3_rnnt": (0.734375, 1.3125), "v3_e2e_rnnt": (0.453125,
+                                                             2.390625)}
+BEAM_RATE = (0.2, 0.8)
+# the card's fp32 beam against the port's CPU fp32 beam of the same encoded
+# batch: a row may differ only where the CPU run took a decision within this
+# gap of a tie (its K-th and (K+1)-th pool scores; the two differ by the
+# order of their sums, ~1e-6 at scores of ~100)
+BEAM_TIE_GAP = 1e-4
+LM_WORDS = ("привет мир как дела сегодня хорошая погода мы идём домой "
+            "вечером будет дождь она читает книгу они работают в городе "
+            "наш дом стоит у реки дети играют во дворе").split()
+
+
+def lm_texts(rng, n: int = 2000) -> list:
+    """Seeded synthetic Russian text: sentences of 3-12 words drawn from
+    LM_WORDS."""
+    return [" ".join(rng.choice(LM_WORDS, size=rng.integers(3, 13)))
+            for _ in range(n)]
+
+
+def beam_call(model, enc, lens, chunk: int = rnnt_beam.CHUNK,
+              eager: bool = False, **kw):
+    """One beam decode of ``enc`` by the model's beam decoder: (outputs on
+    the host, host reads, graph replays, expansions, wall ms)."""
+    dec = model.rnnt_beam
+    fn = dec.decode_eager if eager else dec.decode
+    reads, replays = dec.host_reads, dec.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(model.head, enc, lens,
+             max_symbols=model.cfg.decoding.max_symbols_per_step,
+             with_logps=True, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return ([o.cpu() for o in out], dec.host_reads - reads,
+            dec.replays - replays, dec.last_expansions(), wall)
+
+
+def eager_beam_gaps(head, enc, lens, k: int, max_symbols: int, **kw):
+    """The port's eager beam of ``enc`` on its device (one expansion a step)
+    and, per row, the smallest gap between the K-th and (K+1)-th score of
+    its pools (pools whose (K+1)-th is dead excluded)."""
+    gaps = torch.full((enc.shape[0],), math.inf, dtype=torch.float64,
+                      device=enc.device)
+    inner = rnnt_beam.top_k
+
+    def recording(pool, kk):
+        best = torch.sort(pool, dim=-1, descending=True).values
+        gap = (best[:, kk - 1] - best[:, kk]).double()
+        live = best[:, kk] > rnnt_beam.NEG_INF / 2
+        torch.minimum(gaps, torch.where(live, gap, math.inf), out=gaps)
+        return inner(pool, kk)
+
+    rnnt_beam.top_k = recording
+    try:
+        out = RNNTBeamDecoder().decode_eager(
+            head, enc, lens, beam_size=k, max_symbols=max_symbols,
+            with_logps=True, chunk=1, **kw)
+    finally:
+        rnnt_beam.top_k = inner
+    return [o.cpu() for o in out], gaps.cpu()
+
+
+def rows_equal(a, b) -> list:
+    return [bool(torch.equal(a[0][i], b[0][i]) and torch.equal(a[1][i], b[1][i])
+                 and a[2][i] == b[2][i]) for i in range(len(a[2]))]
+
+
+def beam_rows_agree(label: str, got, ref, gaps) -> dict:
+    """Rows equal (tokens, frames, counts; log-probs within RNNT_LOGP_ATOL)
+    wherever the reference run's smallest gap exceeds BEAM_TIE_GAP."""
+    same = rows_equal(got, ref)
+    decided = [float(g) > BEAM_TIE_GAP for g in gaps]
+    bad = [i for i, (s_, d) in enumerate(zip(same, decided)) if d and not s_]
+    err = max((float((got[3][i] - ref[3][i]).abs().max())
+               for i in range(len(gaps)) if same[i]), default=0.0)
+    if bad or not err <= RNNT_LOGP_ATOL:
+        raise AssertionError(f"{label}: rows {bad} differ past the gap "
+                             f"{BEAM_TIE_GAP} (gaps {gaps.tolist()}), logp "
+                             f"error {err}")
+    return {"rows_equal": sum(same), "rows": len(same),
+            "rows_past_gap": sum(decided), "smallest_gap": float(gaps.min()),
+            "logp_max_abs_err": err}
+
+
+def beam_rate(model, enc, lens, **kw) -> float:
+    """Tokens a frame of the K-4 beam of ``enc``, asserted in BEAM_RATE."""
+    out = beam_call(model, enc, lens, beam_size=BEAM, **kw)[0]
+    rate = float(out[2].sum()) / float(lens.sum())
+    if not BEAM_RATE[0] <= rate <= BEAM_RATE[1]:
+        raise AssertionError(f"the beam emits {rate} tokens a frame, outside"
+                             f" {BEAM_RATE}")
+    return rate
+
+
+def shape_beam(name: str, model, enc, lens, lm_spec) -> dict:
+    """Set the joint's blank bias of BEAM_SHAPE[name] (added to the drawn
+    one) and return it, its token bonus and the plain and fused beams'
+    tokens a frame on ``enc``."""
+    bias, bonus = BEAM_SHAPE[name]
+    set_blank_bias(model, float(model.head["joint"]["out"]["b"][
+        model.blank_id]), bias)
+    return {"blank_bias": bias, "token_bonus": bonus,
+            "plain_tokens_per_frame": beam_rate(model, enc, lens),
+            "fused_tokens_per_frame": beam_rate(
+                model, enc, lens, lm=lm_spec, lm_weight=LM_WEIGHT,
+                token_bonus=bonus)}
+
+
+def beam_loop_row(label: str, model, wavs, call: dict, card: str,
+                  eager: bool = True, **fused) -> dict:
+    """The beam of one main-path call, alone on that call's encoded output:
+    expansions, host reads (at most ceil(expansions / chunk) + 1), graph
+    replays, device ms (the profile's sum) and wall, with ``eager`` the
+    eager loop's wall and the graph bit-equal to it, and the loop's share
+    of the call's device busy time.  Returns (row, encoded, lengths, the
+    graph's outputs)."""
+    enc, lens = model.encode_batch(wavs)
+    graph, reads, replays, steps, wall = beam_call(model, enc, lens,
+                                                   beam_size=BEAM, **fused)
+    eager_wall = None
+    if eager:
+        out, _, _, _, eager_wall = beam_call(model, enc, lens, eager=True,
+                                             beam_size=BEAM, **fused)
+        if not all(torch.equal(g, e) for g, e in zip(graph, out)):
+            raise AssertionError(f"{label}: the beam's graph differs from "
+                                 f"its eager loop")
+    if reads > math.ceil(steps / rnnt_beam.CHUNK) + 1:
+        raise AssertionError(f"{label}: {reads} host reads for {steps} "
+                             f"expansions")
+    by_kernel = device_ms(lambda: model.rnnt_beam.decode(
+        model.head, enc, lens, beam_size=BEAM,
+        max_symbols=model.cfg.decoding.max_symbols_per_step,
+        with_logps=True, **fused), calls=1)
+    loop_ms = sum(by_kernel.values())
+    row = {"call": label, "expansions": steps, "host_reads": reads,
+           "graph_replays": replays, "frames_max": int(lens.max()),
+           "tokens": int(graph[2].sum()), "graph_device_ms": loop_ms,
+           "graph_wall_ms": wall,
+           "device_us_per_expansion": 1e3 * loop_ms / max(steps, 1),
+           "wall_us_per_expansion": 1e3 * wall / max(steps, 1),
+           "eager_wall_ms": eager_wall,
+           "loop_share_of_call_busy": loop_ms / call["device_busy_ms"],
+           "call_wall_ms": call["wall_ms"],
+           "call_device_busy_ms": call["device_busy_ms"],
+           "call_idle_share": call["idle_share"],
+           "call_launches": call["launches"],
+           "top_kernels_ms": [[k[:60], v] for k, v in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:8]]}
+    print(f"  beam loop of {label}: {steps} expansions (T' "
+          f"{int(lens.max())}), {reads} host reads, {replays} graph replays;"
+          f" graph {loop_ms:.3f} ms device "
+          f"({row['device_us_per_expansion']:.1f} us an expansion), "
+          f"{wall:.3f} ms wall ({row['wall_us_per_expansion']:.1f} us); "
+          f"eager {eager_wall} ms{'; graph == eager' if eager else ''}; "
+          f"{row['loop_share_of_call_busy']:.3f} of the call's busy time; "
+          f"card {card}", flush=True)
+    return row, enc, lens, graph
+
+
+def beam_checks(model, lm, bonus: float, enc, lens, graph, card: str
+                ) -> dict:
+    """On the batch's encoded output: the card's beam (with the LM) equal
+    to the CPU fp32 beam past BEAM_TIE_GAP, ``lm_weight`` 0 equal to no LM,
+    the K-1 beam equal to greedy on every row but those where the K-1 run's
+    cumulative scores tie exactly (greedy's argmax then takes the label, the
+    pool the blank)."""
+    ms = model.cfg.decoding.max_symbols_per_step
+    ref, gaps = eager_beam_gaps(
+        copy.deepcopy(model.head).cpu(), enc.float().cpu(), lens.cpu(), BEAM,
+        ms, lm=rnnt_beam.lm_device_table(lm, "cpu"), lm_weight=LM_WEIGHT,
+        token_bonus=bonus)
+    cpu = beam_rows_agree("card vs CPU beam", graph, ref, gaps)
+    zero = beam_call(model, enc, lens, beam_size=BEAM,
+                     lm=model._resolve_lm(lm)[1], lm_weight=0.0,
+                     token_bonus=0.0)[0]
+    plain = beam_call(model, enc, lens, beam_size=BEAM)[0]
+    if not all(torch.equal(a, b) for a, b in zip(zero, plain)):
+        raise AssertionError("lm_weight 0 differs from no LM")
+    k1, k1_gaps = eager_beam_gaps(model.head, enc, lens, 1, ms)
+    greedy = [o.cpu() for o in model.rnnt.decode(
+        model.head, enc, lens, max_symbols=ms, with_logps=True)]
+    same = rows_equal(k1, greedy)
+    bad = [i for i, s_ in enumerate(same) if not s_ and float(k1_gaps[i]) > 0]
+    if bad:
+        raise AssertionError(f"the K 1 beam differs from greedy on rows {bad}"
+                             f" with no exact tie (gaps {k1_gaps.tolist()})")
+    k1_err = max((float((k1[3][i] - greedy[3][i]).abs().max())
+                  for i in range(len(same)) if same[i]), default=0.0)
+    row = {"card_vs_cpu_fp32": cpu, "lm_weight_0_is_no_lm": True,
+           "k1_rows_equal_greedy": sum(same),
+           "k1_rows_with_an_exact_tie": int((k1_gaps == 0).sum()),
+           "k1_logp_max_abs_err": k1_err}
+    print(f"beam checks, batch {enc.shape[0]}, T'={enc.shape[1]}: card == "
+          f"CPU fp32 past a gap of {BEAM_TIE_GAP} {cpu}; lm_weight 0 == no "
+          f"LM; K 1 == greedy on {sum(same)} of {len(same)} rows (rows with "
+          f"an exact fp32 tie of the K-1 scores: "
+          f"{row['k1_rows_with_an_exact_tie']}; logps {k1_err:.1e}); card "
+          f"{card}", flush=True)
+    return row
+
+
+def beam_path(card: str) -> dict:
+    """Phase 16: full-width v3_rnnt (random weights from seed 0, bf16
+    encoder, fp32 head; blank bias and token bonus from BEAM_SHAPE) at
+    beam 4: ``transcribe`` 20 s (K2) and ``_decode_batch`` 16 x 10-20 s
+    with a char trigram from ``train_lm_from_texts`` (dense table) (K1),
+    each profiled with its beam alone (``beam_loop_row``), then
+    ``beam_checks`` on the batch; v3_e2e_rnnt with the synthetic 512-piece
+    SentencePiece model (shaped the same way) and a SentencePiece trigram
+    (sparse table) through ``_decode_batch`` (K1), and a bigram whose dense
+    and sparse tables give equal tokens; v3_ctc ``_decode_batch`` 16 at
+    beam 8 with the char trigram, its head centred and blank raised
+    (``shape_ctc_head``), device ms and host beam ms a clip."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    texts = lm_texts(rng)
+    report = {"seconds_by_step": {}}
+    launches = {"K1": 0, "K2": 0}
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+        print(f"  [{step}: {report['seconds_by_step'][step]:.1f} s]",
+              flush=True)
+
+    model = gt.load_model("rnnt", init="random", seed=0)
+    n_layers = model.cfg.encoder.n_layers
+    wav20 = synth_wav(20.0, rng)
+    wavs16 = [synth_wav(sec, rng) for sec in np.linspace(10.0, 20.0, 16)]
+    char_lm = gt.train_lm_from_texts(texts, model.tokenizer, order=3)
+    spec = model._resolve_lm(char_lm)[1]
+    if not isinstance(spec[0], torch.Tensor):
+        raise AssertionError("the char trigram did not get a dense table")
+    enc, lens = model.encode_batch(wavs16)
+    report["shape"] = shape_beam("v3_rnnt", model, enc, lens, spec)
+    bonus = report["shape"]["token_bonus"]
+    del enc
+    lap("load")
+    res, n, prof = run_path(
+        f"v3_rnnt transcribe 20 s, beam {BEAM} (K2)",
+        lambda: model.transcribe(wav20, word_timestamps=True,
+                                 beam_size=BEAM), "K2", n_layers, calls=1)
+    launches["K2"] += n
+    report["transcribe"] = beam_loop_row(
+        "v3_rnnt transcribe 20 s", model, [wav20], prof, card,
+        eager=False)[0]
+    lap("transcribe")
+    outs, n, prof = run_path(
+        f"v3_rnnt _decode_batch 16 x 10-20 s, beam {BEAM}, char trigram (K1)",
+        lambda: model._decode_batch(wavs16, True, beam_size=BEAM, lm=char_lm,
+                                    lm_weight=LM_WEIGHT, token_bonus=bonus),
+        "K1", n_layers, calls=1)
+    launches["K1"] += n
+    if len(outs) != 16 or not all(isinstance(t, str) for t, _ in outs):
+        raise AssertionError("_decode_batch returned a malformed batch")
+    print(f"  v3_rnnt beam {BEAM}: transcribe {len(res.text)} chars; batch "
+          f"text lengths {[len(t) for t, _ in outs]}; card {card}",
+          flush=True)
+    row, enc, lens, graph = beam_loop_row(
+        "v3_rnnt _decode_batch 16, char trigram", model, wavs16, prof, card,
+        lm=spec, lm_weight=LM_WEIGHT, token_bonus=bonus)
+    report["decode_batch"] = row
+    lap("_decode_batch")
+    report["checks"] = beam_checks(model, char_lm, bonus, enc, lens, graph,
+                                   card)
+    report["captures"] = model.rnnt_beam.captures
+    lap("beam checks")
+    del model, enc, graph
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        sp = os.path.join(root, "sp512.model")
+        write_sp_model(sp, sp_model_pieces(SP_PIECES))
+        cfg = make_preset("v3_e2e_rnnt")
+        cfg = dataclasses.replace(cfg, decoding=dataclasses.replace(
+            cfg.decoding, model_path=sp))
+        model = gt.GigaAMASR(cfg, seed=0)
+        sp_lm = gt.train_lm_from_texts(texts, model.tokenizer, order=3)
+        spec = model._resolve_lm(sp_lm)[1]
+        if not isinstance(spec[0], dict):
+            raise AssertionError("the SP trigram did not get a sparse table")
+        enc, lens = model.encode_batch(wavs16)
+        shape = shape_beam("v3_e2e_rnnt", model, enc, lens, spec)
+        sp_kw = dict(lm_weight=LM_WEIGHT, token_bonus=shape["token_bonus"])
+
+        def sp_call():
+            return model._decode_batch(wavs16, False, beam_size=BEAM,
+                                       lm=sp_lm, **sp_kw)
+
+        sp_call()
+        fa.reset_launch_counts()
+        sp_wall = wall_ms(sp_call)
+        launches["K1"] += assert_launches("v3_e2e_rnnt beam",
+                                          {"K1": n_layers})["K1"]
+        sp_prof = profile_calls(
+            f"v3_e2e_rnnt _decode_batch 16, beam {BEAM}, SP trigram (K1)",
+            sp_call, 1, sp_wall)
+        bigram = gt.train_lm_from_texts(texts, model.tokenizer, order=2)
+        dense_sparse = [beam_call(model, enc, lens, beam_size=BEAM,
+                                  lm=rnnt_beam.lm_device_table(
+                                      bigram, model.device, sparse=sparse),
+                                  **sp_kw)
+                        for sparse in (False, True)]
+        if not all(torch.equal(a, b) for a, b in zip(dense_sparse[0][0][:3],
+                                                     dense_sparse[1][0][:3])):
+            raise AssertionError("SP bigram: dense and sparse tables give "
+                                 "other tokens")
+        report["v3_e2e_rnnt"] = {
+            "shape": shape, "wall_ms": sp_wall,
+            "device_busy_ms": sp_prof["device_busy_ms"],
+            "idle_share": sp_prof["idle_share"],
+            "launches": sp_prof["launches"],
+            "bigram_expansions": dense_sparse[0][3],
+            "bigram_tokens": int(dense_sparse[0][0][2].sum()),
+            "bigram_wall_ms_dense_sparse": [d[4] for d in dense_sparse],
+            "trigram_sparse_levels": [int(ids.shape[0]) for ids, _ in
+                                      spec[0]["levels"]]}
+        print(f"  v3_e2e_rnnt beam {BEAM}, SP trigram (sparse, levels "
+              f"{report['v3_e2e_rnnt']['trigram_sparse_levels']}): "
+              f"{sp_wall:.1f} ms wall, {sp_prof['device_busy_ms']:.1f} ms "
+              f"busy; SP bigram: dense == sparse tokens "
+              f"({report['v3_e2e_rnnt']['bigram_tokens']} tokens, "
+              f"{dense_sparse[0][3]} expansions, "
+              f"{dense_sparse[0][4]:.1f} / {dense_sparse[1][4]:.1f} ms); "
+              f"card {card}", flush=True)
+        del model, enc
+        torch.cuda.empty_cache()
+    lap("v3_e2e_rnnt")
+
+    model = gt.load_model("v3_ctc", init="random", seed=0)
+    shape = shape_ctc_head(model, wavs16)
+    ctc_lm = gt.train_lm_from_texts(texts, model.tokenizer, order=3)
+    ctc_kw = dict(beam_size=CTC_BEAM, lm=ctc_lm, lm_weight=LM_WEIGHT,
+                  token_bonus=bonus)
+    # the host beam takes seconds a batch: one timed call, one profiled
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    finalize = model._decode_batch_submit(wavs16, True, **ctc_kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    outs = finalize()
+    t3 = time.perf_counter()
+    host_ms, ctc_wall = (t3 - t2) * 1e3, (t3 - t1) * 1e3
+    launches["K1"] += assert_launches("v3_ctc beam", {"K1": n_layers})["K1"]
+    ctc_prof = profile_calls(
+        f"v3_ctc _decode_batch 16, prefix beam {CTC_BEAM}, char trigram (K1)",
+        lambda: model._decode_batch(wavs16, True, **ctc_kw), 1, ctc_wall)
+    greedy = [t for t, _ in model._decode_batch(wavs16, False)]
+    report["v3_ctc"] = {
+        "head_shape": shape, "wall_ms": ctc_wall,
+        "device_busy_ms": ctc_prof["device_busy_ms"],
+        "idle_share": ctc_prof["idle_share"],
+        "host_beam_ms_per_clip": host_ms / len(wavs16),
+        "text_lengths": [len(t) for t, _ in outs],
+        "greedy_text_lengths": [len(t) for t in greedy]}
+    print(f"  v3_ctc prefix beam {CTC_BEAM} with the char trigram: "
+          f"{ctc_prof['device_busy_ms']:.2f} device ms a batch, "
+          f"{host_ms / len(wavs16):.1f} host beam ms a clip, {ctc_wall:.1f} "
+          f"ms wall; text lengths {report['v3_ctc']['text_lengths']}; card "
+          f"{card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    lap("v3_ctc")
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    print(f"beam phase: {report['seconds']:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3174,6 +3591,9 @@ def main() -> int:
     longform = longform_path(card)
     for key in ("K1", "K2", "K5"):
         launches[key] += longform["launches"][key]
+    beam = beam_path(card)
+    for key in ("K1", "K2"):
+        launches[key] += beam["launches"][key]
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -3208,6 +3628,7 @@ def main() -> int:
     kernels += attn_fold_probe_kernel_rows(attn_fold_rows, attn_fold_launches)
     print("rnnt " + json.dumps(rnnt))
     print("longform " + json.dumps(longform))
+    print("rnnt_beam " + json.dumps(beam))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from .config import (
     ModelConfig,
     make_preset,
 )
+from .decode.lm import NGramLM, train_lm_from_texts
 from .models.model import GigaAM, GigaAMASR, GigaAMEmo, model_class_for
 from .types import (
     LongformTranscriptionResult,
@@ -36,6 +37,7 @@ __all__ = [
     "GigaAMEmo",
     "LongformTranscriptionResult",
     "ModelConfig",
+    "NGramLM",
     "RU_VOCAB",
     "SAMPLE_RATE",
     "Segment",
@@ -46,6 +48,7 @@ __all__ = [
     "load_native",
     "make_preset",
     "params_from_jax",
+    "train_lm_from_texts",
 ]
 
 

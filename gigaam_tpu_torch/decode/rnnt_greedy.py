@@ -137,23 +137,75 @@ class _Loop:
         return out
 
 
-class RNNTGreedyDecoder:
-    """Greedy RNNT decoding, with its CUDA graphs and counters.
+class GraphedLoops:
+    """The host side of a device loop (a ``_Loop``-like object with
+    ``reset``, ``run(steps)``, a device flag ``more`` and ``outputs``), and
+    its CUDA graphs.
 
-    ``decode`` replays one captured graph of ``chunk`` steps per host read
-    on CUDA (captured once for each batch rows, T', u_cap, ``max_symbols``,
-    ``with_logps`` and chunk, and again when a head weight's storage or
-    version changes) and runs the steps eagerly on the CPU.  ``decode_eager``
-    runs the eager loop on any device: the plain version.  A capture or a
-    replay that fails raises.
+    ``_drive`` runs chunks of ``chunk`` steps until the flag is false,
+    reading it once per chunk.  With ``graph`` each chunk is one replay of a
+    graph captured once per ``key`` (and again when ``stamp``, the storage
+    and version of every tensor the loop reads in place, changes); without
+    it the steps run eagerly.  A capture or a replay that fails raises.
 
     Counters: ``captures``, ``replays`` (graph replays), ``eager_chunks``
     and ``host_reads`` (one per chunk: the flag that ends the loop)."""
 
     def __init__(self):
-        self._graphs: Dict[tuple, Tuple[tuple, _Loop, Any]] = {}
+        self._graphs: Dict[tuple, Tuple[tuple, Any, Any]] = {}
         self.captures = self.replays = self.eager_chunks = 0
         self.host_reads = 0
+
+    def _drive(self, key: tuple, stamp: tuple, make_loop, reset_args: tuple,
+               chunk: int, graph: bool, device: torch.device):
+        if graph:
+            loop, g = self._graph(key, stamp, make_loop, chunk, device)
+            run = g.replay
+        else:
+            loop = make_loop()
+            run = lambda: loop.run(chunk)  # noqa: E731
+        loop.reset(*reset_args)
+        while True:
+            run()
+            if graph:
+                self.replays += 1
+            else:
+                self.eager_chunks += 1
+            self.host_reads += 1
+            if not bool(loop.more):
+                break
+        return loop
+
+    def _graph(self, key, stamp, make_loop, chunk, device):
+        have = self._graphs.get(key)
+        if have is not None and have[0] == stamp:
+            return have[1], have[2]
+        self._graphs.pop(key, None)
+        loop = make_loop()
+        # one eager step on a side stream first: cuBLAS creates its handle
+        # and workspace outside the capture
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            loop.run(1)
+        torch.cuda.current_stream(device).wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            loop.run(chunk)
+        self.captures += 1
+        self._graphs[key] = (stamp, loop, g)
+        return loop, g
+
+
+class RNNTGreedyDecoder(GraphedLoops):
+    """Greedy RNNT decoding, with its CUDA graphs and counters
+    (``GraphedLoops``).
+
+    ``decode`` replays one captured graph of ``chunk`` steps per host read
+    on CUDA (captured once for each batch rows, T', u_cap, ``max_symbols``,
+    ``with_logps`` and chunk, and again when a head weight's storage or
+    version changes) and runs the steps eagerly on the CPU.  ``decode_eager``
+    runs the eager loop on any device: the plain version."""
 
     def decode(self, head, encoded: torch.Tensor, enc_len: torch.Tensor,
                max_symbols: int = 10, max_tokens: int = 0,
@@ -179,50 +231,16 @@ class RNNTGreedyDecoder:
                 with_logps, chunk, graph: bool):
         b, t_max, _ = encoded.shape
         u_cap = max_tokens if max_tokens > 0 else t_max * max_symbols
+        dev = encoded.device
         with full_fp32():
             enc_proj = rnnt_joint_enc_proj(head, encoded.float())
-            if graph:
-                loop, g = self._graph(head, b, t_max, u_cap, max_symbols,
-                                      with_logps, chunk, encoded.device)
-                run = g.replay
-            else:
-                loop = _Loop(head, b, t_max, u_cap, max_symbols, with_logps,
-                             encoded.device)
-                run = lambda: loop.run(chunk)  # noqa: E731
-            loop.reset(enc_proj, enc_len)
-            while True:
-                run()
-                if graph:
-                    self.replays += 1
-                else:
-                    self.eager_chunks += 1
-                self.host_reads += 1
-                if not bool(loop.more):
-                    break
+            key = (b, t_max, u_cap, max_symbols, with_logps, chunk, str(dev))
+            loop = self._drive(
+                key, weights_stamp(head),
+                lambda: _Loop(head, b, t_max, u_cap, max_symbols, with_logps,
+                              dev),
+                (enc_proj, enc_len), chunk, graph, dev)
             return loop.outputs()
-
-    def _graph(self, head, b, t_max, u_cap, max_symbols, with_logps, chunk,
-               device):
-        key = (b, t_max, u_cap, max_symbols, with_logps, chunk, str(device))
-        stamp = weights_stamp(head)
-        have = self._graphs.get(key)
-        if have is not None and have[0] == stamp:
-            return have[1], have[2]
-        self._graphs.pop(key, None)
-        loop = _Loop(head, b, t_max, u_cap, max_symbols, with_logps, device)
-        # one eager step on a side stream first: cuBLAS creates its handle
-        # and workspace outside the capture
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            loop.run(1)
-        torch.cuda.current_stream(device).wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            loop.run(chunk)
-        self.captures += 1
-        self._graphs[key] = (stamp, loop, g)
-        return loop, g
 
 
 def rnnt_greedy_decode(head, encoded: torch.Tensor, enc_len: torch.Tensor,

@@ -18,6 +18,14 @@ head) and GigaAMEmo (emotion head), ported from
   decode overlaps batch i+1's encoder.
 * ``align``/``align_batch``: CTC forced alignment, one encoder forward for
   the batch and the Viterbi DP on the device (``decode/align.py``).
+* ``beam_size > 1``: RNNT models run the beam on the device
+  (``decode/rnnt_beam.py``, one flag read per chunk of expansions, like the
+  greedy loop); CTC models copy the full posteriors to the host and run
+  the prefix beam there (``decode/ctc_beam.py``) inside ``finalize``, so
+  that in ``transcribe_longform`` batch i's beam overlaps batch i+1's
+  device work.  ``lm`` adds n-gram shallow fusion to either
+  (``decode/lm.py``): the CTC beam scores through the ``NGramLM`` object,
+  the RNNT beam through its table on the device (``_resolve_lm``).
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ from ..config import (
 )
 from ..data import normalize_text
 from ..decode.align import ViterbiAligner, backtrack, pad_targets
+from ..decode.ctc_beam import ctc_beam_batch
 from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
+from ..decode.lm import NGramLM
+from ..decode.rnnt_beam import RNNTBeamDecoder, lm_device_table
 from ..decode.rnnt_greedy import RNNTGreedyDecoder, rnnt_extract
 from ..decode.timestamps import compute_frame_shift, frames_to_words
 from ..decode.tokenizer import Tokenizer
@@ -228,8 +239,9 @@ class GigaAM(nn.Module):
 
 class GigaAMASR(GigaAM):
     """ASR model with a CTC or RNNT head (reference
-    ``gigaam/model.py:86-259``); greedy decoding, longform transcription
-    and, for CTC heads, forced alignment."""
+    ``gigaam/model.py:86-259``); greedy and beam decoding with optional
+    n-gram fusion, longform transcription and, for CTC heads, forced
+    alignment."""
 
     def __init__(self, cfg: ModelConfig, **kw):
         if (not isinstance(cfg.head, (CTCHeadConfig, RNNTHeadConfig))
@@ -242,7 +254,12 @@ class GigaAMASR(GigaAM):
         self.blank_id = len(self.tokenizer)
         is_ctc = isinstance(cfg.head, CTCHeadConfig)
         self.rnnt = None if is_ctc else RNNTGreedyDecoder()
+        self.rnnt_beam = None if is_ctc else RNNTBeamDecoder()
         self.aligner = ViterbiAligner() if is_ctc else None
+        # (path, NGramLM) of the last LM loaded from a path, and (NGramLM,
+        # its version, its device table) of the last RNNT fusion
+        self._lm_path: Optional[Tuple[str, NGramLM]] = None
+        self._lm_dev: Optional[Tuple[NGramLM, int, tuple]] = None
 
     def _ctc_forward(self, wavs: torch.Tensor, lengths: torch.Tensor,
                      pos: Pos):
@@ -256,7 +273,7 @@ class GigaAMASR(GigaAM):
     def _ctc_logprobs(self, wavs: torch.Tensor, lengths: torch.Tensor,
                       pos: Pos) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full posteriors [B, T', V] in fp32 and enc_lens: the
-        alignment's input."""
+        alignment's and the prefix beam's input."""
         encoded, enc_lens = self._encode(wavs, lengths, pos)
         return heads_lib.ctc_log_probs(self.head, encoded), enc_lens
 
@@ -277,16 +294,48 @@ class GigaAMASR(GigaAM):
 
         return decode_host
 
-    def _rnnt_submit(self, dev_batch, dev_lens, pos, n: int):
-        """Encode and run the greedy label loop on the device (it reads one
-        flag per chunk of steps, so this returns after the loop), then
-        queue tokens, frames, counts, log-probs and lengths of the first
-        ``n`` rows to the host as one tensor; returns the host half."""
+    def _ctc_beam_submit(self, dev_batch, dev_lens, pos, n: int,
+                         beam_size: int, lm: Optional[NGramLM],
+                         lm_weight: float, token_bonus: float):
+        """Queue the CTC forward and the copy of its full posteriors to the
+        host; returns the host half, which runs the prefix beam over the
+        first ``n`` rows (JAX ``model.py:380-401``)."""
+        log_probs, enc_lens = self._ctc_logprobs(dev_batch, dev_lens, pos)
+        wait = _host_copies(log_probs[:n], enc_lens[:n])
+
+        def decode_host():
+            lp, enc_lens = wait()
+            pairs = ctc_beam_batch(lp, enc_lens, beam_size=beam_size, lm=lm,
+                                   lm_weight=lm_weight,
+                                   token_bonus=token_bonus)
+            # confidence proxy: the chosen token's posterior at its emit
+            # frame (the beam's sum over alignments has no per-token
+            # decomposition)
+            return [(ids, frames, [float(lp[i, f, tok])
+                                   for tok, f in zip(ids, frames)])
+                    for i, (ids, frames) in enumerate(pairs)], enc_lens
+
+        return decode_host
+
+    def _rnnt_submit(self, dev_batch, dev_lens, pos, n: int, beam_size: int,
+                     lm_spec: Optional[tuple], lm_weight: float,
+                     token_bonus: float):
+        """Encode and run the greedy label loop, or at ``beam_size > 1`` the
+        beam (with the LM's device table ``lm_spec``), on the device (each
+        reads one flag per chunk of steps, so this returns after the loop),
+        then queue tokens, frames, counts, log-probs and lengths of the
+        first ``n`` rows to the host as one tensor; returns the host half."""
         encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
-        tokens, frames, counts, logps = self.rnnt.decode(
-            self.head, encoded, enc_lens,
-            max_symbols=self.cfg.decoding.max_symbols_per_step,
-            with_logps=True)
+        max_symbols = self.cfg.decoding.max_symbols_per_step
+        if beam_size > 1:
+            tokens, frames, counts, logps = self.rnnt_beam.decode(
+                self.head, encoded, enc_lens, beam_size=beam_size,
+                max_symbols=max_symbols, lm=lm_spec, lm_weight=lm_weight,
+                token_bonus=token_bonus, with_logps=True)
+        else:
+            tokens, frames, counts, logps = self.rnnt.decode(
+                self.head, encoded, enc_lens, max_symbols=max_symbols,
+                with_logps=True)
         u = tokens.shape[1]
         wait = _host_copies(torch.cat(
             [tokens, frames, logps.view(torch.int32), counts[:, None],
@@ -302,6 +351,35 @@ class GigaAMASR(GigaAM):
                     for i, (ids, fr) in enumerate(pairs)], host[:, 3 * u + 1]
 
         return decode_host
+
+    def _resolve_lm(self, lm: Union[None, str, NGramLM]
+                    ) -> Tuple[Optional[NGramLM], Optional[tuple]]:
+        """``lm``: an ``NGramLM``, an npz path or None -> (the LM, its
+        (table, base, ctx_len) on the device for the RNNT beam, or None for
+        a CTC model, whose beam scores on the host through the object).  A
+        path is loaded once; the table is built once per LM object and
+        version (JAX ``model.py:304-343``)."""
+        if lm is None:
+            return None, None
+        if isinstance(lm, str):
+            if self._lm_path is None or self._lm_path[0] != lm:
+                self._lm_path = (lm, NGramLM.load(lm))
+            lm = self._lm_path[1]
+        if lm.vocab_size != len(self.tokenizer):
+            raise ValueError(
+                f"LM vocab_size {lm.vocab_size} != tokenizer vocab "
+                f"{len(self.tokenizer)}: train the LM with this model's "
+                f"tokenizer (train_lm_from_texts)")
+        if self.rnnt is None:
+            return lm, None
+        cached = self._lm_dev
+        if cached is None or cached[0] is not lm or cached[1] != lm.version:
+            # ordinary tensors: the beam's graphs are stamped with their
+            # versions, which inference tensors do not keep
+            with torch.inference_mode(False):
+                cached = (lm, lm.version, lm_device_table(lm, self.device))
+            self._lm_dev = cached
+        return lm, cached[2]
 
     @torch.inference_mode()
     def _decode_batch_submit(
@@ -319,21 +397,29 @@ class GigaAMASR(GigaAM):
         ``_decode_batch`` list.  ``pad_rows_to`` pads the row count with
         filler rows (zeros of the shortest length), dropped before any host
         decode; ``bucket`` is the padding granularity in samples (padded
-        frames are masked: the results do not change).  Beam search and LM
-        fusion (``beam_size > 1``, ``lm``) are not ported yet."""
+        frames are masked: the results do not change).  ``beam_size > 1``
+        runs the RNNT beam on the device or the CTC prefix beam on the host
+        (in ``finalize``); ``lm`` (an ``NGramLM`` or an npz path) adds
+        shallow fusion with weight ``lm_weight`` and a per-token
+        ``token_bonus``, and requires ``beam_size > 1``."""
         if lm is not None and beam_size <= 1:
             raise ValueError("LM shallow fusion requires beam_size > 1")
-        if beam_size > 1 or lm is not None:
-            raise NotImplementedError(
-                "beam search and LM shallow fusion are not ported yet "
-                "(ROADMAP Queue 1 item 10); use beam_size=1, lm=None")
+        lm, lm_spec = self._resolve_lm(lm)
         n = len(wavs)
         if pad_rows_to > n:
             filler = np.zeros(min(len(w) for w in wavs), np.float32)
             wavs = list(wavs) + [filler] * (pad_rows_to - n)
         dev_batch, dev_lens, lens, pos = self._device_batch(wavs, bucket)
-        submit = self._ctc_submit if self.rnnt is None else self._rnnt_submit
-        decode_host = submit(dev_batch, dev_lens, pos, n)
+        if self.rnnt is not None:
+            decode_host = self._rnnt_submit(dev_batch, dev_lens, pos, n,
+                                            beam_size, lm_spec, lm_weight,
+                                            token_bonus)
+        elif beam_size > 1:
+            decode_host = self._ctc_beam_submit(dev_batch, dev_lens, pos, n,
+                                                beam_size, lm, lm_weight,
+                                                token_bonus)
+        else:
+            decode_host = self._ctc_submit(dev_batch, dev_lens, pos, n)
 
         def finalize() -> List[Tuple[str, Optional[List[Word]]]]:
             decoded, enc_lens = decode_host()
@@ -356,7 +442,7 @@ class GigaAMASR(GigaAM):
         bucket: int = BUCKET_SAMPLES, lm=None, lm_weight: float = 0.5,
         token_bonus: float = 0.0,
     ) -> List[Tuple[str, Optional[List[Word]]]]:
-        """Batched greedy transcription (reference ``model.py:96-124``):
+        """Batched transcription (reference ``model.py:96-124``):
         ``_decode_batch_submit`` with the same keywords, finalized."""
         return self._decode_batch_submit(
             wavs, word_timestamps, beam_size=beam_size,
@@ -364,13 +450,23 @@ class GigaAMASR(GigaAM):
             lm_weight=lm_weight, token_bonus=token_bonus)()
 
     def transcribe(self, wav_file: Union[str, np.ndarray],
-                   word_timestamps: bool = False) -> TranscriptionResult:
-        """Transcribe a short (<25 s) clip (``model.py:126-140``)."""
+                   word_timestamps: bool = False, beam_size: int = 1,
+                   lm: Union[None, str, NGramLM] = None,
+                   lm_weight: float = 0.5, token_bonus: float = 0.0
+                   ) -> TranscriptionResult:
+        """Transcribe a short (<25 s) clip (``model.py:126-140``; JAX
+        ``model.py:497-518``).  ``beam_size > 1`` decodes with a beam;
+        ``lm`` (an ``NGramLM`` or a saved-LM path) adds n-gram shallow
+        fusion with weight ``lm_weight`` and per-token insertion bonus
+        ``token_bonus``."""
         wav = self.prepare_wav(wav_file)
         if len(wav) > LONGFORM_THRESHOLD_SEC * SAMPLE_RATE:
             raise ValueError(
                 "Too long wav file, use 'transcribe_longform' method.")
-        text, words = self._decode_batch([wav], word_timestamps)[0]
+        text, words = self._decode_batch([wav], word_timestamps,
+                                         beam_size=beam_size, lm=lm,
+                                         lm_weight=lm_weight,
+                                         token_bonus=token_bonus)[0]
         return TranscriptionResult(text=text, words=words)
 
     def transcribe_longform(

@@ -7,8 +7,8 @@ audio drawn with ``numpy.random.default_rng``:
   chunk policy's keywords set so that more than two chunk batches run (two
   in flight): segment boundaries and texts equal, word times within
   TIME_ATOL, confidences within CONF_RTOL;
-* ``_decode_batch`` with ``pad_rows_to`` and ``bucket``, and the
-  unsupported beam/LM keywords;
+* ``_decode_batch`` with ``pad_rows_to`` and ``bucket``, and what it
+  refuses of the beam/LM keywords;
 * the ``_int16_wire``;
 * ``GigaAM``'s ``compute_dtype`` and ``use_fused_attention`` (the encoder's
   routing observed through the kernel wrappers) and ``load_model``'s
@@ -170,16 +170,28 @@ def test_decode_batch_pads_rows_and_buckets_as_jax(ctc_pair):
     assert [t for t, _ in finalize()] == [t for t, _ in base]
 
 
-def test_decode_batch_refuses_beam_and_lm(ctc_pair):
+def test_decode_batch_refuses_beam_and_lm(ctc_pair, tmp_path):
+    """What ``_decode_batch`` still refuses, as the JAX package does: an LM
+    without a beam, an LM over another vocabulary, an LM path that holds
+    none; a beam (with an LM) now runs, in ``transcribe_longform`` too
+    (its results against JAX's: ``tests/test_torch_beam.py``)."""
+    from gigaam_tpu_torch.decode.lm import NGramLM
+
     _, tm = ctc_pair
     wav = [np.zeros(SR, np.float32)]
     with pytest.raises(ValueError, match="requires beam_size > 1"):
         tm._decode_batch(wav, False, lm="lm.npz")
-    for kw in (dict(beam_size=4), dict(beam_size=4, lm="lm.npz")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tm._decode_batch(wav, False, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm.transcribe_longform(longform_audio(20.0, seed=1), beam_size=2)
+    with pytest.raises(ValueError, match="vocab"):
+        tm._decode_batch(wav, False, beam_size=4,
+                         lm=NGramLM.train([[0, 1]], vocab_size=5, order=2))
+    with pytest.raises(FileNotFoundError):
+        tm._decode_batch(wav, False, beam_size=4,
+                         lm=str(tmp_path / "missing.npz"))
+    lm = NGramLM.train([[0, 1, 2]], vocab_size=len(tm.tokenizer), order=2)
+    for kw in (dict(beam_size=4), dict(beam_size=4, lm=lm)):
+        assert len(tm._decode_batch(wav, False, **kw)) == 1
+    res = tm.transcribe_longform(longform_audio(20.0, seed=1), beam_size=2)
+    assert isinstance(res, gt.LongformTranscriptionResult) and res.segments
 
 
 def test_int16_wire_matches_jax(ctc_pair):

@@ -189,8 +189,11 @@ def test_port_runs_without_jax_or_the_jax_package():
     greedy label loop) and a SentencePiece e2e_rnnt model, encodes and
     decodes with a SentencePiece tokenizer, saves and runs a PyanNet VAD
     artifact, runs ``transcribe_longform`` with the neural and the energy
-    VAD, ``align`` and ``align_batch``, and has imported neither ``jax``
-    nor ``gigaam_tpu``."""
+    VAD, ``align`` and ``align_batch``, trains an n-gram LM, saves and
+    reloads it, decodes with the CTC prefix beam and the RNNT beam (with
+    the LM as an object, a path, and a dense and a sparse device table), runs
+    the eval CLI with its beam and LM flags, and has imported neither
+    ``jax`` nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
         "import gigaam_tpu_torch as gt\n"
@@ -286,6 +289,42 @@ def test_port_runs_without_jax_or_the_jax_package():
         "print('longform energy', len(r.segments) > 1)\n"
         "print('align', type(m.align(tone, 'аб')).__name__,\n"
         "      len(m.align_batch([tone, tone[:16000]], ['а', 'б'])))\n"
+        "lm = gt.train_lm_from_texts(['привет мир', 'мир'], m.tokenizer)\n"
+        "lm_path = os.path.join(tempfile.mkdtemp(), 'lm.npz')\n"
+        "lm.save(lm_path)\n"
+        "print('ctc beam', type(m.transcribe(wav, beam_size=4, lm=lm_path)\n"
+        "      .text), len(m.transcribe_longform(long, fr_batch_size=2,\n"
+        "                                        beam_size=2).segments) > 1)\n"
+        "from gigaam_tpu_torch.decode.rnnt_beam import (\n"
+        "    lm_device_table, rnnt_beam_decode)\n"
+        "cfg = gt.make_preset('v3_rnnt')\n"
+        "cfg.encoder = EncoderConfig(\n"
+        "    n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2)\n"
+        "cfg.head.joint.enc_hidden = 64\n"
+        "r = gt.GigaAMASR(cfg, device='cpu')\n"
+        "out = r._decode_batch([wav, wav[:8000]], True, beam_size=4,\n"
+        "                      lm=gt.NGramLM.load(lm_path), lm_weight=0.3)\n"
+        "enc, lens = r.encode_batch([wav])\n"
+        "for sparse in (False, True):\n"
+        "    table, base, ctx = lm_device_table(lm, 'cpu', sparse=sparse)\n"
+        "    rnnt_beam_decode(r.head, enc, lens, beam_size=2, lm_table=table,\n"
+        "                     lm_base=base, lm_ctx_len=ctx)\n"
+        "print('rnnt beam', len(out), r.rnnt_beam.host_reads > 0)\n"
+        "import contextlib, io\n"
+        "from gigaam_tpu_torch.audio import save_wav\n"
+        "from gigaam_tpu_torch.data import write_manifest\n"
+        "from gigaam_tpu_torch.weights import save_model\n"
+        "root = tempfile.mkdtemp()\n"
+        "save_model(m, os.path.join(root, 'tiny'))\n"
+        "save_wav(os.path.join(root, 'a.wav'), tone[:16000])\n"
+        "write_manifest(os.path.join(root, 'm.tsv'), [('a.wav', 1.0, 'аб')])\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    eval_cli.main(['--model_name', os.path.join(root, 'tiny.npz'),\n"
+        "                   '--device', 'cpu', '--manifest',\n"
+        "                   os.path.join(root, 'm.tsv'), '--beam_size', '2',\n"
+        "                   '--lm', lm_path, '--out',\n"
+        "                   os.path.join(root, 'p.jsonl')])\n"
+        "print('eval beam', os.path.isfile(os.path.join(root, 'p.jsonl')))\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -309,11 +348,15 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "longform neural LongformTranscriptionResult" in out.stdout
     assert "longform energy True" in out.stdout
     assert "align TranscriptionResult 2" in out.stdout
+    assert "ctc beam <class 'str'> True" in out.stdout
+    assert "rnnt beam 2 True" in out.stdout
+    assert "eval beam True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """Every Python source of the port (and ``chip_smoke.py``) imports
-    neither JAX nor the JAX package nor ``benchmarks``; every CUDA source
+    neither JAX nor the JAX package nor ``benchmarks`` (and the LM and the
+    CTC prefix beam not even torch); every CUDA source
     includes only system headers and the port's own ``csrc`` headers."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     cuda = []
@@ -327,7 +370,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/csrc/projection.cuh",
             "gigaam_tpu_torch/ops/lstm.py",
             "gigaam_tpu_torch/decode/rnnt_greedy.py",
-            "gigaam_tpu_torch/decode/tokenizer.py"} <= rel
+            "gigaam_tpu_torch/decode/tokenizer.py",
+            "gigaam_tpu_torch/decode/lm.py",
+            "gigaam_tpu_torch/decode/ctc_beam.py",
+            "gigaam_tpu_torch/decode/rnnt_beam.py"} <= rel
     for path in cuda:
         with open(path) as f:
             for line in f:
@@ -351,6 +397,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "gigaam_tpu",
                                    "benchmarks"), (path, name)
+                # the LM and the CTC prefix beam are host numpy
+                if path.endswith(("decode/lm.py", "decode/ctc_beam.py")):
+                    assert top != "torch", (path, name)
 
 
 def test_load_model_without_device_raises_on_a_host_without_cuda(monkeypatch):
