@@ -175,10 +175,31 @@ Phases, each fatal on failure:
    ``_decode_batch`` of 16 (K1), and a bigram whose dense and sparse
    tables give equal tokens; then v3_ctc ``_decode_batch`` of 16 at beam 8
    with the char trigram (the host prefix beam; the head centred and its
-   blank raised as in phase 15) (K1), device ms and host beam ms a clip.
+   blank raised as in phase 15) (K1), device ms and host beam ms a clip;
+17. reference checkpoints, RNNT fine-tuning, BEST-RQ and conv1d: full-width
+   v3_ctc and v3_rnnt written as reference ``.ckpt`` files (the cfg a plain
+   dict with ``${...}`` interpolations) and a fine-tuned Lightning v3_ctc,
+   each loaded with ``load_model(path)``, the v3_ctc also by name through
+   ``download_root`` from a ``file://`` CDN (md5 pinned) and then from the
+   converted cache: parameters equal, encoder outputs and log-probs (RNNT:
+   the greedy decode) bit-equal to the source's, texts equal, and the
+   ingested model's ``transcribe`` 20 s (K2) and ``_decode_batch`` of 16
+   (K1) from zeroed counts, with the host seconds of ``torch.save`` and
+   of a full-width conversion; v3_rnnt fine-tuning at batch 16 of 10-20 s
+   (the CLI for 3 steps, ``FineTuner.train_step`` x 3 without activation
+   checkpointing and under ``remat_policy`` "full" and "dots", launch
+   counts asserted per step, every leaf moved, "dots" against "full" on one
+   step's gradients), the RNNT loss alone (forward and backward ms, peak
+   memory), one step at 2 layers against the CPU's fp32; v3_ssl BEST-RQ
+   (``SSLPretrainer.train_step`` x 3, ``eval_step``, the pretrain CLI for
+   2 steps and a resume for a third); a v3 config with conv1d subsampling,
+   ``encode_batch`` of 16 in bf16 (K1) against the CPU fp32 model, and in
+   fp32 (composed attention), whose greedy ids must equal the CPU's on
+   every frame with a margin of ``CONV1D_MARGIN``.
 
 Before the card's line, an ``rnnt`` line holds phase 14's numbers, a
-``longform`` line phase 15's and an ``rnnt_beam`` line phase 16's.  The
+``longform`` line phase 15's, an ``rnnt_beam`` line phase 16's and an
+``ingest_train`` line phase 17's.  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
@@ -201,6 +222,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -213,6 +235,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import gigaam_tpu_torch as gt
+from gigaam_tpu_torch import checkpoint as gt_ckpt
 from gigaam_tpu_torch import vad as gt_vad
 from gigaam_tpu_torch.audio import save_wav
 from gigaam_tpu_torch.config import RU_VOCAB, SAMPLE_RATE, make_preset
@@ -245,11 +268,14 @@ from gigaam_tpu_torch.ops import fused_attention as fa
 from gigaam_tpu_torch.ops.attention import rotary_mha
 from gigaam_tpu_torch.ops.conformer_ops import layer_norm
 from gigaam_tpu_torch.ops.precision import full_fp32
+from gigaam_tpu_torch.ops.rnnt_loss import rnnt_loss
 from gigaam_tpu_torch.ops.rotary import rotary_tables
 from gigaam_tpu_torch.profiling import device_timeit
+from gigaam_tpu_torch.train import pretrain as gt_pretrain
 from gigaam_tpu_torch.train import train as train_cli
 from gigaam_tpu_torch.train.finetune import FineTuner, TrainConfig
 from gigaam_tpu_torch.types import LongformTranscriptionResult, Segment
+from gigaam_tpu_torch.weights import params_to_jax
 
 # A kernel passes where, on every valid query row,
 #   |got - ref| <= KERNEL_REL * RMS(attention output of ref) + KERNEL_RTOL * |ref|:
@@ -2189,9 +2215,10 @@ def assert_training_moved(label: str, ft, before: dict) -> None:
 
 
 def drive_train_steps(label: str, ft, batch, steps: int, want: dict,
-                      card: str) -> dict:
+                      card: str, records: list = None) -> dict:
     """``steps`` calls of ``train_step`` from zeroed counts, each timed and
-    held to ``want`` launches; returns the launches over all steps."""
+    held to ``want`` launches; returns the launches over all steps.  Each
+    step's wall ms, phase ms, loss and peak GiB go into ``records``."""
     total = defaultdict(int)
     marks = []
 
@@ -2223,6 +2250,11 @@ def drive_train_steps(label: str, ft, batch, steps: int, want: dict,
               f"lr {m['lr']:.2e}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
               f"launches {got}; card {card}", flush=True)
+        if records is not None:
+            records.append({
+                "wall_ms": wall_ms, "loss": loss, **{
+                    f"{k}_ms": v for k, v in phases.items()},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
         if got != {k: want.get(k, 0) for k in got}:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         if not (math.isfinite(loss) and loss > 0 and math.isfinite(gnorm)
@@ -3497,6 +3529,488 @@ def beam_path(card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Reference checkpoints, RNNT fine-tuning, BEST-RQ, conv1d (phase 17)
+# ---------------------------------------------------------------------------
+
+# conv1d on the card in fp32 (TF32 off, the composed attention) against the
+# CPU fp32 model: the same ops summed in another order, so every frame whose
+# CPU top-1/top-2 log-prob margin is at least this keeps its argmax
+CONV1D_MARGIN = 1e-3
+
+
+def write_reference_ckpt(model, path: str, base_name: str = None) -> float:
+    """``model`` as a reference checkpoint: ``{"cfg", "state_dict"}`` (the
+    cfg a plain dict with ``${...}`` interpolations, reference names and
+    layouts), or with ``base_name`` a fine-tuned Lightning checkpoint
+    (``hyper_parameters``, an optimizer entry, no ``cfg``).  Returns the
+    seconds of ``torch.save``."""
+    cfg = model.cfg
+    sd = {k: torch.from_numpy(v) for k, v in gt_ckpt.reference_state_dict(
+        params_to_jax(model), cfg).items()}
+    if base_name is None:
+        obj = {"cfg": gt_ckpt.reference_cfg(cfg), "state_dict": sd}
+    else:
+        obj = {"hyper_parameters": {"model_name": base_name},
+               "state_dict": dict(sd, **{"optimizer.step": torch.zeros(1)})}
+    t0 = time.perf_counter()
+    torch.save(obj, path)
+    return time.perf_counter() - t0
+
+
+def assert_same_parameters(label: str, src, got) -> None:
+    a, b = dict(src.named_parameters()), dict(got.named_parameters())
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: parameter names differ")
+    bad = [n for n, p in a.items()
+           if p.dtype != b[n].dtype or not torch.equal(p, b[n])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} parameters differ, e.g. "
+                             f"{bad[:3]}")
+
+
+def ingested_outputs(model, wav20, wavs16) -> list:
+    """The tensors that must be bit-equal between a model and its ingested
+    copy: per call, the encoder output and, for CTC, the log-probs and
+    their argmax ids; for RNNT the greedy decode's tokens, frames, counts
+    and log-probs."""
+    outs = []
+    with torch.inference_mode():
+        for wavs in ([wav20], wavs16):
+            enc, lens = model.encode_batch(wavs)
+            outs += [enc, lens]
+            if model.rnnt is None:
+                lp = ctc_log_probs(model.head, enc)
+                outs += [lp, lp.argmax(-1)]
+            else:
+                outs += list(model.rnnt.decode(
+                    model.head, enc, lens, with_logps=True))
+    return outs
+
+
+def ingest_one(label: str, src, path: str, wav20, wavs16, card: str,
+               load) -> dict:
+    """Load ``path`` with ``load``; equal parameters, bit-equal outputs,
+    equal texts; ``transcribe`` (K2) and ``_decode_batch`` (K1) of the
+    ingested model from zeroed counts."""
+    t0 = time.perf_counter()
+    got = load()
+    load_s = time.perf_counter() - t0
+    assert_same_parameters(label, src, got)
+    same = [torch.equal(a, b) for a, b in zip(
+        ingested_outputs(src, wav20, wavs16),
+        ingested_outputs(got, wav20, wavs16))]
+    if not all(same):
+        raise AssertionError(f"{label}: outputs differ ({same})")
+    want_texts = ([src.transcribe(wav20).text]
+                  + [t for t, _ in src._decode_batch(wavs16, False)])
+    n_layers = src.cfg.encoder.n_layers
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    texts = [got.transcribe(wav20).text]
+    k2 = counts()["K2"]
+    texts += [t for t, _ in got._decode_batch(wavs16, False)]
+    torch.cuda.synchronize()
+    launches = counts()
+    if (k2, launches["K2"], launches["K1"]) != (n_layers,) * 3 or any(
+            n for k, n in launches.items() if k not in ("K1", "K2")):
+        raise AssertionError(f"{label}: launches {launches}")
+    if texts != want_texts:
+        raise AssertionError(f"{label}: texts differ from the source's")
+    print(f"ingest {label}: load {load_s:.1f} s, parameters equal, encoder "
+          f"output and {'decode' if src.rnnt is not None else 'log-probs'} "
+          f"bit-equal on transcribe 20 s and _decode_batch 16 x 10-20 s, "
+          f"texts equal; launches {launches}; card {card}", flush=True)
+    return {"load_s": load_s, "launches": launches}
+
+
+def ingestion_phase(root: str, rng, card: str) -> dict:
+    """Full-width v3_ctc and v3_rnnt written as reference checkpoints, and a
+    fine-tuned Lightning v3_ctc, each loaded with ``load_model(path)``; the
+    v3_ctc also by name through ``download_root`` from a ``file://`` CDN
+    (md5 pinned to the file), then from the converted cache."""
+    report = {}
+    launches = {"K1": 0, "K2": 0}
+    wav20 = synth_wav(20.0, rng)
+    wavs16 = [synth_wav(s, rng) for s in np.linspace(10.0, 20.0, 16)]
+    cdn = os.path.join(root, "cdn")
+    os.makedirs(cdn)
+    for name in ("v3_ctc", "v3_rnnt"):
+        src = gt.load_model(name, init="random", seed=3)
+        if src.rnnt is not None:
+            set_blank_bias(src, float(
+                src.head["joint"]["out"]["b"][src.blank_id]), RNNT_BLANK_BIAS)
+        path = os.path.join(cdn, f"{name}.ckpt")
+        save_s = write_reference_ckpt(src, path)
+        rec = ingest_one(f"{name} .ckpt", src, path, wav20, wavs16, card,
+                         lambda: gt.load_model(path))
+        rec["save_s"] = save_s
+        if name == "v3_ctc":
+            t0 = time.perf_counter()
+            gt_ckpt.convert_reference_checkpoint(path)
+            rec["convert_s"] = time.perf_counter() - t0
+            print(f"ingest {name}: torch.save {save_s:.1f} s, "
+                  f"{os.path.getsize(path) / 2 ** 30:.2f} GiB; "
+                  f"convert_reference_checkpoint (torch.load, cfg, "
+                  f"layouts) {rec['convert_s']:.1f} s host; card {card}",
+                  flush=True)
+        report[name] = rec
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        if name == "v3_ctc":
+            ft_path = os.path.join(root, "finetuned.ckpt")
+            write_reference_ckpt(src, ft_path, base_name="ctc")
+            rec = ingest_one("v3_ctc fine-tuned Lightning .ckpt", src,
+                             ft_path, wav20, wavs16, card,
+                             lambda: gt.load_model(
+                                 ft_path, download_root=os.path.join(
+                                     root, "empty")))
+            report["lightning"] = rec
+            os.remove(ft_path)
+            saved = (gt._URL_DIR, gt._MODEL_HASHES)
+            gt._URL_DIR = f"file://{cdn}"
+            gt._MODEL_HASHES = dict(saved[1], v3_ctc=gt.hash_path(path))
+            cache = os.path.join(root, "cache")
+            try:
+                report["by_name"] = ingest_one(
+                    "ctc by name (download, md5, convert, cache)", src,
+                    path, wav20, wavs16, card,
+                    lambda: gt.load_model("ctc", download_root=cache))
+                if not os.path.isfile(os.path.join(cache, "v3_ctc.npz")):
+                    raise AssertionError("no converted artifact cached")
+                gt._URL_DIR = "file:///nonexistent"
+                report["cached"] = ingest_one(
+                    "ctc by name (cached artifact)", src, path, wav20,
+                    wavs16, card,
+                    lambda: gt.load_model("v3_ctc", download_root=cache))
+            finally:
+                gt._URL_DIR, gt._MODEL_HASHES = saved
+            shutil.rmtree(cache)
+            for key in ("lightning", "by_name", "cached"):
+                for k in launches:
+                    launches[k] += report[key]["launches"][k]
+        os.remove(path)
+        del src
+        torch.cuda.empty_cache()
+    report["launches"] = launches
+    return report
+
+
+def rnnt_loss_timing(ft, batch, card: str) -> dict:
+    """The RNNT loss alone on one batch's encoder output (fp32): forward and
+    backward ms by CUDA events (the median of 3), its peak memory above
+    what was allocated before, and the wavefront's T' + U steps."""
+    dev_batch = ft._to_device(batch)
+    with torch.no_grad():
+        _, (_, encoded, enc_lens) = ft._forward_loss(dev_batch, train=True)
+    tokens, tok_lens = dev_batch[2], dev_batch[3]
+    times = []
+    for _ in range(3):
+        enc = encoded.detach().float().requires_grad_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = rnnt_loss(ft.model.head, enc, tokens, enc_lens, tok_lens,
+                         ft.blank_id, ft.tc.rnnt_time_chunk)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      (torch.cuda.max_memory_allocated() - base) / 2 ** 20))
+        if not (math.isfinite(float(loss.detach())) and bool(
+                torch.isfinite(enc.grad).all())):
+            raise AssertionError("rnnt loss or its gradient not finite")
+    fwd, bwd, peak = (sorted(c)[1] for c in zip(*times))
+    rec = {"forward_ms": fwd, "backward_ms": bwd, "peak_mib": peak,
+           "t_prime": int(encoded.shape[1]), "u": int(tokens.shape[1]),
+           "diagonals": int(encoded.shape[1] + tokens.shape[1])}
+    print(f"rnnt loss alone, B {encoded.shape[0]}, T' {rec['t_prime']}, "
+          f"U {rec['u']}: forward {fwd:.1f} ms, backward {bwd:.1f} ms "
+          f"(CUDA events, median of 3), peak {peak:.0f} MiB above the "
+          f"encoder output; card {card}", flush=True)
+    return rec
+
+
+def step_summary(records: list) -> dict:
+    return {"step_ms": [r["wall_ms"] for r in records],
+            "forward_ms": [r["forward_ms"] for r in records],
+            "backward_ms": [r["backward_ms"] for r in records],
+            "peak_gib": max(r["peak_gib"] for r in records)}
+
+
+def remat_gradients(model, batch, policy: str, before: dict) -> dict:
+    """One step under ``policy`` from ``before`` (no clip, lr 0 at the first
+    update): the raw gradients; the parameters are restored after."""
+    ft = FineTuner(model, TrainConfig(
+        total_steps=4, precision="bf16", grad_clip=1e30,
+        activation_checkpointing=True, remat_policy=policy))
+    ft.train_step(batch)
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    restore(model, before)
+    return grads
+
+
+def restore(model, snap: dict) -> None:
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(snap[n])
+
+
+def grad_group_errors(got: dict, ref: dict) -> dict:
+    groups = defaultdict(lambda: [0.0, 0.0])
+    for n, g_ref in ref.items():
+        group = next(g for g, pattern in GRAD_GROUPS if re.search(pattern, n))
+        groups[group][0] += float((got[n] - g_ref).pow(2).sum())
+        groups[group][1] += float(g_ref.pow(2).sum())
+    return {g: math.sqrt(num / den) for g, (num, den) in groups.items()
+            if den > 0}
+
+
+def rnnt_training_phase(manifest: str, card: str) -> dict:
+    """v3_rnnt at batch 16 of 10-20 s, bf16 over fp32 masters: the CLI for
+    3 steps, then ``FineTuner.train_step`` x 3 without activation
+    checkpointing and under ``remat_policy`` "full" and "dots"; "dots"
+    against "full" on one step's gradients; the loss alone."""
+    report = {}
+    n_layers = make_preset("v3_rnnt").encoder.n_layers
+    save_dir = os.path.join(os.path.dirname(manifest), "exp_rnnt")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_cli.main([
+        "--model_name", "v3_rnnt", "--init", "random", "--seed", "0",
+        "--train_manifest", manifest, "--val_manifest", manifest,
+        "--batch_size", "16", "--precision", "bf16", "--max_steps", "3",
+        "--val_first_batches", "1", "--save_top_k", "0",
+        "--log_every_n_steps", "1", "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    got = counts()
+    # 3 steps (K3 forward, K4 backward), a validation batch at the end of
+    # the first epoch (2 steps) and one at the end (K1)
+    want = {"K3": 3 * n_layers, "K4": 3 * n_layers, "K1": 2 * n_layers}
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train_recs = [r for r in recs if r["kind"] == "train"]
+    print(f"main path train CLI v3_rnnt, 3 steps + 2 validation batches: "
+          f"{time.perf_counter() - t0:.1f} s, launches {got}; losses "
+          + ", ".join(f"{r['loss']:.4f}" for r in train_recs) + "; card "
+          + card, flush=True)
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"rnnt train CLI: launches {got}, want {want}")
+    if [r["step"] for r in train_recs] != [1, 2, 3] or not all(
+            math.isfinite(r["loss"]) and r["loss"] > 0 for r in train_recs):
+        raise AssertionError(f"rnnt train CLI: metrics {train_recs}")
+    launches = defaultdict(int, got)
+    shutil.rmtree(save_dir)
+
+    model = gt.load_model("rnnt", init="random", seed=0)
+    batch = first_batch(manifest, model.tokenizer, 16, stride=2)
+    for policy, want in ((None, {"K3": n_layers, "K4": n_layers}),
+                         ("full", {"K3": 2 * n_layers, "K4": n_layers}),
+                         ("dots", {"K3": 2 * n_layers, "K4": n_layers})):
+        label = f"v3_rnnt, remat {policy}" if policy else "v3_rnnt"
+        if policy == "full":
+            before = snapshot(model)
+            g_full = remat_gradients(model, batch, "full", before)
+            g_dots = remat_gradients(model, batch, "dots", before)
+            rels = grad_group_errors(g_dots, g_full)
+            print("rnnt dots vs full, one step from the same weights: "
+                  "gradient relative Frobenius error by group (tol "
+                  f"{TRAIN_GRAD_RTOL}): " + ", ".join(
+                      f"{g} {r:.2e}" for g, r in rels.items()), flush=True)
+            if not all(r <= TRAIN_GRAD_RTOL for r in rels.values()):
+                raise AssertionError(f"dots vs full gradients: {rels}")
+            report["dots_vs_full"] = rels
+            del g_full, g_dots, before
+        tc = TrainConfig(total_steps=4, precision="bf16",
+                         activation_checkpointing=policy is not None,
+                         remat_policy=policy or "full")
+        ft = FineTuner(model, tc)
+        before = snapshot(model)
+        records = []
+        total = drive_train_steps(label, ft, batch, 3, want, card, records)
+        assert_training_moved(label, ft, before)
+        report[policy or "no_remat"] = step_summary(records)
+        for k, n in total.items():
+            launches[k] += n
+        if policy is None:
+            report["loss"] = rnnt_loss_timing(ft, batch, card)
+        del ft, before
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    report["launches"] = dict(launches)
+    return report
+
+
+def ssl_phase(manifest: str, small_manifest: str, card: str) -> dict:
+    """v3_ssl at batch 16 of 10-20 s: ``SSLPretrainer.train_step`` x 3, then
+    the pretrain CLI for 2 steps and a resume for a third."""
+    n_layers = make_preset("v3_ssl").encoder.n_layers
+    report = {}
+    model = gt.load_model("ssl", init="random", seed=0)
+    batch = first_batch(manifest, gt_tokenizer(), 16, stride=2)[:2]
+    pt = gt_pretrain.SSLPretrainer(model, gt_pretrain.PretrainConfig(
+        total_steps=4, precision="bf16"))
+    q0 = {k: v.clone() for k, v in pt.quantizer.items()}
+    head0 = pt.ssl_head["w"].detach().clone()
+    before = snapshot(model)
+    records = []
+    launches = defaultdict(int, drive_train_steps(
+        "v3_ssl BEST-RQ", pt, batch, 3, {"K3": n_layers, "K4": n_layers},
+        card, records))
+    assert_training_moved("v3_ssl BEST-RQ", pt, before)
+    if torch.equal(pt.ssl_head["w"].detach(), head0) or not all(
+            torch.equal(v, q0[k]) for k, v in pt.quantizer.items()):
+        raise AssertionError("ssl: the head did not move or the quantizer "
+                             "did")
+    fa.reset_launch_counts()
+    loss, acc = pt.eval_step(batch)
+    got = counts()
+    print(f"v3_ssl eval_step: masked loss {loss:.4f}, accuracy {acc:.4f}, "
+          f"launches {got}", flush=True)
+    if got["K1"] != n_layers or not math.isfinite(loss):
+        raise AssertionError(f"ssl eval_step: launches {got}, loss {loss}")
+    launches["K1"] += got["K1"]
+    report["steps"] = step_summary(records)
+    del pt, model, before
+    torch.cuda.empty_cache()
+
+    save_dir = os.path.join(os.path.dirname(manifest), "exp_ssl")
+    args = ["--model_name", "ssl", "--init", "random", "--train_manifest",
+            manifest, "--val_manifest", small_manifest, "--batch_size", "16",
+            "--save_dir", save_dir, "--log_every_n_steps", "1",
+            "--save_top_k", "1"]
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    gt_pretrain.main(args + ["--max_steps", "2"])
+    ckpts = [f for f in os.listdir(save_dir) if f.endswith(".ckpt")]
+    gt_pretrain.main(args + ["--max_steps", "3", "--resume_from_checkpoint",
+                             os.path.join(save_dir, ckpts[0])])
+    torch.cuda.synchronize()
+    got = counts()
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r["step"] for r in recs if r["kind"] == "train"]
+    # 3 steps in all, one validation batch after each run
+    want = {"K3": 3 * n_layers, "K4": 3 * n_layers, "K1": 2 * n_layers}
+    print(f"main path pretrain CLI v3_ssl, 2 steps, then a resume for 1: "
+          f"{time.perf_counter() - t0:.1f} s, steps {steps}, launches {got}; "
+          f"card {card}", flush=True)
+    if got != {k: want.get(k, 0) for k in got} or steps != [1, 2, 3]:
+        raise AssertionError(f"pretrain CLI: launches {got}, steps {steps}")
+    if not os.path.isfile(os.path.join(save_dir, "final.npz")):
+        raise AssertionError("pretrain CLI wrote no final.npz")
+    for k, n in got.items():
+        launches[k] += n
+    shutil.rmtree(save_dir)
+    report["launches"] = dict(launches)
+    return report
+
+
+def gt_tokenizer():
+    from gigaam_tpu_torch.decode.tokenizer import Tokenizer
+
+    return Tokenizer(list(RU_VOCAB))
+
+
+def conv1d_phase(rng, card: str) -> dict:
+    """A full-width v3 config with conv1d subsampling: ``encode_batch`` of
+    16 clips of 1-2 s on the card in bf16 (K1) against the CPU fp32 model;
+    then the card in fp32 (TF32 off, the composed attention), whose greedy
+    ids equal the CPU's on every frame with a margin of CONV1D_MARGIN."""
+    cfg = make_preset("v3_ctc")
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, subsampling="conv1d"))
+    wavs = [synth_wav(s, rng) for s in np.linspace(1.0, 2.0, 16)]
+    card_model = gt.GigaAMASR(cfg, seed=0)
+    cpu = gt.GigaAMASR(cfg, seed=0, device="cpu")
+    with torch.inference_mode():
+        enc_c, len_c = cpu.encode_batch(wavs)
+        lp_c = ctc_log_probs(cpu.head, enc_c)
+        fa.reset_launch_counts()
+        enc_g, len_g = card_model.encode_batch(wavs)
+        torch.cuda.synchronize()
+        got = counts()
+        lp_g = ctc_log_probs(card_model.head, enc_g).float().cpu()
+        card_model.compute_dtype = torch.float32
+        card_model.use_fused_attention = False
+        enc_32, _ = card_model.encode_batch(wavs)
+        lp_32 = ctc_log_probs(card_model.head, enc_32).cpu()
+    if got != {k: (cfg.encoder.n_layers if k == "K1" else 0) for k in got}:
+        raise AssertionError(f"conv1d: launches {got}")
+    if not torch.equal(len_g.cpu(), len_c):
+        raise AssertionError("conv1d: lengths differ")
+    rows = torch.arange(enc_c.shape[1])[None, :] < len_c[:, None]
+    diff = (enc_g.float().cpu() - enc_c)[rows]
+    rel = float(diff.norm() / enc_c[rows].norm())
+    top2 = lp_c.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])[rows]
+    ids_c = lp_c.argmax(-1)[rows]
+    ids_g, ids_32 = lp_g.argmax(-1)[rows], lp_32.argmax(-1)[rows]
+    clear = margin >= CONV1D_MARGIN
+    flips_32 = int((ids_32 != ids_c)[clear].sum())
+    bf16_agree = float((ids_g == ids_c).float().mean())
+    wrong = margin[ids_g != ids_c]
+    rec = {"launches": got, "bf16_relative": rel,
+           "bf16_ids_agree": bf16_agree,
+           "bf16_largest_flipped_margin": (float(wrong.max()) if len(wrong)
+                                           else 0.0),
+           "fp32_frames_compared": int(clear.sum()),
+           "frames": int(rows.sum()), "fp32_flips": flips_32}
+    print(f"conv1d v3 encode_batch 16 x 1-2 s, T'={enc_c.shape[1]}: card "
+          f"bf16 (K1, launches {got}) vs CPU fp32 relative {rel:.4f} (tol "
+          f"{ENCODER_RTOL}), ids agree on {bf16_agree:.4f}; card fp32 "
+          f"(composed attention) ids equal the CPU's on "
+          f"{int(clear.sum()) - flips_32} of {int(clear.sum())} frames with a "
+          f"margin >= {CONV1D_MARGIN} ({int(rows.sum())} valid); card "
+          f"{card}", flush=True)
+    if not rel <= ENCODER_RTOL or flips_32:
+        raise AssertionError(f"conv1d: {rec}")
+    del card_model, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ingest_train_path(card: str) -> dict:
+    """Phase 17: reference checkpoints in, RNNT fine-tuning with selective
+    remat, BEST-RQ pretraining, conv1d subsampling."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    report = {"seconds_by_step": {}}
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+
+    with tempfile.TemporaryDirectory() as root:
+        report["ingest"] = ingestion_phase(root, rng, card)
+        lap("ingestion")
+        manifest = write_train_set(root, rng, 32, 10.0, 20.0)
+        small = os.path.join(root, "small")
+        os.makedirs(small)
+        small_manifest = write_train_set(small, rng, 4, 2.0, 4.0)
+        report["rnnt_train"] = rnnt_training_phase(manifest, card)
+        lap("rnnt training")
+        training_reference_phase("v3_rnnt", small_manifest)
+        lap("rnnt training reference")
+        report["ssl"] = ssl_phase(manifest, small_manifest, card)
+        lap("BEST-RQ")
+    report["conv1d"] = conv1d_phase(rng, card)
+    lap("conv1d")
+    launches = defaultdict(int)
+    for part in (report["ingest"], report["rnnt_train"], report["ssl"],
+                 report["conv1d"]):
+        for k, n in part["launches"].items():
+            launches[k] += n
+    report["launches"] = dict(launches)
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3594,6 +4108,9 @@ def main() -> int:
     beam = beam_path(card)
     for key in ("K1", "K2"):
         launches[key] += beam["launches"][key]
+    ingest_train = ingest_train_path(card)
+    for key, n in ingest_train["launches"].items():
+        launches[key] += n
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -3629,6 +4146,7 @@ def main() -> int:
     print("rnnt " + json.dumps(rnnt))
     print("longform " + json.dumps(longform))
     print("rnnt_beam " + json.dumps(beam))
+    print("ingest_train " + json.dumps(ingest_train))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

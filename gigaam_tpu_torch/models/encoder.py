@@ -1,6 +1,6 @@
 """Conformer encoder, inference and training forward (port of
 ``gigaam_tpu/models/encoder.py``): the rotary (v3) and the rel-pos (v1/v2)
-generations, with conv2d subsampling.
+generations, with conv2d or conv1d subsampling.
 
 * Parameters live in ``nn.ParameterDict``/``nn.ModuleDict`` trees keyed as in
   the JAX package; the JAX tree's per-layer leaves, stacked on a leading
@@ -14,12 +14,17 @@ generations, with conv2d subsampling.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..config import EncoderConfig
 from ..ops.attention import relpos_mha, rotary_mha
@@ -27,6 +32,7 @@ from ..ops.conformer_ops import (
     conformer_conv,
     ffn,
     layer_norm,
+    striding_subsampling_conv1d,
     striding_subsampling_conv2d,
 )
 from ..ops.fused_attention import (
@@ -198,8 +204,8 @@ class ConformerLayer(nn.ModuleDict):
 class ConformerEncoder(nn.Module):
     def __init__(self, cfg: EncoderConfig, state: Dict[str, Any]):
         super().__init__()
-        if cfg.subsampling != "conv2d":
-            raise NotImplementedError("conv1d subsampling is not ported")
+        if cfg.subsampling not in ("conv1d", "conv2d"):
+            raise ValueError(f"unknown subsampling {cfg.subsampling!r}")
         self.cfg = cfg
         self.pre_encode = as_module(state["pre_encode"])
         self.layers = nn.ModuleList(
@@ -214,6 +220,20 @@ class ConformerEncoder(nn.Module):
 
 
 BNStats = Optional[Dict[str, torch.Tensor]]
+
+REMAT_POLICIES = ("full", "dots")
+# the 2-D products: a [B, T, D] @ [D, O] ``linear`` dispatches to one of
+# these; the attention's batched products (``aten.bmm``) and its kernels
+# are not among them
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``, the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``: keep the outputs of the products
+    without batch dimensions, recompute everything else in the backward."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
@@ -291,26 +311,28 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
 
     ``cfg.activation_checkpointing`` (under ``train``) recomputes each
     layer's forward in the backward pass instead of keeping its
-    activations: ``remat_policy="full"`` only."""
-    x, out_len = striding_subsampling_conv2d(
+    activations: all of it under ``remat_policy="full"``; under ``"dots"``
+    all but the 2-D products' outputs (``save_dots``)."""
+    subsample = (striding_subsampling_conv2d if cfg.subsampling == "conv2d"
+                 else striding_subsampling_conv1d)
+    x, out_len = subsample(
         encoder.pre_encode, feats.to(compute_dtype), lengths,
         cfg.num_subsampling_stages, cfg.subs_kernel_size)
     t = x.shape[1]
     valid = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
     remat = cfg.activation_checkpointing and train
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported: "
-            "torch.utils.checkpoint has no counterpart of "
-            "dots_with_no_batch_dims_saveable (ROADMAP Queue 1 item 13); "
-            "use remat_policy='full'")
+    if remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {cfg.remat_policy!r}")
     bn_train = train if bn_train is None else bn_train
     stats = []
     for lp in encoder.layers:
         if remat:
+            kw = ({} if cfg.remat_policy == "full" else {"context_fn": partial(
+                create_selective_checkpoint_contexts, save_dots)})
             x, new_stats = checkpoint(_layer_forward, lp, x, pos, valid, cfg,
                                       train, bn_train, use_fused,
-                                      use_reentrant=False)
+                                      use_reentrant=False, **kw)
         else:
             x, new_stats = _layer_forward(lp, x, pos, valid, cfg, train,
                                           bn_train, use_fused)
@@ -378,8 +400,11 @@ def _init_layer(gen: torch.Generator, cfg: EncoderConfig) -> Dict[str, Any]:
             "depthwise_conv": {"w": _uniform(gen, (d, 1, k), dw_bound),
                                "b": _uniform(gen, (d,), dw_bound)},
             "pointwise_conv2": init_linear(gen, d, d),
-            "batch_norm": dict(_init_norm(d), mean=torch.zeros(d),
-                               var=torch.ones(d)),
+            # running stats only for a BatchNorm, as the JAX init
+            "batch_norm": (dict(_init_norm(d), mean=torch.zeros(d),
+                                var=torch.ones(d))
+                           if cfg.conv_norm_type == "batch_norm"
+                           else _init_norm(d)),
         },
         "norm_feed_forward2": _init_norm(d),
         "feed_forward2": ffn_p(),
@@ -393,16 +418,19 @@ def init_encoder_state(gen: torch.Generator, cfg: EncoderConfig
     the JAX package's ``PRNGKey`` init; tests share weights through
     ``weights.params_from_jax`` instead."""
     pre: Dict[str, Any] = {}
-    in_ch, ks = 1, cfg.subs_kernel_size
+    conv2d = cfg.subsampling == "conv2d"
+    kernel = (cfg.subs_kernel_size,) * (2 if conv2d else 1)
+    in_ch = 1 if conv2d else cfg.feat_in
     for i in range(cfg.num_subsampling_stages):
-        bound = 1.0 / math.sqrt(in_ch * ks * ks)
-        pre[f"conv_{i}"] = {"w": _uniform(gen, (cfg.d_model, in_ch, ks, ks),
+        bound = 1.0 / math.sqrt(in_ch * math.prod(kernel))
+        pre[f"conv_{i}"] = {"w": _uniform(gen, (cfg.d_model, in_ch, *kernel),
                                           bound),
                             "b": _uniform(gen, (cfg.d_model,), bound)}
         in_ch = cfg.d_model
-    f_out = cfg.feat_in
-    for _ in range(cfg.num_subsampling_stages):
-        f_out = (f_out - 1) // 2 + 1
-    pre["out"] = init_linear(gen, cfg.d_model * f_out, cfg.d_model)
+    if conv2d:
+        f_out = cfg.feat_in
+        for _ in range(cfg.num_subsampling_stages):
+            f_out = (f_out - 1) // 2 + 1
+        pre["out"] = init_linear(gen, cfg.d_model * f_out, cfg.d_model)
     return {"pre_encode": pre,
             "layers": [_init_layer(gen, cfg) for _ in range(cfg.n_layers)]}

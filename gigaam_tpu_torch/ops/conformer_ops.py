@@ -10,6 +10,7 @@ Weights layout (``weights.py`` converts from the JAX package):
 * Linear: w [in, out], b [out]  (unchanged: ``x @ w + b``)
 * Conv1d depthwise: w [C, 1, K]  (JAX [K, 1, C])
 * Conv2d: w [Cout, Cin, Kh, Kw]  (JAX [Kh, Kw, Cin, Cout])
+* Conv1d subsampling: w [Cout, Cin, K]  (JAX [K, Cin, Cout])
 """
 
 from __future__ import annotations
@@ -203,3 +204,26 @@ def striding_subsampling_conv2d(
     # cur_len IS subsampled_length(lengths, num_stages): return the value
     # the masks used, so masking and reported lengths cannot drift apart
     return linear(p["out"], x), cur_len
+
+
+def striding_subsampling_conv1d(
+    p: Mapping[str, Params],
+    feats: torch.Tensor,
+    lengths: torch.Tensor,
+    num_stages: int,
+    kernel_size: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """conv1d subsampling: feats [B, T, F] -> [B, T', d_model].
+
+    Each stage is a stride-2 ``F.conv1d`` over time on [B, C, T] (padding
+    (K-1)//2), then bias and ReLU, the time tail re-masked after it."""
+    pad = (kernel_size - 1) // 2
+    x = _mask_time(feats.transpose(1, 2), lengths, dim=2)   # [B, F, T]
+    cur_len = lengths
+    for i in range(num_stages):
+        conv = p[f"conv_{i}"]
+        x = F.relu(F.conv1d(x, conv["w"].to(x.dtype), conv["b"].to(x.dtype),
+                            stride=2, padding=pad))
+        cur_len = subsampled_length(cur_len, 1, kernel_size)
+        x = _mask_time(x, cur_len, dim=2)
+    return x.transpose(1, 2).contiguous(), cur_len

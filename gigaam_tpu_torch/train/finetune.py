@@ -1,4 +1,4 @@
-"""CTC fine-tuning: train state and train step (port of
+"""CTC and RNNT fine-tuning: train state and train step (port of
 ``gigaam_tpu/train/finetune.py``, itself a re-architecture of the reference
 Lightning module, ``train_utils/module.py:16-271``).
 
@@ -18,8 +18,14 @@ Lightning module, ``train_utils/module.py:16-271``).
   runs BatchNorm in eval mode; its gradients are still computed and still
   count in the reported ``grad_norm``, as in the JAX package.
 
-Not ported here: the RNNT objective, and training across devices (the JAX
-package's ``mesh`` argument).
+* the RNNT objective runs on fp32 encodings through the chunked joint and
+  the wavefront loss (``ops/rnnt_loss.py``), as the JAX package's does;
+* activation checkpointing recomputes each encoder layer in the backward,
+  whole (``remat_policy="full"``) or but for its 2-D products' outputs
+  (``"dots"``, ``models/encoder.py::save_dots``).
+
+Not ported here: training across devices (the JAX package's ``mesh``
+argument).
 """
 
 from __future__ import annotations
@@ -36,10 +42,12 @@ import torch
 
 from ..config import CTCHeadConfig, ModelConfig
 from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
+from ..decode.rnnt_greedy import rnnt_extract
 from ..metrics import wer_counts
 from ..models import heads as heads_lib
 from ..models.encoder import conformer_forward
 from ..ops.ctc_loss import ctc_loss
+from ..ops.rnnt_loss import rnnt_loss
 from ..ops.spec_augment import spec_augment
 from ..weights import (
     _flatten,
@@ -67,8 +75,8 @@ class TrainConfig:
     precision: str = "bf16"          # "bf16" | "fp32"
     rnnt_time_chunk: int = 64
     activation_checkpointing: bool = False
-    # "full" (reference semantics: recompute whole layers); "dots" (save
-    # matmul outputs) is not ported and raises in the encoder
+    # "full" (reference semantics: recompute whole layers) or "dots" (save
+    # the 2-D products' outputs; a faster backward for more memory)
     remat_policy: str = "full"
     accumulate_grad_batches: int = 1
 
@@ -123,7 +131,7 @@ class TrainerBase:
             activation_checkpointing=tc.activation_checkpointing,
             remat_policy=tc.remat_policy)
 
-        named = list(model.named_parameters())
+        named = self._named_parameters()
         not_fp32 = [n for n, p in named if n.startswith("encoder.")
                     and p.dtype != torch.float32]
         if not_fp32:
@@ -149,6 +157,20 @@ class TrainerBase:
         self.on_phase: Optional[Callable[[str], None]] = None
 
     # hooks ------------------------------------------------------------
+
+    def _named_parameters(self) -> List[Tuple[str, torch.nn.Parameter]]:
+        """Every leaf that records a gradient, by name; a subclass with
+        leaves of its own (an extra head) adds them."""
+        return list(self.model.named_parameters())
+
+    def _extra_arrays(self) -> Dict[str, np.ndarray]:
+        """Arrays beyond the model's parameters that a train checkpoint
+        keeps (a subclass's own leaves), by ``/``-joined name."""
+        return {}
+
+    def _restore_extra(self, tree: Dict[str, Any]) -> None:
+        """Read back what ``_extra_arrays`` saved (the unflattened tree of
+        every ``params/`` array)."""
 
     def _trainable(self, name: str) -> bool:
         if is_bn_buffer(name):
@@ -242,6 +264,8 @@ class TrainerBase:
         JSON metadata entry.  No pickle anywhere."""
         arrays = {f"params/{k}": v
                   for k, v in _flatten(params_to_jax(self.model)).items()}
+        arrays.update({f"params/{k}": v
+                       for k, v in self._extra_arrays().items()})
         opt_step = 0.0
         for i, (name, p) in enumerate(zip(self._train_names,
                                           self._train_params)):
@@ -281,16 +305,19 @@ class TrainerBase:
                     if meta["train_config"].get(k) != v}
             warnings.warn(f"restoring {path} under a different TrainConfig "
                           f"(ckpt vs current): {diff}")
-        state = params_from_jax(migrate_params(_unflatten(
+        tree = migrate_params(_unflatten(
             {k[len("params/"):]: v for k, v in arrays.items()
-             if k.startswith("params/")})))
+             if k.startswith("params/")}))
+        state = params_from_jax(tree)
         enc = self.model.encoder
         load_state_into(enc.pre_encode, state["encoder"]["pre_encode"])
         if len(state["encoder"]["layers"]) != len(enc.layers):
             raise ValueError(f"{path}: layer count does not match the model")
-        for layer, tree in zip(enc.layers, state["encoder"]["layers"]):
-            load_state_into(layer, tree)
-        load_state_into(self.model.head, state["head"])
+        for layer, layer_tree in zip(enc.layers, state["encoder"]["layers"]):
+            load_state_into(layer, layer_tree)
+        if hasattr(self.model, "head"):
+            load_state_into(self.model.head, state["head"])
+        self._restore_extra(tree)
 
         def like(p: torch.Tensor, a: np.ndarray) -> torch.Tensor:
             # the parameter's own strides, as AdamW allocates its moments
@@ -323,16 +350,15 @@ class TrainerBase:
 
 
 class FineTuner(TrainerBase):
-    """CTC fine-tuning loop around a ``GigaAMASR`` model (reference
-    ``train_utils/module.py:16-271``).  The model's device is the trainer's;
-    build the model with ``device="cpu"`` to train on the CPU."""
+    """CTC or RNNT fine-tuning loop around a ``GigaAMASR`` model (reference
+    ``train_utils/module.py:16-271``); the head decides the objective.  The
+    model's device is the trainer's; build the model with ``device="cpu"``
+    to train on the CPU."""
 
     def __init__(self, model, tc: TrainConfig, seed: int = 0):
-        if not isinstance(model.cfg.head, CTCHeadConfig):
-            raise NotImplementedError(
-                "only the CTC objective is ported; the RNNT loss is not")
-        self.blank_id = model.cfg.head.num_classes - 1
-        self.mode = "ctc"
+        self.blank_id = model.blank_id
+        self.mode = ("ctc" if isinstance(model.cfg.head, CTCHeadConfig)
+                     else "rnnt")
         super().__init__(model, tc, seed)
 
     # ------------------------------------------------------------------
@@ -355,8 +381,17 @@ class FineTuner(TrainerBase):
             self.model.encoder, feats.transpose(1, 2), feat_lens,
             self.enc_cfg, self._pos(wavs.shape[1]), compute_dtype,
             train=train, bn_train=train and not self.tc.freeze_encoder)
-        logits = heads_lib.ctc_logits(self.model.head, encoded)
-        loss = ctc_loss(logits, enc_lens, tokens, tok_lens, self.blank_id)
+        if self.mode == "ctc":
+            logits = heads_lib.ctc_logits(self.model.head, encoded)
+            loss = ctc_loss(logits, enc_lens, tokens, tok_lens, self.blank_id)
+        else:
+            # no lower clip on enc_lens: a pad row must reach the loss as 0
+            # to leave the mean; an empty transcript (tok_lens 0) is valid
+            loss = rnnt_loss(
+                self.model.head, encoded.float(), tokens,
+                torch.clamp(enc_lens, max=encoded.shape[1]),
+                torch.clamp(tok_lens, 0, tokens.shape[1]),
+                self.blank_id, self.tc.rnnt_time_chunk)
         return loss, (bn_stats, encoded, enc_lens)
 
     # ------------------------------------------------------------------
@@ -373,10 +408,17 @@ class FineTuner(TrainerBase):
 
     def decode(self, encoded: torch.Tensor, enc_lens: torch.Tensor
                ) -> List[str]:
-        with torch.inference_mode():
-            log_probs = heads_lib.ctc_log_probs(self.model.head, encoded)
-            labels, keep = ctc_greedy_mask(log_probs, enc_lens)
-        decoded = ctc_extract(labels.cpu().numpy(), keep.cpu().numpy())
+        if self.mode == "ctc":
+            with torch.inference_mode():
+                log_probs = heads_lib.ctc_log_probs(self.model.head, encoded)
+                labels, keep = ctc_greedy_mask(log_probs, enc_lens)
+            decoded = ctc_extract(labels.cpu().numpy(), keep.cpu().numpy())
+        else:
+            tokens, frames, counts = self.model.rnnt.decode(
+                self.model.head, encoded, enc_lens,
+                max_symbols=self.cfg.decoding.max_symbols_per_step)
+            decoded = rnnt_extract(tokens.cpu().numpy(), frames.cpu().numpy(),
+                                   counts.cpu().numpy())
         tok = self.model.tokenizer
         return [tok.decode(ids) for ids, _ in decoded]
 

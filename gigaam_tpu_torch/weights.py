@@ -9,7 +9,8 @@ numpy and json only.
 
 Layouts (JAX -> port):
 * Linear ``w`` [in, out]: unchanged, so the bridge is a plain copy.
-* conv2d [Kh, Kw, Cin, Cout] -> torch [Cout, Cin, Kh, Kw].
+* conv2d [Kh, Kw, Cin, Cout] -> torch [Cout, Cin, Kh, Kw]; the conv1d
+  subsampling's [K, Cin, Cout] -> torch [Cout, Cin, K].
 * depthwise conv [K, 1, C] -> torch [C, 1, K].
 * per-layer leaves stacked on a leading layer axis -> one dict per layer.
 * GLU value/gate leaves stay separate; legacy artifacts that fused them
@@ -87,7 +88,9 @@ def load_params_npz(path: str) -> Tree:
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))            # a writable copy
+    # a writable C-contiguous copy: a transposed leaf would otherwise keep
+    # its strides, and a library kernel may pick another algorithm for them
+    return torch.from_numpy(np.array(a, order="C"))
 
 
 def _layer_leaf(path: Tuple[str, ...], a: np.ndarray) -> torch.Tensor:
@@ -119,11 +122,11 @@ def params_from_jax(tree: Tree) -> Tree:
     enc = tree["encoder"]
     pre = {}
     for name, p in enc["pre_encode"].items():
-        if name.startswith("conv_") and p["w"].ndim == 4:
-            pre[name] = {"w": _tensor(p["w"].transpose(3, 2, 0, 1)),
+        if name.startswith("conv_"):
+            w = np.asarray(p["w"])
+            axes = (3, 2, 0, 1) if w.ndim == 4 else (2, 1, 0)
+            pre[name] = {"w": _tensor(w.transpose(axes)),
                          "b": _tensor(p["b"])}
-        elif name.startswith("conv_"):
-            raise NotImplementedError("conv1d subsampling is not ported")
         else:
             pre[name] = _map(p, lambda _, a: _tensor(a))
     stacked = enc["layers"]
@@ -202,8 +205,9 @@ def params_to_jax(model) -> Tree:
     pre = {}
     for name, p in module_tree(model.encoder.pre_encode).items():
         if name.startswith("conv_"):
-            pre[name] = {"w": _numpy(p["w"]).transpose(2, 3, 1, 0),
-                         "b": _numpy(p["b"])}
+            w = _numpy(p["w"])
+            axes = (2, 3, 1, 0) if w.ndim == 4 else (2, 1, 0)
+            pre[name] = {"w": w.transpose(axes), "b": _numpy(p["b"])}
         else:
             pre[name] = _map(p, lambda _, a: _numpy(a))
     per_layer = [_map(module_tree(layer), lambda _, a: _numpy(a))

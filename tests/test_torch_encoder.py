@@ -180,3 +180,73 @@ def test_encoder_matches_jax(monkeypatch, d_model, n_heads, batch, t_feat,
     assert calls == {kernel: cfg.n_layers}
     for b, n in enumerate(ref_len):
         np.testing.assert_allclose(got[b, :n], ref[b, :n], atol=ATOL)
+
+
+def conv1d_cfg(d_model=64, n_heads=4):
+    import dataclasses
+
+    return dataclasses.replace(encoder_cfg(d_model, n_heads),
+                               subsampling="conv1d")
+
+
+def test_conv1d_subsampling_matches_jax_with_tail_masking():
+    """Two stride-2 ``F.conv1d`` stages against
+    ``striding_subsampling_conv1d``, the time tail re-masked (the log-mel
+    pad floor of a short row never reaches its valid frames)."""
+    cfg = conv1d_cfg()
+    params, enc = jax_encoder_and_port(cfg, seed=4)
+    assert enc.pre_encode["conv_0"]["w"].shape == (64, 64, 3)
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((3, 101, 64)).astype(np.float32)
+    feats[1, 60:] = np.log(1e-9)
+    lengths = np.array([101, 60, 13], np.int32)
+    ref, ref_len = jops.striding_subsampling_conv1d(
+        params["pre_encode"], jnp.asarray(feats), jnp.asarray(lengths), 2)
+    got, got_len = tops.striding_subsampling_conv1d(
+        enc.pre_encode, t(feats), t(lengths), 2)
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    alone, alone_len = tops.striding_subsampling_conv1d(
+        enc.pre_encode, t(feats[1:2, :60]), t(lengths[1:2]), 2)
+    n = int(alone_len[0])
+    np.testing.assert_allclose(got[1, :n].numpy(), alone[0, :n].numpy(),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("batch,t_feat", [(1, 121), (4, 203)])
+def test_conv1d_encoder_matches_jax(batch, t_feat):
+    """The whole conv1d encoder within 1e-5 of the JAX package's on valid
+    frames (the JAX init's weights, through the bridge)."""
+    cfg = conv1d_cfg()
+    params, enc = jax_encoder_and_port(cfg, seed=5)
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((batch, t_feat, 64)).astype(np.float32)
+    lengths = np.linspace(t_feat, t_feat // 2, batch).astype(np.int32)
+    got, ref, ref_len = run_both(cfg, params, enc, feats, lengths)
+    for b, n in enumerate(ref_len):
+        np.testing.assert_allclose(got[b, :n], ref[b, :n], atol=1e-5)
+
+
+def test_conv1d_random_init_and_bridge_round_trip():
+    """The port's own init of a conv1d encoder has the JAX tree's shapes,
+    and the bridge carries its [Cout, Cin, K] weights there and back."""
+    from gigaam_tpu_torch.weights import params_to_jax
+
+    cfg = conv1d_cfg()
+    jparams = jax.tree.map(np.asarray, jenc.init_encoder_params(
+        jax.random.PRNGKey(0), cfg))
+    state = tenc.init_encoder_state(torch.Generator().manual_seed(0),
+                                    port_cfg(cfg))
+    port = tenc.ConformerEncoder(port_cfg(cfg), state)
+    for name, p in jparams["pre_encode"].items():
+        for leaf, a in p.items():
+            want = a.transpose(2, 1, 0).shape if leaf == "w" else a.shape
+            assert tuple(port.pre_encode[name][leaf].shape) == want
+    holder = torch.nn.Module()
+    holder.encoder = port
+    tree = params_to_jax(holder)["encoder"]["pre_encode"]
+    back = params_from_jax({"encoder": {"pre_encode": tree,
+                                        "layers": jparams["layers"]}})
+    for name in tree:
+        assert torch.equal(back["encoder"]["pre_encode"][name]["w"],
+                           port.pre_encode[name]["w"])

@@ -192,8 +192,11 @@ def test_port_runs_without_jax_or_the_jax_package():
     VAD, ``align`` and ``align_batch``, trains an n-gram LM, saves and
     reloads it, decodes with the CTC prefix beam and the RNNT beam (with
     the LM as an object, a path, and a dense and a sparse device table), runs
-    the eval CLI with its beam and LM flags, and has imported neither
-    ``jax`` nor ``gigaam_tpu``."""
+    the eval CLI with its beam and LM flags, loads a reference ``.ckpt``
+    (the committed OmegaConf fixture) through ``load_model`` and converts it
+    with the converter's entry point, computes an RNNT loss, takes an RNNT
+    train step under ``remat_policy="dots"`` and a BEST-RQ step, and has
+    imported neither ``jax`` nor ``gigaam_tpu``."""
     code = (
         "import sys, numpy as np\n"
         "import gigaam_tpu_torch as gt\n"
@@ -325,6 +328,39 @@ def test_port_runs_without_jax_or_the_jax_package():
         "                   '--lm', lm_path, '--out',\n"
         "                   os.path.join(root, 'p.jsonl')])\n"
         "print('eval beam', os.path.isfile(os.path.join(root, 'p.jsonl')))\n"
+        "from gigaam_tpu_torch import checkpoint as ck\n"
+        "fixture = os.path.join('tests', 'data', 'ref_cfg_omegaconf.ckpt')\n"
+        "m = gt.load_model(fixture, device='cpu')\n"
+        "print('ckpt', type(m.transcribe(wav).text).__name__,\n"
+        "      ck.config_from_reference is not None)\n"
+        "from gigaam_tpu_torch.tools import convert_checkpoint, convert_vad\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    convert_checkpoint.main([fixture, '--out',\n"
+        "                             os.path.join(root, 'conv')])\n"
+        "print('convert', os.path.isfile(os.path.join(root, 'conv.npz')),\n"
+        "      callable(convert_vad.main))\n"
+        "from gigaam_tpu_torch.ops.rnnt_loss import rnnt_loss\n"
+        "enc, lens = r.encode_batch([wav])\n"
+        "with torch.inference_mode():\n"
+        "    loss = rnnt_loss(r.head, enc.float(), torch.tensor([[1, 2]]),\n"
+        "                     lens, torch.tensor([2]), r.blank_id)\n"
+        "print('rnnt loss', bool(torch.isfinite(loss)))\n"
+        "cfg = gt.make_preset('v3_rnnt')\n"
+        "cfg.encoder = EncoderConfig(\n"
+        "    n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2)\n"
+        "cfg.head.joint.enc_hidden = 64\n"
+        "ft = FineTuner(gt.GigaAMASR(cfg, device='cpu'), TrainConfig(\n"
+        "    precision='fp32', activation_checkpointing=True,\n"
+        "    remat_policy='dots'))\n"
+        "print('rnnt step', float(ft.train_step(batch)['loss']) > 0)\n"
+        "from gigaam_tpu_torch.train.pretrain import (\n"
+        "    PretrainConfig, SSLPretrainer)\n"
+        "cfg = gt.make_preset('v3_ssl')\n"
+        "cfg.encoder = EncoderConfig(\n"
+        "    n_layers=1, d_model=64, n_heads=4, ff_expansion_factor=2)\n"
+        "pt = SSLPretrainer(gt.GigaAM(cfg, device='cpu'), PretrainConfig(\n"
+        "    precision='fp32', codebook_size=64, mask_prob=0.3))\n"
+        "print('ssl step', float(pt.train_step(batch[:2])['loss']) > 0)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'gigaam_tpu' or n.startswith('gigaam_tpu.')]\n"
         "assert not bad, bad\n")
@@ -351,6 +387,11 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert "ctc beam <class 'str'> True" in out.stdout
     assert "rnnt beam 2 True" in out.stdout
     assert "eval beam True" in out.stdout
+    assert "ckpt str True" in out.stdout
+    assert "convert True True" in out.stdout
+    assert "rnnt loss True" in out.stdout
+    assert "rnnt step True" in out.stdout
+    assert "ssl step True" in out.stdout
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -373,7 +414,12 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/decode/tokenizer.py",
             "gigaam_tpu_torch/decode/lm.py",
             "gigaam_tpu_torch/decode/ctc_beam.py",
-            "gigaam_tpu_torch/decode/rnnt_beam.py"} <= rel
+            "gigaam_tpu_torch/decode/rnnt_beam.py",
+            "gigaam_tpu_torch/checkpoint.py",
+            "gigaam_tpu_torch/ops/rnnt_loss.py",
+            "gigaam_tpu_torch/train/pretrain.py",
+            "gigaam_tpu_torch/tools/convert_checkpoint.py",
+            "gigaam_tpu_torch/tools/convert_vad.py"} <= rel
     for path in cuda:
         with open(path) as f:
             for line in f:

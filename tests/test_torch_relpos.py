@@ -266,9 +266,22 @@ def test_relpos_encoder_matches_jax(monkeypatch, d_model, n_heads, batch,
 
 
 def test_conv1d_subsampling_is_refused():
-    cfg = tconfig.EncoderConfig(subsampling="conv1d")
-    with pytest.raises(NotImplementedError, match="conv1d"):
+    """conv1d subsampling was refused until it was ported: now the encoder
+    builds and runs it (its parity with the JAX package is in
+    ``tests/test_torch_encoder.py``), and refuses an unknown kind."""
+    cfg = tconfig.EncoderConfig(subsampling="conv3d")
+    with pytest.raises(ValueError, match="conv3d"):
         tenc.ConformerEncoder(cfg, {"pre_encode": {}, "layers": []})
+    cfg = tconfig.EncoderConfig(subsampling="conv1d", n_layers=1, d_model=64,
+                                n_heads=4, ff_expansion_factor=2,
+                                self_attention_model="rel_pos")
+    enc = tenc.ConformerEncoder(cfg, tenc.init_encoder_state(
+        torch.Generator().manual_seed(0), cfg))
+    feats = torch.randn(2, 41, 64, generator=torch.Generator().manual_seed(1))
+    out, lens, _ = tenc.conformer_forward(
+        enc, feats, torch.tensor([41, 30]), cfg,
+        tenc.PosTables(cfg).relpos(11, torch.device("cpu")))
+    assert out.shape == (2, 11, 64) and lens.tolist() == [11, 8]
 
 
 def test_random_init_has_the_rel_pos_leaves():

@@ -48,6 +48,9 @@ from gigaam_tpu.config import (
     EncoderConfig,
     FeaturesConfig,
     ModelConfig,
+    RNNTDecoderConfig,
+    RNNTHeadConfig,
+    RNNTJointConfig,
     RU_VOCAB,
 )
 from gigaam_tpu import data as jdata
@@ -588,16 +591,29 @@ def test_data_and_metrics_copies_agree(tmp_path):
 # ---------------------------------------------------------------------------
 
 def tiny_cfg(kind):
-    rotary = kind == "rotary"
+    """``rotary`` and ``rel_pos``: CTC models; ``rnnt``: a rotary encoder
+    with an RNNT head (a 2-layer predictor)."""
+    rotary = kind != "rel_pos"
+    v = len(RU_VOCAB) + 1
+    if kind == "rnnt":
+        head = RNNTHeadConfig(
+            decoder=RNNTDecoderConfig(pred_hidden=32, pred_rnn_layers=2,
+                                      num_classes=v),
+            joint=RNNTJointConfig(enc_hidden=64, pred_hidden=32,
+                                  joint_hidden=48, num_classes=v))
+        decoding = DecodingConfig(kind="rnnt_greedy",
+                                  vocabulary=list(RU_VOCAB))
+    else:
+        head = CTCHeadConfig(feat_in=64, num_classes=v)
+        decoding = DecodingConfig(kind="ctc_greedy", vocabulary=list(RU_VOCAB))
     return ModelConfig(
-        model_name=f"tiny_{kind}_ctc", model_class="asr",
+        model_name=f"tiny_{kind}", model_class="asr",
         preprocessor=FeaturesConfig(center=not rotary),
         encoder=EncoderConfig(
             feat_in=64, n_layers=2, d_model=64, n_heads=4,
             ff_expansion_factor=2, conv_kernel_size=7, pos_emb_max_len=256,
             self_attention_model="rotary" if rotary else "rel_pos"),
-        head=CTCHeadConfig(feat_in=64, num_classes=len(RU_VOCAB) + 1),
-        decoding=DecodingConfig(kind="ctc_greedy", vocabulary=list(RU_VOCAB)))
+        head=head, decoding=decoding)
 
 
 def model_pair(kind, seed=0):
@@ -661,7 +677,7 @@ def assert_params_after_updates(tm, jparams, g0):
                                                       float(diff[firm].max()))
 
 
-@pytest.mark.parametrize("kind", ["rotary", "rel_pos"])
+@pytest.mark.parametrize("kind", ["rotary", "rel_pos", "rnnt"])
 def test_finetuner_gradients_match_jax(kind):
     jm, tm = model_pair(kind, seed=1)
     batch = make_batch(1)
@@ -701,6 +717,9 @@ STEP_CASES = {
     "rel_pos": ("rel_pos", {}),
     "freeze_encoder": ("rotary", {"freeze_encoder": True}),
     "accumulate_2": ("rel_pos", {"accumulate_grad_batches": 2}),
+    "rnnt": ("rnnt", {}),
+    "rnnt_remat_dots": ("rnnt", {"activation_checkpointing": True,
+                                 "remat_policy": "dots"}),
 }
 
 
@@ -745,24 +764,69 @@ def test_optimizer_steps_match_jax(case):
         assert all(moved.values()), [n for n, v in moved.items() if not v]
 
 
-def test_activation_checkpointing_gives_the_same_gradients():
+@pytest.mark.parametrize("kind", ["rel_pos", "rotary", "rnnt"])
+def test_activation_checkpointing_gives_the_same_gradients(kind):
+    """No checkpointing, ``"full"`` and ``"dots"``: the same gradients in
+    fp32 (atol 1e-6); an unknown policy is refused."""
     grads = {}
-    for remat in (False, True):
-        _, tm = model_pair("rel_pos", seed=3)
+    for remat in (None, "full", "dots"):
+        _, tm = model_pair(kind, seed=3)
         ft = tft.FineTuner(tm, tft.TrainConfig(
-            precision="fp32", grad_clip=1e30, activation_checkpointing=remat))
+            precision="fp32", grad_clip=1e30,
+            activation_checkpointing=remat is not None,
+            remat_policy=remat or "full"))
         ft.train_step(make_batch(3))
         grads[remat] = {n: p.grad for n, p in tm.named_parameters()
                         if p.grad is not None}
-    assert grads[True].keys() == grads[False].keys()
-    for name, g in grads[False].items():
-        np.testing.assert_allclose(grads[True][name].numpy(), g.numpy(),
-                                   atol=1e-6, err_msg=name)
-    _, tm = model_pair("rotary", seed=3)
+    for remat in ("full", "dots"):
+        assert grads[remat].keys() == grads[None].keys()
+        for name, g in grads[None].items():
+            np.testing.assert_allclose(grads[remat][name].numpy(), g.numpy(),
+                                       atol=1e-6, err_msg=f"{remat} {name}")
+    _, tm = model_pair(kind, seed=3)
     ft = tft.FineTuner(tm, tft.TrainConfig(
-        precision="fp32", activation_checkpointing=True, remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="remat_policy"):
+        precision="fp32", activation_checkpointing=True, remat_policy="all"))
+    with pytest.raises(ValueError, match="remat_policy"):
         ft.train_step(make_batch(3))
+
+
+def backward_products(kind, remat):
+    """The 2-D products (``aten.mm``/``addmm``) and the batched ones
+    (``aten.bmm``) that one train step runs inside ``loss.backward()``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("mm", "addmm"):
+                self.n["mm"] += 1
+            elif name == "bmm":
+                self.n["bmm"] += 1
+            return func(*args, **(kwargs or {}))
+
+    _, tm = model_pair(kind, seed=3)
+    ft = tft.FineTuner(tm, tft.TrainConfig(
+        precision="fp32", activation_checkpointing=remat is not None,
+        remat_policy=remat or "full"))
+    count = Count()
+    loss, _ = ft._forward_loss(ft._to_device(make_batch(3)), train=True)
+    with count:
+        loss.backward()
+    return count.n
+
+
+def test_dots_policy_recomputes_no_2d_product():
+    """Under ``"dots"`` the backward runs the 2-D products of the gradients
+    only, as without checkpointing; ``"full"`` runs the forward's again.
+    Both recompute the attention's batched products."""
+    counts = {r: backward_products("rotary", r) for r in (None, "full",
+                                                          "dots")}
+    assert counts["dots"]["mm"] == counts[None]["mm"] < counts["full"]["mm"]
+    assert counts[None]["bmm"] < counts["dots"]["bmm"] == counts["full"]["bmm"]
 
 
 def test_eval_step_sees_the_weights_of_the_last_update():
@@ -931,3 +995,29 @@ def test_train_cli_on_a_tiny_manifest(tmp_path):
         "--model_name", "v3_ctc", "--train_manifest", "a", "--val_manifest",
         "b", "--max_steps", "7", "--freeze_encoder"])) == (
         "v3ctc_lr0.0001_wd0.01_b16_7steps_frenc")
+
+
+def test_train_cli_fine_tunes_rnnt_under_dots(tmp_path):
+    """The CLI takes an RNNT artifact with no new flag; validation decodes
+    through the greedy label loop."""
+    tiny_manifest(tmp_path, 14)
+    _, tm = model_pair("rnnt", seed=14)
+    save_model(tm, str(tmp_path / "rnnt"))
+    out = tmp_path / "exp"
+    train_cli.main([
+        "--model_name", str(tmp_path / "rnnt.npz"), "--device", "cpu",
+        "--train_manifest", str(tmp_path / "m.tsv"),
+        "--val_manifest", str(tmp_path / "m.tsv"), "--precision", "fp32",
+        "--batch_size", "2", "--max_steps", "3", "--log_every_n_steps", "1",
+        "--activation_checkpointing", "--remat_policy", "dots",
+        "--rnnt_time_chunk", "8", "--save_dir", str(out)])
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert [r["step"] for r in recs if r["kind"] == "train"] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    assert [r["kind"] for r in recs].count("val") == 1
+    tuned = gt.load_model(str(out / "final.npz"), device="cpu")
+    assert tuned.cfg.head.kind == "rnnt"
+    moved = [n for (n, a), (_, b) in zip(tm.named_parameters(),
+                                         tuned.named_parameters())
+             if not torch.equal(a, b)]
+    assert moved
