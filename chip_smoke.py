@@ -195,11 +195,33 @@ Phases, each fatal on failure:
    2 steps and a resume for a third); a v3 config with conv1d subsampling,
    ``encode_batch`` of 16 in bf16 (K1) against the CPU fp32 model, and in
    fp32 (composed attention), whose greedy ids must equal the CPU's on
-   every frame with a margin of ``CONV1D_MARGIN``.
+   every frame with a margin of ``CONV1D_MARGIN``;
+18. export, serving, streaming and the client: full-width v3_ctc (bf16
+   weights) exported with ``to_exported`` at batch 1 and 8 x 20 s, a
+   2-layer full-width v3_ssl at 125 s (T' 3125) and a 2-layer emo, into a
+   temporary directory, reloaded by a fresh process that imports
+   ``exported_infer`` (and the launch counters): K1 16 times in the batch-8
+   graph, K2 16 in the batch-1 graph, K3 and K5 twice, counted there; the
+   log-probs bit-equal to the live model's at the same shapes (greedy ids
+   and texts equal), within ENCODER_RTOL of the composed attention; the
+   exported and the live batch-8 call timed and profiled; v3_rnnt's
+   encoder, ``decoder`` and ``joint`` at batch 8 (blank bias
+   RNNT_BLANK_BIAS), the exported label loop's tokens equal to the live
+   greedy decoder's up to any first difference, which must lie within
+   RNNT_EXPORT_MARGIN of a tie; then a v3_ctc and a v3_rnnt
+   ``BatchingASRServer`` (max_batch 8, window 15 ms, ``warmup(seconds=[5])``
+   only) at once under 32 posts of 3-20 s from 8 client threads, a 120 s
+   ``/transcribe_longform`` and a 30 s ``/transcribe_stream`` in 0.5 s
+   chunks each: every served batch equal to the live ``_decode_batch`` of
+   its rows, the longform result equal to the live one, the RNNT graphs
+   captured during the load, post latency, batches, stride latency; a
+   burst of 24 posts against a queue of 1 answered partly 503.
 
 Before the card's line, an ``rnnt`` line holds phase 14's numbers, a
-``longform`` line phase 15's, an ``rnnt_beam`` line phase 16's and an
-``ingest_train`` line phase 17's.  The
+``longform`` line phase 15's, an ``rnnt_beam`` line phase 16's, an
+``ingest_train`` line phase 17's and ``export`` and ``serve`` lines phase
+18's.  ``python3 chip_smoke.py --batch1-wall`` times batch-1
+``transcribe`` alone (``batch1_wall``).  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
@@ -226,7 +248,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
 from collections import defaultdict
 
 import numpy as np
@@ -257,6 +281,7 @@ from gigaam_tpu_torch.models.vad_net import (
     save_vad,
     sliding_class_probs,
 )
+from gigaam_tpu_torch.models.model import model_class_for
 from gigaam_tpu_torch.models.heads import (
     ctc_log_probs,
     rnnt_joint_enc_proj,
@@ -4011,10 +4036,678 @@ def ingest_train_path(card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Export, serving, streaming and the client (phase 18)
+# ---------------------------------------------------------------------------
+
+EXPORT_SECONDS = 20
+EXPORT_BATCHES = (1, 8)
+SSL_SECONDS = 125          # T' 3125, past the fold: K3
+EMO_SECONDS = 10
+# the exported RNNT loop projects the encoder frame per step, the live one
+# once per call (heads.py): fp32 sums in another order, which may flip a
+# decision only where the joint's top two log-probs lie this close
+RNNT_EXPORT_MARGIN = 1e-4
+SERVE_MAX_BATCH = 8
+SERVE_WINDOW_MS = 15.0
+SERVE_POSTS, SERVE_CLIENTS = 32, 8
+SERVE_LONG_S, SERVE_STREAM_S, SERVE_CHUNK_S = 120.0, 30.0, 0.5
+SERVE_BURST = 24           # posts at once against a queue of SERVE_SMALL_QUEUE
+SERVE_SMALL_QUEUE = 1
+
+# The fresh process that reloads the exported artifacts: it imports
+# exported_infer (and the launch counters) only, loads each artifact dir
+# onto the card and writes what the parent compares with the live models.
+EXPORTED_CHILD = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+from gigaam_tpu_torch import exported_infer as ei
+from gigaam_tpu_torch.ops import fused_attention as fa
+
+root = sys.argv[1]
+clips = np.load(os.path.join(root, "clips.npz"))
+report = {}
+
+
+def counted(fn):
+    fa.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"K1": fa.folded_rotary_attention_lnres.launches,
+                 "K2": fa.folded_rotary_attention.launches,
+                 "K3": fa.fused_mha.launches, "K5": fa.fused_relpos_mha.launches}
+
+
+t0 = time.perf_counter()
+asr = ei.ExportedASR(os.path.join(root, "v3_ctc"))
+report["v3_ctc_load_s"] = time.perf_counter() - t0
+for name, wavs in (("b8", [clips[f"w8_{i}"] for i in range(8)]),
+                   ("b1", [clips["w1"]])):
+    with torch.inference_mode():
+        g, feats, lens = asr._bucketed("ctc", wavs)
+        (lp, enc_lens), n = counted(lambda: g(feats, lens))
+    np.save(os.path.join(root, f"lp_{name}.npy"), lp.float().cpu().numpy())
+    texts, n_texts = counted(lambda: asr.transcribe_batch(wavs))
+    report[name] = {"launches": n, "transcribe_launches": n_texts,
+                    "texts": texts, "bucket": [g.meta["batch"], g.meta["t_feat"]],
+                    "enc_lens": enc_lens.cpu().tolist()}
+for kind in ("ssl", "emo"):
+    t0 = time.perf_counter()
+    cls = ei.ExportedClassifier(os.path.join(root, kind))
+    load_s = time.perf_counter() - t0
+    out, n = counted(lambda: cls.infer_batch([clips[kind]]))
+    np.save(os.path.join(root, f"out_{kind}.npy"), out[0])
+    report[kind] = {"launches": n, "load_s": load_s}
+report["jax_modules"] = [m for m in sys.modules if m.split(".")[0] in
+                         ("jax", "jaxlib", "gigaam_tpu")]
+with open(os.path.join(root, "child.json"), "w") as f:
+    json.dump(report, f)
+'''
+
+
+def two_layer(name: str, seed: int):
+    """A full-width (16 x 48) model of ``name`` cut to 2 layers, bf16
+    weights, random from ``seed``."""
+    cfg = make_preset(name)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, n_layers=2))
+    model = model_class_for(cfg)(cfg, seed=seed)
+    model.cast_encoder()
+    return model
+
+
+def graph_files(root: str, manifest: dict) -> dict:
+    return {e["file"]: os.path.getsize(os.path.join(root, e["file"])) / 1e9
+            for entries in manifest["graphs"].values() for e in entries}
+
+
+def relative(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).norm() / ref.norm())
+
+
+def live_logprobs(model, wavs, bucket: int, rows: int):
+    """The live model's log-probs and lengths for ``wavs`` padded to
+    ``rows`` and ``bucket`` samples, the shapes of an exported bucket."""
+    wavs = list(wavs) + [np.zeros(0, np.float32)] * (rows - len(wavs))
+    with torch.inference_mode():
+        dev_batch, dev_lens, _, pos = model._device_batch(wavs, bucket)
+        return model._ctc_logprobs(dev_batch, dev_lens, pos)
+
+
+def export_ctc_checks(model, root: str, clips: dict, child: dict,
+                      card: str) -> dict:
+    """The reloaded v3_ctc graphs against the live model: greedy ids and
+    texts equal, log-probs against the fused live path (max abs) and the
+    composed one (relative, ENCODER_RTOL), K1/K2 counted in the child."""
+    bucket = EXPORT_SECONDS * SAMPLE_RATE
+    out = {}
+    for name, wavs, kernel in (("b8", [clips[f"w8_{i}"] for i in range(8)],
+                                "K1"),
+                               ("b1", [clips["w1"]], "K2")):
+        rows = 8 if name == "b8" else 1
+        got = child[name]
+        want = {k: (model.cfg.encoder.n_layers if k == kernel else 0)
+                for k in got["launches"]}
+        if got["launches"] != want:
+            raise AssertionError(f"exported {name}: launches "
+                                 f"{got['launches']}, expected {want}")
+        lp = torch.from_numpy(np.load(os.path.join(root, f"lp_{name}.npy")))
+        lp_live, lens = live_logprobs(model, wavs, bucket, rows)
+        model.use_fused_attention = False
+        lp_plain, _ = live_logprobs(model, wavs, bucket, rows)
+        model.use_fused_attention = True
+        lens = lens.cpu()
+        if lens.tolist() != got["enc_lens"]:
+            raise AssertionError(f"exported {name}: lengths")
+        valid = torch.arange(lp.shape[1])[None, :] < lens[:, None]
+        ids_equal = bool((lp.argmax(-1) == lp_live.cpu().argmax(-1))[valid]
+                         .all())
+        live_texts = [t for t, _ in model._decode_batch(
+            wavs, False, pad_rows_to=rows, bucket=bucket)]
+        row = {"launches": got["launches"],
+               "max_abs_vs_live": float((lp - lp_live.cpu())[valid].abs()
+                                        .max()),
+               "relative_vs_composed": relative(lp[valid],
+                                                lp_plain.cpu()[valid]),
+               "ids_agree_composed": float((lp.argmax(-1) == lp_plain.cpu()
+                                            .argmax(-1))[valid].float()
+                                           .mean()),
+               "ids_equal_live": ids_equal,
+               "texts_equal_live": got["texts"] == live_texts}
+        print(f"  exported v3_ctc {name} ({kernel}): launches "
+              f"{got['launches']}; vs live max_abs {row['max_abs_vs_live']:.3g}"
+              f", ids equal {ids_equal}, texts equal "
+              f"{row['texts_equal_live']}; vs composed relative "
+              f"{row['relative_vs_composed']:.4f}; card {card}", flush=True)
+        if not (ids_equal and row["texts_equal_live"]
+                and row["relative_vs_composed"] <= ENCODER_RTOL):
+            raise AssertionError(f"exported v3_ctc {name}: {row}")
+        out[name] = row
+    return out
+
+
+def export_classifier_checks(models: dict, root: str, clips: dict,
+                             child: dict, card: str) -> dict:
+    """The reloaded 2-layer SSL (125 s: K3) and emo (K5) graphs against the
+    live models: within 1% of the largest live output of the fused live
+    path (the same kernels at the same shapes), within ENCODER_RTOL of the
+    composed one, their kernel counted in the child."""
+    out = {}
+    for kind, kernel in (("ssl", "K3"), ("emo", "K5")):
+        model = models[kind]
+        got = child[kind]
+        want = {k: (2 if k == kernel else 0) for k in got["launches"]}
+        if got["launches"] != want:
+            raise AssertionError(f"exported {kind}: launches "
+                                 f"{got['launches']}, expected {want}")
+        exported = torch.from_numpy(np.load(os.path.join(root,
+                                                         f"out_{kind}.npy")))
+        refs = []
+        for fused in (True, False):
+            model.use_fused_attention = fused
+            with torch.inference_mode():
+                if kind == "ssl":
+                    enc, lens = model.encode_batch([clips[kind]])
+                    refs.append(enc[0, :int(lens[0])].float().cpu())
+                else:
+                    refs.append(torch.tensor(list(
+                        model.get_probs(clips[kind]).values())))
+        model.use_fused_attention = True
+        row = {"launches": got["launches"], "load_s": got["load_s"],
+               "shape": list(exported.shape),
+               "max_abs_vs_live": float((exported - refs[0]).abs().max()),
+               "relative_vs_composed": relative(exported, refs[1])}
+        print(f"  exported {kind} ({kernel}): launches {got['launches']}, "
+              f"{row['shape']}; vs live max_abs {row['max_abs_vs_live']:.3g};"
+              f" vs composed relative {row['relative_vs_composed']:.4f}; "
+              f"card {card}", flush=True)
+        if not (row["max_abs_vs_live"] <= 1e-2 * float(refs[0].abs().max())
+                and row["relative_vs_composed"] <= ENCODER_RTOL):
+            raise AssertionError(f"exported {kind}: {row}")
+        out[kind] = row
+    return out
+
+
+def first_divergence(live, exported):
+    """(index, frame) of the first decision where two (tokens, frames)
+    sequences part, or None."""
+    (lt, lf), (et, ef) = live, exported
+    for i in range(max(len(lt), len(et))):
+        a = (lt[i], lf[i]) if i < len(lt) else None
+        b = (et[i], ef[i]) if i < len(et) else None
+        if a != b:
+            frames = [x[1] for x in (a, b) if x is not None]
+            return i, min(frames)
+    return None
+
+
+def export_rnnt_checks(model, root: str, wavs8, card: str) -> dict:
+    """Full-width v3_rnnt (blank bias RNNT_BLANK_BIAS) exported at batch 8
+    x 20 s: encoder, ``decoder`` and ``joint``.  The exported label loop's
+    (token, frame) sequences against the live greedy decoder's on the same
+    encoder output: every row equal up to its first differing decision,
+    which must be a near tie (top-2 margin <= RNNT_EXPORT_MARGIN, from a
+    teacher-forced fp32 replay of the live prefix); such rows are counted
+    and their tails not compared."""
+    from gigaam_tpu_torch import exported_infer as ei
+
+    bucket = EXPORT_SECONDS * SAMPLE_RATE
+    art = os.path.join(root, "v3_rnnt")
+    t0 = time.perf_counter()
+    manifest = model.to_exported(art, batch_sizes=(8,),
+                                 audio_seconds=(EXPORT_SECONDS,))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = ei.ExportedASR(art)
+    load_s = time.perf_counter() - t0
+    ms = model.cfg.decoding.max_symbols_per_step
+    head = model.cfg.head
+    with torch.inference_mode():
+        g, feats, lens = runner._bucketed("encoder", wavs8)
+        encoded, enc_lens = g(feats, lens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs = ei._rnnt_label_loop(
+            encoded.float(), enc_lens.cpu().numpy(), runner.graphs["decoder"][0],
+            runner.graphs["joint"][0], model.blank_id,
+            (head.decoder.pred_rnn_layers, 8, head.decoder.pred_hidden), ms)
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        dev_batch, dev_lens, _, pos = model._device_batch(wavs8, bucket)
+        enc_live, lens_live = model._encode(dev_batch, dev_lens, pos)
+        tokens, frames, counts_ = (o.cpu() for o in model.rnnt.decode(
+            model.head, enc_live, lens_live, max_symbols=ms))
+    enc_equal = bool(torch.equal(encoded, enc_live.float()))
+    live = [(tokens[b, :counts_[b]].tolist(), frames[b, :counts_[b]].tolist())
+            for b in range(8)]
+    near_ties, margins, compared = 0, [], 0
+    cpu_head = copy.deepcopy(model.head).cpu()
+    enc_cpu = enc_live.float().cpu()
+    for b in range(8):
+        split = first_divergence(live[b], pairs[b])
+        if split is None:
+            compared += int(lens_live[b])
+            continue
+        i, t = split
+        with torch.inference_mode(), full_fp32():
+            pred = rnnt_predict_sequence(
+                cpu_head, torch.tensor([live[b][0][:i]]).long())[0, i]
+            logp = rnnt_joint_step_preproj(
+                cpu_head, rnnt_joint_enc_proj(cpu_head, enc_cpu[b, t][None]),
+                pred[None])[0]
+        top = logp.topk(2).values
+        margin = float(top[0] - top[1])
+        margins.append(margin)
+        if margin > RNNT_EXPORT_MARGIN:
+            raise AssertionError(f"exported v3_rnnt row {b}: decision {i} at "
+                                 f"frame {t} differs with margin {margin}")
+        near_ties += 1
+        compared += t
+    row = {"export_s": export_s, "load_s": load_s,
+           "files_gb": graph_files(art, manifest),
+           "encoder_equal_live": enc_equal, "rows_equal": 8 - near_ties,
+           "rows_parted_at_a_near_tie": near_ties,
+           "parting_margins": margins, "frames_compared": compared,
+           "frames": int(lens_live.sum()),
+           "tokens": int(sum(len(p[0]) for p in pairs)),
+           "exported_loop_wall_ms": loop_ms}
+    print(f"  exported v3_rnnt b8: encoder equal live {enc_equal}; "
+          f"{row['rows_equal']} rows equal the live greedy decode, "
+          f"{near_ties} part at a near tie (margins {margins}); "
+          f"{row['tokens']} tokens; exported loop {loop_ms:.1f} ms wall; "
+          f"card {card}", flush=True)
+    if not enc_equal:
+        raise AssertionError("exported v3_rnnt encoder differs from live")
+    return row
+
+
+class Recorder:
+    """Records every ``_decode_batch_submit`` of a served model (rows,
+    keywords, finalized outputs) and the wall of each ``submit``."""
+
+    def __init__(self, model, server):
+        self.model, self.batches, self.submits = model, [], []
+        self._lock = threading.Lock()
+        real_submit, real_srv_submit = model._decode_batch_submit, server.submit
+
+        def submit(wavs, *a, **kw):
+            fin = real_submit(wavs, *a, **kw)
+            rec = {"wavs": [np.array(w) for w in wavs], "args": a, "kw": kw}
+
+            def finalize():
+                rec["out"] = fin()
+                with self._lock:
+                    self.batches.append(rec)
+                return rec["out"]
+            return finalize
+
+        def srv_submit(wav, timestamps, timeout=120.0):
+            t0 = time.perf_counter()
+            req = real_srv_submit(wav, timestamps, timeout)
+            with self._lock:
+                self.submits.append((timestamps, (time.perf_counter() - t0)
+                                     * 1e3, req.error))
+            return req
+
+        model._decode_batch_submit = submit
+        server.submit = srv_submit
+
+    def replay(self, label: str) -> dict:
+        """Each recorded batch again through ``_decode_batch`` (the same
+        rows and keywords), with the recording removed: texts and words
+        must be equal."""
+        del self.model._decode_batch_submit
+        sizes = []
+        for rec in self.batches:
+            again = self.model._decode_batch(rec["wavs"], *rec["args"],
+                                             **rec["kw"])
+            flat = lambda out: [(t, None if w is None else [x.to_dict()  # noqa: E731
+                                                            for x in w])
+                                for t, w in out]
+            if flat(again) != flat(rec["out"]):
+                raise AssertionError(f"{label}: a served batch differs from "
+                                     f"the live call on its rows")
+            sizes.append(len(rec["wavs"]))
+        return {"batches": len(sizes), "rows": sizes}
+
+
+def percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+def serve_load(url: str, posts, long_wav, stream_wav):
+    """The load on one server, from its own threads: SERVE_POSTS posts from
+    SERVE_CLIENTS threads, one longform post, one chunked stream.  Returns
+    the threads (started) and where their results land."""
+    from gigaam_tpu_torch import client
+
+    res = {"posts": [None] * len(posts), "latency_ms": [None] * len(posts)}
+
+    def post(i):
+        t0 = time.perf_counter()
+        res["posts"][i] = client.transcribe_one(url, posts[i], timeout=600)
+        res["latency_ms"][i] = (time.perf_counter() - t0) * 1e3
+
+    def posts_worker(k):
+        for i in range(k, len(posts), SERVE_CLIENTS):
+            post(i)
+
+    def longform():
+        t0 = time.perf_counter()
+        res["longform"] = client.transcribe_longform(url, long_wav,
+                                                     timeout=600)
+        res["longform_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def stream():
+        t0 = time.perf_counter()
+        res["stream"] = client.transcribe_stream(url, stream_wav,
+                                                 chunk_s=SERVE_CHUNK_S,
+                                                 timeout=600)
+        res["stream_ms"] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=posts_worker, args=(k,))
+               for k in range(SERVE_CLIENTS)]
+    threads += [threading.Thread(target=longform),
+                threading.Thread(target=stream)]
+    return threads, res
+
+
+def serve_phase(models: dict, rng, card: str) -> dict:
+    """A v3_ctc and a v3_rnnt ``BatchingASRServer`` on 127.0.0.1
+    (max_batch 8, window 15 ms), each after ``warmup(seconds=[5])`` only,
+    under the same load at once (so the RNNT server captures its loop's
+    graphs while the other threads submit): every served batch equal to
+    the live call on its rows, the longform result equal to the live
+    ``transcribe_longform``, each post's text against a lone live call,
+    the stream's stride latency; then a small queue's 503s."""
+    from gigaam_tpu_torch import client
+    from gigaam_tpu_torch.audio import load_wav_bytes
+    from gigaam_tpu_torch.serve import (ASRHTTPServer, BatchingASRServer,
+                                        make_handler)
+
+    posts = [synth_wav(s, rng) for s in rng.uniform(3.0, 20.0, SERVE_POSTS)]
+    long_wav = longform_audio(SERVE_LONG_S, rng)
+    stream_wav = synth_wav(SERVE_STREAM_S, rng)
+    # what the server decodes: the 16-bit WAV body the client sends
+    as_served = lambda w: load_wav_bytes(client._wav_bytes(w))  # noqa: E731
+    report, running = {}, []
+    fa.reset_launch_counts()
+    for name, model in models.items():
+        srv = BatchingASRServer(model, SERVE_MAX_BATCH, SERVE_WINDOW_MS)
+        t0 = time.perf_counter()
+        srv.warmup(seconds=[5])
+        warm_s = time.perf_counter() - t0
+        httpd = ASRHTTPServer(("127.0.0.1", 0), make_handler(srv))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        rec = Recorder(model, srv)
+        captures = model.rnnt.captures if model.rnnt is not None else None
+        threads, res = serve_load(f"http://127.0.0.1:{httpd.server_port}",
+                                  posts, long_wav, stream_wav)
+        running.append((name, model, srv, httpd, rec, threads, res, warm_s,
+                        captures))
+    t0 = time.perf_counter()
+    for *_, threads, _, _, _ in running:
+        for th in threads:
+            th.start()
+    for *_, threads, _, _, _ in running:
+        for th in threads:
+            th.join()
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = counts()
+    for name, model, srv, httpd, rec, _, res, warm_s, captures in running:
+        httpd.shutdown()
+        srv.shutdown()
+        if any(p is None or "text" not in p for p in res["posts"]):
+            raise AssertionError(f"{name} server: a post failed")
+        errors = [e for _, _, e in rec.submits if e]
+        if errors:
+            raise AssertionError(f"{name} server: {errors[:3]}")
+        replay = rec.replay(f"{name} server")
+        lone = [t for t, _ in (model._decode_batch([as_served(w)], False,
+                                                   pad_rows_to=SERVE_MAX_BATCH,
+                                                   bucket=5 * SAMPLE_RATE)[0]
+                               for w in posts)]
+        lone_equal = sum(p["text"] == t for p, t in zip(res["posts"], lone))
+        ref = model.transcribe_longform(as_served(long_wav),
+                                        fr_batch_size=srv.longform_batch,
+                                        bucket=srv.bucket_samples)
+        if res["longform"] != json.loads(json.dumps(
+                ref.to_dict(timestamps=False))):
+            raise AssertionError(f"{name} server: longform differs from live")
+        stream = res["stream"]
+        if not stream or stream[-1]["kind"] != "committed":
+            raise AssertionError(f"{name} server: stream {stream[-1:]}")
+        strides = [ms for ts, ms, _ in rec.submits if ts]
+        row = {"warmup_s": warm_s, "posts": len(posts),
+               "latency_ms_p50": percentile(res["latency_ms"], 50),
+               "latency_ms_p95": percentile(res["latency_ms"], 95),
+               "batches": replay["batches"],
+               "rows_per_batch": replay["rows"],
+               "posts_equal_lone_live_call": lone_equal,
+               "longform_ms": res["longform_ms"],
+               "longform_segments": len(ref.segments),
+               "stream_ms": res["stream_ms"], "stream_events": len(stream),
+               "stride_decodes": len(strides),
+               "stride_ms_p50": percentile(strides, 50),
+               "stride_ms_p95": percentile(strides, 95)}
+        if captures is not None:
+            row["captures_during_load"] = model.rnnt.captures - captures
+        print(f"  serve {name}: {len(posts)} posts p50 "
+              f"{row['latency_ms_p50']:.1f} ms p95 {row['latency_ms_p95']:.1f}"
+              f" ms, {row['batches']} batches {row['rows_per_batch']}, "
+              f"{lone_equal}/{len(posts)} equal to a lone call; longform "
+              f"{row['longform_ms']:.0f} ms; stream {len(strides)} strides "
+              f"p50 {row['stride_ms_p50']:.1f} ms; card {card}", flush=True)
+        report[name] = row
+    report["load_s"] = load_s
+    report["launches"] = launches
+
+    # overload: a queue of SERVE_SMALL_QUEUE under a burst of SERVE_BURST
+    model = models["v3_ctc"]
+    srv = BatchingASRServer(model, SERVE_MAX_BATCH, SERVE_WINDOW_MS,
+                            max_queue=SERVE_SMALL_QUEUE)
+    httpd = ASRHTTPServer(("127.0.0.1", 0), make_handler(srv))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    codes = []
+
+    def burst(w):
+        try:
+            client.transcribe_one(url, w, timeout=120)
+            codes.append(200)
+        except urllib.error.HTTPError as e:
+            codes.append(e.code)
+
+    threads = [threading.Thread(target=burst, args=(posts[i % len(posts)],))
+               for i in range(SERVE_BURST)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    httpd.shutdown()
+    srv.shutdown()
+    report["overload"] = {"burst": SERVE_BURST, "max_queue": SERVE_SMALL_QUEUE,
+                          "ok": codes.count(200), "503": codes.count(503)}
+    print(f"  serve overload: {report['overload']}; card {card}", flush=True)
+    if codes.count(503) == 0 or codes.count(200) + codes.count(503) != len(
+            codes):
+        raise AssertionError(f"overload: {codes}")
+    return report
+
+
+def export_timings(model, art: str, wavs8, card: str) -> dict:
+    """Exported (``ExportedASR.transcribe_batch``) against live
+    (``_decode_batch``, the same rows and bucket) at batch 8 x 20 s: wall
+    and device busy ms per call, profiled."""
+    from gigaam_tpu_torch import exported_infer as ei
+
+    runner = ei.ExportedASR(art)
+    bucket = EXPORT_SECONDS * SAMPLE_RATE
+    out = {}
+    for label, fn in (
+            ("exported", lambda: runner.transcribe_batch(wavs8)),
+            ("live", lambda: model._decode_batch(wavs8, False, pad_rows_to=8,
+                                                 bucket=bucket))):
+        fn()
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+        got = assert_launches(f"{label} b8",
+                              {"K1": 3 * model.cfg.encoder.n_layers})
+        prof = profile_calls(f"v3_ctc {label} 8 x 20 s (K1)", fn, 3, wall)
+        out[label] = {"wall_ms": wall, "device_busy_ms":
+                      prof["device_busy_ms"], "idle_share": prof["idle_share"],
+                      "launches": prof["launches"], "k1": got["K1"]}
+    print(f"  exported vs live 8 x 20 s: wall {out['exported']['wall_ms']:.2f}"
+          f" / {out['live']['wall_ms']:.2f} ms, device busy "
+          f"{out['exported']['device_busy_ms']:.2f} / "
+          f"{out['live']['device_busy_ms']:.2f} ms; card {card}", flush=True)
+    return out
+
+
+def export_serve_path(card: str) -> dict:
+    """Phase 18: export (v3_ctc at batch 1 and 8 x 20 s, reloaded in a
+    fresh process; 2-layer SSL at 125 s and emo; v3_rnnt's three graphs),
+    then two servers under load and the overload check."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    report = {"seconds_by_step": {}}
+    launches = defaultdict(int)
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+
+    ctc = gt.load_model("v3_ctc", init="random", seed=0, bf16_encoder=True)
+    ssl, emo = two_layer("v3_ssl", 1), two_layer("emo", 2)
+    nonzero_pos_biases(emo, seed=3)
+    clips = {f"w8_{i}": synth_wav(s, rng) for i, s in
+             enumerate(np.linspace(EXPORT_SECONDS - 0.9, EXPORT_SECONDS, 8))}
+    clips.update(w1=synth_wav(EXPORT_SECONDS - 0.5, rng),
+                 ssl=synth_wav(SSL_SECONDS - 0.5, rng),
+                 emo=synth_wav(EMO_SECONDS - 0.5, rng))
+    with tempfile.TemporaryDirectory() as root:
+        exports = {}
+        for name, model, batches, seconds in (
+                ("v3_ctc", ctc, EXPORT_BATCHES, EXPORT_SECONDS),
+                ("ssl", ssl, (1,), SSL_SECONDS), ("emo", emo, (1,), EMO_SECONDS)):
+            s0 = time.perf_counter()
+            art = os.path.join(root, name)
+            manifest = model.to_exported(art, batch_sizes=batches,
+                                         audio_seconds=(seconds,))
+            exports[name] = {"export_s": time.perf_counter() - s0,
+                             "files_gb": graph_files(art, manifest)}
+            print(f"  export {name}: {exports[name]}; card {card}", flush=True)
+        lap("export")
+        np.savez(os.path.join(root, "clips.npz"), **clips)
+        s0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", EXPORTED_CHILD, root],
+                               cwd=os.path.dirname(os.path.abspath(__file__)),
+                               capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise AssertionError(f"exported child failed:\n{child.stderr}")
+        with open(os.path.join(root, "child.json")) as f:
+            got = json.load(f)
+        if got["jax_modules"]:
+            raise AssertionError(f"child imported {got['jax_modules']}")
+        exports["v3_ctc"]["load_s"] = got["v3_ctc_load_s"]
+        exports["child_s"] = time.perf_counter() - s0
+        for part in ("b8", "b1", "ssl", "emo"):
+            for k, n in got[part]["launches"].items():
+                launches[k] += n
+        lap("fresh process")
+        exports["v3_ctc"]["checks"] = export_ctc_checks(ctc, root, clips, got,
+                                                        card)
+        exports.update(export_classifier_checks({"ssl": ssl, "emo": emo},
+                                                root, clips, got, card))
+        del ssl, emo
+        lap("export checks")
+        exports["v3_ctc"]["timings"] = export_timings(
+            ctc, os.path.join(root, "v3_ctc"),
+            [clips[f"w8_{i}"] for i in range(8)], card)
+        launches["K1"] += 2 * 3 * ctc.cfg.encoder.n_layers
+        lap("export timings")
+        rnnt = gt.load_model("rnnt", init="random", seed=0, bf16_encoder=True)
+        set_blank_bias(rnnt, float(rnnt.head["joint"]["out"]["b"][
+            rnnt.blank_id]), RNNT_BLANK_BIAS)
+        fa.reset_launch_counts()
+        exports["v3_rnnt"] = export_rnnt_checks(
+            rnnt, root, [clips[f"w8_{i}"] for i in range(8)], card)
+        for k, n in counts().items():
+            launches[k] += n
+        lap("v3_rnnt export")
+    report["export"] = exports
+    report["serve"] = serve_phase({"v3_ctc": ctc, "v3_rnnt": rnnt}, rng, card)
+    for k, n in report["serve"]["launches"].items():
+        launches[k] += n
+    lap("serve")
+    report["launches"] = dict(launches)
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def batch1_wall(rounds: int = 7, calls: int = 20) -> None:
+    """``python3 chip_smoke.py --batch1-wall``: the wall of v3_ctc
+    ``transcribe`` on 20 s (batch 1, K2) of whichever ``gigaam_tpu_torch``
+    is first on the path, the median over ``rounds`` rounds of ``calls``
+    calls after a warm-up.  Where the tree has them, in turns with the
+    same calls without the device lock (a no-op in its place) and without
+    the op dispatch (the encoder calling K2's body directly, the parent's
+    route), each round in another order.  Prints one ``batch1 {...}``
+    line."""
+    import contextlib
+    import statistics
+
+    from gigaam_tpu_torch.models import encoder as gt_encoder
+
+    cuda_lib.build(names=("attention", "projection"))
+    model = gt.load_model("v3_ctc", init="random", seed=0)
+    wav = synth_wav(20.0, np.random.default_rng(0))
+    lock = getattr(model, "_device_lock", None)
+    routed = gt_encoder.folded_rotary_attention
+
+    def direct(w, x, cos, sin, valid, n_heads):
+        return fa._folded_forward(w, x, cos, sin, valid, n_heads, False)
+
+    variants = {"as_shipped": (lock, routed)}
+    if lock is not None:
+        variants["no_lock"] = (contextlib.nullcontext(), routed)
+        variants["no_op_dispatch"] = (lock, direct)
+    for _ in range(3):
+        model.transcribe(wav)
+    walls = {k: [] for k in variants}
+    names = list(variants)
+    for r in range(rounds):
+        # each variant first, then last, in turn: no position favours one
+        turn = names[r % len(names):] + names[:r % len(names)]
+        for name in turn + turn[::-1]:
+            if lock is not None:
+                model._device_lock, gt_encoder.folded_rotary_attention = (
+                    variants[name])
+            walls[name].append(wall_ms(lambda: [model.transcribe(wav)
+                                                for _ in range(calls)])
+                               / calls)
+    if lock is not None:
+        model._device_lock, gt_encoder.folded_rotary_attention = lock, routed
+    print("batch1 " + json.dumps({
+        "package": os.path.dirname(gt.__file__), "card": card_line(),
+        "median_ms": {k: statistics.median(v) for k, v in walls.items()},
+        "walls_ms": walls}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--batch1-wall"]:
+        batch1_wall()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4111,6 +4804,9 @@ def main() -> int:
     ingest_train = ingest_train_path(card)
     for key, n in ingest_train["launches"].items():
         launches[key] += n
+    export_serve = export_serve_path(card)
+    for key, n in export_serve["launches"].items():
+        launches[key] += n
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -4147,6 +4843,10 @@ def main() -> int:
     print("longform " + json.dumps(longform))
     print("rnnt_beam " + json.dumps(beam))
     print("ingest_train " + json.dumps(ingest_train))
+    print("export " + json.dumps(export_serve["export"]))
+    print("serve " + json.dumps(dict(export_serve["serve"], seconds_by_step=
+                                     export_serve["seconds_by_step"],
+                                     seconds=export_serve["seconds"])))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -125,6 +125,18 @@ def load_audio(audio_path: str, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
     return resample(wav, sr, sample_rate)
 
 
+def load_wav_bytes(body: bytes, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """Decode in-memory WAV bytes and resample to ``sample_rate``.
+
+    The HTTP server's body-decode path (``serve.py``); shares
+    ``_decode_wav`` with ``load_audio`` so both accept the same formats.
+    """
+    import io
+
+    wav, sr = _decode_wav(io.BytesIO(body))
+    return resample(wav, sr, sample_rate)
+
+
 def save_wav(path: str, wav: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
     """Write a float32 mono waveform as 16-bit PCM WAV (test/tool helper)."""
     data = np.clip(wav, -1.0, 1.0)

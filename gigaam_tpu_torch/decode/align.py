@@ -173,7 +173,11 @@ class ViterbiAligner:
             lat.step(1)
         torch.cuda.current_stream(device).wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        # the caller holds its model's device lock, so no other call on
+        # this model launches work now; other threads (another model, a
+        # caller waiting for its results) may use the card meanwhile, which
+        # the global capture mode would refuse
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
             lat.run()
         self.captures += 1
         self._graphs[key] = (lat, g)

@@ -14,8 +14,9 @@ generations, with conv2d or conv1d subsampling.
 from __future__ import annotations
 
 import math
+import threading
 from functools import partial
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,15 +112,23 @@ def relpos_table(length: int, dim: int) -> np.ndarray:
 class PosTables:
     """Positional tables grown on demand (mirror of ``extend_pe``), with one
     device copy per (kind, length, device).  Each kind keeps its own host
-    table and length, so growing one never hides or shrinks the other."""
+    table and length, so growing one never hides or shrinks the other.
+
+    Safe to share between threads, as the JAX package's tables are
+    (``gigaam_tpu/models/encoder.py:60-110``): growth and the device copies
+    are made under one lock, and each call returns the value it found or
+    built, never a second read of the cache that another thread's growth
+    may have emptied."""
 
     def __init__(self, cfg: EncoderConfig):
         self.cfg = cfg
         self._host: Dict[str, Tuple[int, Any]] = {}
         self._dev: Dict[Tuple[str, int, str], Pos] = {}
+        self._lock = threading.Lock()
 
     def _table(self, kind: str, t: int) -> Tuple[int, Any]:
-        """(length, host table) of ``kind``, grown to cover ``t``."""
+        """(length, host table) of ``kind``, grown to cover ``t``.  Called
+        with the lock held."""
         length = max(t, self.cfg.pos_emb_max_len)
         have = self._host.get(kind)
         if have is None or length > have[0]:
@@ -132,29 +141,33 @@ class PosTables:
                 del self._dev[key]
         return have
 
+    def _get(self, kind: str, t: int, device: torch.device, build) -> Pos:
+        key = (kind, t, str(device))
+        have = self._dev.get(key)
+        if have is not None:
+            return have
+        with self._lock:
+            have = self._dev.get(key)
+            if have is None:
+                # a table first asked for under inference_mode is later
+                # saved for backward by a train step: keep it an ordinary
+                # tensor
+                with torch.inference_mode(False):
+                    have = build(self._table(kind, t))
+                self._dev[key] = have
+        return have
+
     def rotary(self, t: int, device: torch.device
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(cos, sin), each [t, d_head] fp32 on ``device``."""
-        key = ("rotary", t, str(device))
-        if key not in self._dev:
-            _, (cos, sin) = self._table("rotary", t)
-            # a table first asked for under inference_mode is later saved
-            # for backward by a train step: keep it an ordinary tensor
-            with torch.inference_mode(False):
-                self._dev[key] = (torch.from_numpy(cos[:t]).to(device),
-                                  torch.from_numpy(sin[:t]).to(device))
-        return self._dev[key]
+        return self._get("rotary", t, device, lambda have: tuple(
+            torch.from_numpy(a[:t]).to(device) for a in have[1]))
 
     def relpos(self, t: int, device: torch.device) -> torch.Tensor:
         """[2t-1, d_model] fp32 on ``device``: positions t-1 .. -(t-1), the
         rows [L-t, L+t-1) of the length-L table."""
-        key = ("rel_pos", t, str(device))
-        if key not in self._dev:
-            center, rel = self._table("rel_pos", t)
-            with torch.inference_mode(False):
-                self._dev[key] = torch.from_numpy(
-                    rel[center - t: center + t - 1]).to(device)
-        return self._dev[key]
+        return self._get("rel_pos", t, device, lambda have: torch.from_numpy(
+            have[1][have[0] - t: have[0] + t - 1]).to(device))
 
 
 class ConformerLayer(nn.ModuleDict):
@@ -238,7 +251,8 @@ def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
                    valid: torch.Tensor, cfg: EncoderConfig, train: bool,
-                   bn_train: bool, use_fused: bool = True
+                   bn_train: bool, use_fused: bool = True,
+                   folded: Optional[FoldedWeights] = None
                    ) -> Tuple[torch.Tensor, BNStats]:
     """One Conformer layer (``gigaam/encoder.py:473-498``), with the JAX
     package's attention dispatch (``encoder.py:301-347``):
@@ -256,6 +270,10 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
       ``use_fused_attention``): LN, then ``rotary_mha``/``relpos_mha``
       composed of PyTorch ops, no kernel of ours.
 
+    ``folded`` gives K1/K2 their prepared weights instead of the layer's
+    cache (``ConformerLayer.folded_weights``): an exported graph holds them
+    as its own buffers (``export.py``).
+
     ``bn_train`` makes the conv module's BatchNorm use batch statistics; a
     trainer with a frozen encoder passes ``train`` without it.  Returns (x, that BatchNorm's new running stats or None).  On the CPU
     every kernel wrapper takes its plain version.
@@ -270,7 +288,7 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
                                          cfg.n_heads, use_fused=use_fused)
     elif use_fused and t <= _MAX_FOLD_T and not train:
         cos, sin = pos
-        w = lp.folded_weights(x.dtype)
+        w = folded if folded is not None else lp.folded_weights(x.dtype)
         if b >= _LNRES_MIN_BATCH:
             residual = folded_rotary_attention_lnres(
                 w, residual, cos, sin, valid, cfg.n_heads)
@@ -297,16 +315,18 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
                       lengths: torch.Tensor, cfg: EncoderConfig, pos: Pos,
                       compute_dtype: torch.dtype = torch.float32,
                       train: bool = False, bn_train: Optional[bool] = None,
-                      use_fused: bool = True
+                      use_fused: bool = True,
+                      folded: Optional[Sequence[FoldedWeights]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, BNStats]:
     """feats [B, T, F] (time-major), lengths [B] in feature frames, pos =
     (cos, sin) sliced to T' for rotary, or the [2T'-1, D] table for
     rel-pos.  ``train`` takes the differentiable attention path;
     ``bn_train`` (``train`` unless given) switches BatchNorm to batch
     statistics; ``use_fused=False`` keeps the attention off the kernels
-    (``_layer_forward``).  Returns (encoded [B, T', D], out_lengths [B],
-    new BatchNorm stats): with ``bn_train`` and a batch-norm conv module the stats are
-    ``{"mean", "var"}``, each [n_layers, D], stacked on a layer axis as the
+    (``_layer_forward``); ``folded`` holds each layer's prepared K1/K2
+    weights in place of the layers' caches.  Returns (encoded [B, T', D],
+    out_lengths [B], new BatchNorm stats): with ``bn_train`` and a
+    batch-norm conv module the stats are ``{"mean", "var"}``, each [n_layers, D], stacked on a layer axis as the
     JAX package's layer scan returns them; else None.
 
     ``cfg.activation_checkpointing`` (under ``train``) recomputes each
@@ -326,7 +346,7 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
                          f"got {cfg.remat_policy!r}")
     bn_train = train if bn_train is None else bn_train
     stats = []
-    for lp in encoder.layers:
+    for i, lp in enumerate(encoder.layers):
         if remat:
             kw = ({} if cfg.remat_policy == "full" else {"context_fn": partial(
                 create_selective_checkpoint_contexts, save_dots)})
@@ -334,8 +354,9 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
                                       train, bn_train, use_fused,
                                       use_reentrant=False, **kw)
         else:
-            x, new_stats = _layer_forward(lp, x, pos, valid, cfg, train,
-                                          bn_train, use_fused)
+            x, new_stats = _layer_forward(
+                lp, x, pos, valid, cfg, train, bn_train, use_fused,
+                None if folded is None else folded[i])
         stats.append(new_stats)
     bn_stats = None
     if bn_train and cfg.conv_norm_type == "batch_norm":
@@ -395,8 +416,10 @@ def _init_layer(gen: torch.Generator, cfg: EncoderConfig) -> Dict[str, Any]:
             "pointwise_conv1": {
                 "w_value": pc1["w"][:, :d].contiguous(),
                 "w_gate": pc1["w"][:, d:].contiguous(),
-                "b_value": pc1["b"][:d].contiguous(),
-                "b_gate": pc1["b"][d:].contiguous()},
+                # copies, not views of one storage (a saved program
+                # stores each tensor whole)
+                "b_value": pc1["b"][:d].clone(),
+                "b_gate": pc1["b"][d:].clone()},
             "depthwise_conv": {"w": _uniform(gen, (d, 1, k), dw_bound),
                                "b": _uniform(gen, (d,), dw_bound)},
             "pointwise_conv2": init_linear(gen, d, d),

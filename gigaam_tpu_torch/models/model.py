@@ -26,10 +26,23 @@ head) and GigaAMEmo (emotion head), ported from
   device work.  ``lm`` adds n-gram shallow fusion to either
   (``decode/lm.py``): the CTC beam scores through the ``NGramLM`` object,
   the RNNT beam through its table on the device (``_resolve_lm``).
+* Threads: a model may be called from several threads at once (the
+  server's batch loop beside its longform and stream handlers).  One
+  reentrant device lock per model serializes the calls' device work:
+  ``_decode_batch_submit`` holds it up to the return of ``finalize`` (so the
+  RNNT loops' host reads, which steer their launches, run under it),
+  ``encode_batch``, ``get_probs`` and ``align_batch`` while they launch,
+  ``transcribe_longform`` around its VAD; the host waits for results
+  (``finalize``, ``_host_copies``) run after it is released.  Everything
+  runs on one stream, so stream order keeps the shared state of the
+  decoders' CUDA graphs, their lazy captures, the folded-weight caches and
+  ``_resolve_lm``'s tables safe.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -124,6 +137,15 @@ def _host_copies(*tensors: torch.Tensor) -> Callable[[], List[np.ndarray]]:
     return wait
 
 
+def _holds_device_lock(fn):
+    """Run the method with its model's device lock held."""
+    @functools.wraps(fn)
+    def locked(self, *args, **kwargs):
+        with self._device_lock:
+            return fn(self, *args, **kwargs)
+    return locked
+
+
 def resolve_device(device: Optional[Union[str, torch.device]]
                    ) -> torch.device:
     """``None`` means the card: raise rather than fall back to the CPU."""
@@ -163,6 +185,7 @@ class GigaAM(nn.Module):
         self.use_fused_attention = (True if use_fused_attention is None
                                     else bool(use_fused_attention))
         self._int16_wire = False
+        self._device_lock = threading.RLock()
         if state is None:
             state = init_state(cfg, seed)
         self.frontend = LogMelFrontend(cfg.preprocessor)
@@ -211,6 +234,7 @@ class GigaAM(nn.Module):
         return (_to_device(batch, self.device),
                 _to_device(lens, self.device), lens, pos)
 
+    @_holds_device_lock
     @torch.inference_mode()
     def encode_batch(self, wavs: List[np.ndarray]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -235,6 +259,16 @@ class GigaAM(nn.Module):
         if layout == "bdt":
             encoded = encoded.transpose(1, 2)
         return encoded, enc_len
+
+    def to_exported(self, out_dir: str, **kw) -> Dict[str, Any]:
+        """Write this model's serving graphs (``torch.export`` programs) to
+        ``out_dir``: the analogue of the reference's ``model.to_onnx``
+        (``gigaam/model.py:65-71``).  ``kw`` go to ``export.export_model``
+        (the buckets); ``exported_infer`` runs inference off the artifacts
+        alone."""
+        from ..export import export_model
+
+        return export_model(self, out_dir, **kw)
 
 
 class GigaAMASR(GigaAM):
@@ -381,6 +415,7 @@ class GigaAMASR(GigaAM):
             self._lm_dev = cached
         return lm, cached[2]
 
+    @_holds_device_lock
     @torch.inference_mode()
     def _decode_batch_submit(
         self, wavs: List[np.ndarray], word_timestamps: bool,
@@ -488,8 +523,9 @@ class GigaAMASR(GigaAM):
 
         from ..vad import segment_audio_file
 
-        segments, boundaries = segment_audio_file(
-            wav_file, SAMPLE_RATE, device=self.device, **kwargs)
+        with self._device_lock:        # a neural VAD runs on the card
+            segments, boundaries = segment_audio_file(
+                wav_file, SAMPLE_RATE, device=self.device, **kwargs)
         if not segments:
             return LongformTranscriptionResult(segments=[])
 
@@ -555,19 +591,20 @@ class GigaAMASR(GigaAM):
                     for t in texts]
 
         n = len(wavs)
-        dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
-        log_probs, enc_lens = self._ctc_logprobs(dev_batch, dev_lens, pos)
         per_sample = [pad_targets(ids) for ids in ids_list]
         targets = np.zeros((n, max(t.shape[0] for t in per_sample)),
                            np.int32)
         for i, t in enumerate(per_sample):
             targets[i, :t.shape[0]] = t
         tlens = np.asarray([len(ids) for ids in ids_list], np.int32)
-        bp, final_state, scores = self.aligner.align(
-            log_probs, enc_lens, _to_device(targets, self.device),
-            _to_device(tlens, self.device), self.blank_id)
-        bp, final_state, scores, enc_lens, log_probs = _host_copies(
-            bp, final_state, scores, enc_lens, log_probs)()
+        with self._device_lock:
+            dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
+            log_probs, enc_lens = self._ctc_logprobs(dev_batch, dev_lens, pos)
+            bp, final_state, scores = self.aligner.align(
+                log_probs, enc_lens, _to_device(targets, self.device),
+                _to_device(tlens, self.device), self.blank_id)
+            wait = _host_copies(bp, final_state, scores, enc_lens, log_probs)
+        bp, final_state, scores, enc_lens, log_probs = wait()
         # enc_len 0 (a clip shorter than one frontend hop) would read frame
         # 0's alphas: no path exists, whatever the score says
         bad = [i for i in range(n) if ids_list[i] and (
@@ -609,10 +646,13 @@ class GigaAMEmo(GigaAM):
     def get_probs(self, wav_file: Union[str, np.ndarray]) -> Dict[str, float]:
         """Class probabilities of one clip, ``{label: prob}`` in ``id2name``
         order."""
-        dev_batch, dev_lens, _, pos = self._device_batch(
-            [self.prepare_wav(wav_file)])
-        encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
-        probs = heads_lib.emo_probs(self.head, encoded, enc_lens)[0].cpu()
+        wav = self.prepare_wav(wav_file)
+        with self._device_lock:
+            dev_batch, dev_lens, _, pos = self._device_batch([wav])
+            encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
+            wait = _host_copies(
+                heads_lib.emo_probs(self.head, encoded, enc_lens)[0])
+        probs = wait()[0]
         return {name: float(p) for name, p in zip(self.id2name, probs)}
 
 

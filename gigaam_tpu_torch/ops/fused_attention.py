@@ -51,7 +51,9 @@ Beside each wrapper is its plain PyTorch version, which follows the fold's
 numerics (RoPE in fp32 then cast, fp32 accumulation, P cast to the compute
 dtype before P.V, the division after it).  A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
+raises.  The inference calls of K1, K2, K3 and K5 go through
+``torch.library`` custom ops (``ops/custom_ops.py``), so that an exported
+graph keeps them.  ``<wrapper>.launches`` counts the wrapper's calls that reach the
 card: one CUDA launch for K3 and K5, four (row pass, QKV, SDPA core,
 output) for K2 and K1, two (dq, then dk and dv) for K4 and K6 (called without the saved
 pair they first run the forward's kernel for it: three).
@@ -60,8 +62,9 @@ pair they first run the forward's kernel for it: three).
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass, fields
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -478,8 +481,12 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the JAX package.  Differentiable in q, k and v: the backward is K4
     (``mha_bwd``), which starts from the output and the rows' log-sum-exp;
     the log-sum-exp is computed only when a gradient is being recorded.
-    CUDA: bf16, d = 48, any T."""
-    return _FusedMHA.apply(q, k, v, valid, _grad_recorded(q, k, v))
+    With no gradient recorded the call goes through the registered op
+    ``gigaam::fused_mha`` (``ops/custom_ops.py``), which an exported graph
+    keeps.  CUDA: bf16, d = 48, any T."""
+    if _grad_recorded(q, k, v):
+        return _FusedMHA.apply(q, k, v, valid, True)
+    return torch.ops.gigaam.fused_mha(q, k, v, valid)
 
 
 fused_mha.launches = 0
@@ -545,20 +552,42 @@ def ln_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return xn, xr
 
 
+# tensor sets already checked, keyed by (device, D, each tensor's id and
+# address), each with weak references that tell a live set from a new one
+# that reuses its ids: the registered ops rebuild ``FoldedWeights`` on every
+# call
+_CHECKED_SETS: Dict[tuple, tuple] = {}
+
+
 def _check_fold_weights(w: FoldedWeights, d: int, dev: torch.device) -> None:
-    """The weights' checks, made once per prepared set and device: the set
-    is frozen, so its tensors stay the ones checked."""
+    """The weights' checks, made once per set of tensors and device (about
+    60 us of host time a set, against a few for the lookup)."""
     if getattr(w, "_checked_for", None) == (dev, d):
         return
-    for name in ("wq", "wk", "wv", "wo"):
-        _check_tensor(name, getattr(w, name), dev, torch.bfloat16, (d, d))
-    for name in ("bq", "bk", "bv", "bo", "ln_scale", "ln_bias"):
-        _check_tensor(name, getattr(w, name), dev, torch.float32, (d,))
+    tensors = _weight_tensors(w)
+    key = (dev, d) + tuple((id(t), t.data_ptr()) for t in tensors)
+    refs = _CHECKED_SETS.get(key)
+    if refs is None or any(r() is not t for r, t in zip(refs, tensors)):
+        for name in ("wq", "wk", "wv", "wo"):
+            _check_tensor(name, getattr(w, name), dev, torch.bfloat16, (d, d))
+        for name in ("bq", "bk", "bv", "bo", "ln_scale", "ln_bias"):
+            # K2's op passes no LayerNorm (K1's requires it: _folded_cuda)
+            if getattr(w, name) is not None or not name.startswith("ln_"):
+                _check_tensor(name, getattr(w, name), dev, torch.float32,
+                              (d,))
+        if len(_CHECKED_SETS) >= 1024:
+            _CHECKED_SETS.clear()
+        _CHECKED_SETS[key] = tuple(weakref.ref(t) for t in tensors)
     object.__setattr__(w, "_checked_for", (dev, d))
 
 
+_FOLDED_FIELDS = tuple(f.name for f in fields(FoldedWeights))
+
+
 def _weight_tensors(w: FoldedWeights):
-    return tuple(getattr(w, f.name) for f in fields(w))
+    """The set's tensors; K2's may leave the LayerNorm's out (None)."""
+    return tuple(t for t in (getattr(w, n) for n in _FOLDED_FIELDS)
+                 if t is not None)
 
 
 def _folded_cuda(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
@@ -570,6 +599,8 @@ def _folded_cuda(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
     _check_row_args(x, cos, sin, n_heads)
     b, t, d = x.shape
     dev = x.device
+    _require(not lnres or w.ln_scale is not None,
+             "K1 needs the LayerNorm's scale and bias")
     _check_fold_weights(w, d, dev)
     ln = (w.ln_scale, w.ln_bias) if lnres else (None, None)
     _check_tensor("valid", valid, dev, torch.bool, (b, t))
@@ -599,18 +630,30 @@ def _folded_cuda(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
     return out
 
 
+def _folded_forward(w: FoldedWeights, x: torch.Tensor, cos: torch.Tensor,
+                    sin: torch.Tensor, valid: torch.Tensor, n_heads: int,
+                    lnres: bool) -> torch.Tensor:
+    """K1 (``lnres``) or K2, the body of their registered ops: the plain
+    version for CPU tensors, the kernels (counted) for CUDA ones."""
+    if x.device.type == "cpu":
+        return _folded_plain(w, x, cos, sin, valid, n_heads, lnres)
+    out = _folded_cuda(w, x, cos, sin, valid, n_heads, lnres)
+    (folded_rotary_attention_lnres if lnres
+     else folded_rotary_attention).launches += 1
+    return out
+
+
 def folded_rotary_attention(w: FoldedWeights, x: torch.Tensor,
                             cos: torch.Tensor, sin: torch.Tensor,
                             valid: torch.Tensor, n_heads: int) -> torch.Tensor:
     """K2: the rotary attention module on the post-LN input x [B, T, D];
     cos/sin [T, d_head] fp32; valid [B, T] bool.  Padded query rows are
-    garbage, as in the JAX package."""
+    garbage, as in the JAX package.  Goes through the registered op
+    ``gigaam::folded_rotary_attention``, the weights passed one by one."""
     _refuse_grad("folded_rotary_attention", (x, *_weight_tensors(w)))
-    if x.device.type == "cpu":
-        return folded_rotary_attention_plain(w, x, cos, sin, valid, n_heads)
-    out = _folded_cuda(w, x, cos, sin, valid, n_heads, lnres=False)
-    folded_rotary_attention.launches += 1
-    return out
+    return torch.ops.gigaam.folded_rotary_attention(
+        x, cos, sin, valid, w.wq, w.wk, w.wv, w.wo, w.bq, w.bk, w.bv, w.bo,
+        n_heads)
 
 
 folded_rotary_attention.launches = 0
@@ -621,14 +664,13 @@ def folded_rotary_attention_lnres(w: FoldedWeights, x: torch.Tensor,
                                   valid: torch.Tensor, n_heads: int
                                   ) -> torch.Tensor:
     """K1: ``x + attention(layer_norm(x))`` on the pre-LN residual stream
-    x [B, T, D]; LN statistics in fp32, the residual added in x's dtype."""
+    x [B, T, D]; LN statistics in fp32, the residual added in x's dtype.
+    Goes through the registered op ``gigaam::folded_rotary_attention_lnres``.
+    """
     _refuse_grad("folded_rotary_attention_lnres", (x, *_weight_tensors(w)))
-    if x.device.type == "cpu":
-        return folded_rotary_attention_lnres_plain(w, x, cos, sin, valid,
-                                                   n_heads)
-    out = _folded_cuda(w, x, cos, sin, valid, n_heads, lnres=True)
-    folded_rotary_attention_lnres.launches += 1
-    return out
+    return torch.ops.gigaam.folded_rotary_attention_lnres(
+        x, cos, sin, valid, w.wq, w.wk, w.wv, w.wo, w.bq, w.bk, w.bv, w.bo,
+        w.ln_scale, w.ln_bias, n_heads)
 
 
 folded_rotary_attention_lnres.launches = 0
@@ -744,9 +786,12 @@ def fused_relpos_mha(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query positions are garbage, as in the JAX package.  Differentiable in
     all five: the backward is K6 (``relpos_mha_bwd``), which starts from the
     output and the rows' log-sum-exp; the log-sum-exp is computed only when
-    a gradient is being recorded.  CUDA: bf16, d = 48, any T."""
-    return _FusedRelposMHA.apply(q_u, k, v, q_v, p_heads, valid,
-                                 _grad_recorded(q_u, k, v, q_v, p_heads))
+    a gradient is being recorded.  With no gradient recorded the call goes
+    through the registered op ``gigaam::fused_relpos_mha``.  CUDA: bf16,
+    d = 48, any T."""
+    if _grad_recorded(q_u, k, v, q_v, p_heads):
+        return _FusedRelposMHA.apply(q_u, k, v, q_v, p_heads, valid, True)
+    return torch.ops.gigaam.fused_relpos_mha(q_u, k, v, q_v, p_heads, valid)
 
 
 fused_relpos_mha.launches = 0
@@ -758,3 +803,8 @@ KERNELS = (fused_mha, folded_rotary_attention, folded_rotary_attention_lnres,
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+
+
+# registers the ops the inference wrappers call (imported last: its bodies
+# reach this module's functions)
+from . import custom_ops  # noqa: E402,F401

@@ -419,7 +419,13 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/ops/rnnt_loss.py",
             "gigaam_tpu_torch/train/pretrain.py",
             "gigaam_tpu_torch/tools/convert_checkpoint.py",
-            "gigaam_tpu_torch/tools/convert_vad.py"} <= rel
+            "gigaam_tpu_torch/tools/convert_vad.py",
+            "gigaam_tpu_torch/ops/custom_ops.py",
+            "gigaam_tpu_torch/export.py",
+            "gigaam_tpu_torch/exported_infer.py",
+            "gigaam_tpu_torch/serve.py",
+            "gigaam_tpu_torch/streaming.py",
+            "gigaam_tpu_torch/client.py"} <= rel
     for path in cuda:
         with open(path) as f:
             for line in f:
