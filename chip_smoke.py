@@ -215,12 +215,32 @@ Phases, each fatal on failure:
    chunks each: every served batch equal to the live ``_decode_batch`` of
    its rows, the longform result equal to the live one, the RNNT graphs
    captured during the load, post latency, batches, stride latency; a
-   burst of 24 posts against a queue of 1 answered partly 503.
+   burst of 24 posts against a queue of 1 answered partly 503;
+19. data- and tensor-parallel inference and training (``parallel_path``):
+   2 ranks spawned on the one card over gloo (NCCL refuses two ranks on
+   one device) against one process, both bf16 at full width: v3_ctc under
+   ``set_mesh`` (data 2) through ``_decode_batch`` of 16 (K1 on 8 rows a
+   rank), of 2 (K2 on one) and of 3 (padded to 4: K1), the 6-minute
+   ``transcribe_longform`` and ``align_batch`` of 16, every text equal to
+   the host's greedy decode of the log-probs its call decoded and every
+   alignment to one process's ``align_batch`` on the log-probs its call
+   aligned (on every row), the log-probs within PAR_LOGP_ATOL of one
+   process's, the greedy ids equal on every frame past twice that, texts
+   and alignments equal on every row whose ids are; v3_ctc (K3+K4)
+   and v2_ctc (K5+K6) ``FineTuner`` at data 2 x model 1 and data 1 x
+   model 2, two steps on a batch of 16 (T' 500): loss, norm, the gathered
+   gradients by group, the sync-BN moments, the gathered leaves after the
+   first real update, K3-K6 launches and heads a rank; the position
+   group's run-to-run spread of one process; planted faults that must be
+   caught (a reduce dropped, the bias added twice, per-rank BN statistics,
+   a rank's rows swapped, ``pos_bias_u`` from the other model rank); then
+   the v3_ctc step in a one-rank
+   ``nccl`` group, bit-equal to the step with no group.
 
 Before the card's line, an ``rnnt`` line holds phase 14's numbers, a
 ``longform`` line phase 15's, an ``rnnt_beam`` line phase 16's, an
-``ingest_train`` line phase 17's and ``export`` and ``serve`` lines phase
-18's.  ``python3 chip_smoke.py --batch1-wall`` times batch-1
+``ingest_train`` line phase 17's, ``export`` and ``serve`` lines phase
+18's and a ``parallel`` line phase 19's.  ``python3 chip_smoke.py --batch1-wall`` times batch-1
 ``transcribe`` alone (``batch1_wall``).  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
@@ -4652,6 +4672,676 @@ def export_serve_path(card: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: data- and tensor-parallel inference and training
+# ---------------------------------------------------------------------------
+
+PAR_CLIPS = 16
+PAR_LONGFORM_SECONDS = 360.0
+# DP x TP against one process, both bf16 on the card.  The ranks run the same
+# kernels on other row counts (cuBLAS may take another algorithm), and a
+# row-parallel product's partial sums meet in fp32 after each has been
+# rounded to bf16: an error of the bf16 step's own class.  The limits are
+# the bf16 step's errors against fp32 (PERF.md, phase 13: loss 0.0009,
+# gradient groups 0.0051-0.0176), rounded up: PAR_LOSS_RTOL for the loss,
+# PAR_GRAD_RTOL for the gradient norm, the gradient groups and the sync-BN
+# moments.  The position biases' and linear_pos' gradient is a sum over
+# every (query, key) pair that cancels to a small remainder, so it carries
+# the bf16 rounding of every pair, which a split over ranks changes: on the
+# CPU in bf16 a 2-way split moved it 0.003 (data) and 0.015 (model) where
+# fp32 moved nothing above 1e-7 (tests/test_torch_parallel.py).  On the
+# H100 (NVIDIA H100 80GB HBM3, 700 W) the split read 0.026 (data 2) and
+# 0.046 (model 2), two one-process runs 4.4e-5 apart (K6's fp32 atomics:
+# not the cause), and pos_bias_u taken from the other model rank 0.33.
+# PAR_POS_GRAD_RTOL sits between the split and the fault, which must land
+# PAR_FAULT_GAIN above it; all three are read in every run.
+PAR_LOSS_RTOL = 0.002
+PAR_GRAD_RTOL = 0.02
+PAR_POS_GRAD_RTOL = 0.06
+# DP log-probs against one process's on valid frames: one bf16 step of a
+# logit of magnitude 8-16 is 0.0625 (the head's product is bf16)
+PAR_LOGP_ATOL = 0.1
+# a planted fault must land at least this far above its check's limit
+PAR_FAULT_GAIN = 2.0
+# (model, data, model) of the training layouts
+PAR_CONFIGS = (("v3_ctc", 2, 1), ("v3_ctc", 1, 2), ("v2_ctc", 2, 1),
+               ("v2_ctc", 1, 2))
+
+
+def par_leaves(n_layers: int) -> str:
+    """The leaves whose gradients and updates are compared whole: the first
+    and the last layer, the subsampling and the head."""
+    return (rf"^(encoder\.layers\.(0|{n_layers - 1})\.|encoder\.pre_encode\."
+            r"|head\.)")
+
+
+def par_model(name: str, n_layers: int = None):
+    """Full-width ``name`` with random weights from seed 0 (v2: its position
+    biases drawn nonzero), fp32 masters, cut to ``n_layers`` if given."""
+    cfg = make_preset(name)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, n_layers=n_layers or cfg.encoder.n_layers))
+    model = model_class_for(cfg)(cfg, seed=0)
+    if name == "v2_ctc":
+        nonzero_pos_biases(model, seed=1)
+    return model
+
+
+def par_inference(model, clips, long_path: str, texts=None) -> dict:
+    """The DP inference calls, in one order (every rank makes the same):
+    ``_decode_batch`` of the 16 clips, of 2 and of 3, ``encode_batch`` of
+    the 16, ``transcribe_longform`` and ``align_batch`` of the 16 (with
+    ``texts``, else the call's own greedy texts); each call's launches and
+    wall, what it returned, and the log-probs it decoded or aligned, read
+    where the call computes them (the greedy mask's input, the aligner's
+    input: fp32 on the card) and gathered in rank order, each submitted
+    batch cut to its real rows: ``lp[label]`` is a list of (log-probs
+    [T', V] on the CPU, length)."""
+    from gigaam_tpu_torch.models import model as model_mod
+    from gigaam_tpu_torch.parallel.collectives import all_gather_rows
+
+    out = {"launches": {}, "wall_ms": {}, "lp": {}}
+    seen, sizes = [], []        # this rank's blocks, each batch's rows
+
+    def greedy_mask(lp, lens):
+        seen.append((lp.float().cpu(), lens.cpu()))
+        return ctc_greedy_mask(lp, lens)
+
+    def ctc_logprobs(*args):
+        lp, lens = type(model)._ctc_logprobs(model, *args)
+        seen.append((lp.float().cpu(), lens.cpu()))
+        return lp, lens
+
+    def submit(wavs, *args, **kw):
+        sizes.append(len(wavs))
+        return type(model)._decode_batch_submit(model, wavs, *args, **kw)
+
+    def gathered() -> list:
+        blocks = [[(lp[i], int(n)) for i, n in enumerate(lens)]
+                  for lp, lens in seen]
+        per_rank = all_gather_rows(model._data_group, [blocks])
+        rows = [row for k, n in enumerate(sizes)
+                for row in [r for blocks_r in per_rank
+                            for r in blocks_r[k]][:n]]
+        seen.clear()
+        sizes.clear()
+        return rows
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["wall_ms"][label] = (time.perf_counter() - t0) * 1e3
+        out["launches"][label] = {k: n for k, n in counts().items() if n}
+        return res
+
+    model_mod.ctc_greedy_mask = greedy_mask
+    model._ctc_logprobs, model._decode_batch_submit = ctc_logprobs, submit
+    try:
+        for label, rows in (("decode16", clips), ("decode2", clips[:2]),
+                            ("decode3", clips[2:5])):
+            out[label] = [t for t, _ in run(label, lambda r=rows:
+                                            model._decode_batch(r, False))]
+            out["lp"][label] = gathered()
+        run("encode16", lambda: model.encode_batch(clips))
+        res = run("longform", lambda: model.transcribe_longform(
+            long_path, fr_batch_size=LONGFORM_BATCH))
+        out["longform"] = [(s.text, s.start, s.end) for s in res.segments]
+        out["lp"]["longform"] = gathered()
+        aligned = run("align16", lambda: model.align_batch(
+            clips, texts if texts is not None else out["decode16"]))
+        sizes.append(len(clips))
+        out["lp"]["align16"] = gathered()
+    finally:
+        model_mod.ctc_greedy_mask = ctc_greedy_mask
+        del model._ctc_logprobs, model._decode_batch_submit
+    out["align16"] = [[(w.text, w.start, w.end) for w in r.words]
+                      for r in aligned]
+    out["texts16"] = texts if texts is not None else out["decode16"]
+    # what each call's own log-probs give: the greedy texts decoded on the
+    # host, and one process's ``align_batch`` on the aligned log-probs
+    out["replayed"] = {label: par_greedy_texts(model, out["lp"][label])
+                       for label in ("decode16", "decode2", "decode3",
+                                     "longform")}
+    out["replayed"]["align16"] = par_replay_align(
+        model, clips, out["texts16"], out["lp"]["align16"])
+    return out
+
+
+def par_greedy_texts(model, rows) -> list:
+    """Each (log-probs, length) row decoded greedily on the host, with the
+    functions ``_ctc_submit`` decodes with."""
+    from gigaam_tpu_torch.decode.ctc_greedy import ctc_extract
+
+    texts = []
+    for lp, n in rows:
+        labels, keep = ctc_greedy_mask(lp[None], torch.tensor([n]))
+        ((ids, _),) = ctc_extract(labels.numpy(), keep.numpy())
+        texts.append(model.tokenizer.decode(ids))
+    return texts
+
+
+def par_replay_align(model, clips, texts, rows) -> list:
+    """One process's ``align_batch`` of ``clips`` to ``texts`` with its
+    encoder's log-probs replaced by ``rows`` (the DP call's, gathered): the
+    Viterbi, the backtrack and the words on exactly what the DP call
+    aligned."""
+    lp = torch.stack([r for r, _ in rows]).to(model.device)
+    lens = torch.tensor([n for _, n in rows], device=model.device)
+    mesh = model.mesh
+    model.mesh = None
+    model._ctc_logprobs = lambda *args: (lp, lens)
+    try:
+        aligned = model.align_batch(clips, texts)
+    finally:
+        model.mesh = mesh
+        del model._ctc_logprobs
+    return [[(w.text, w.start, w.end) for w in r.words] for r in aligned]
+
+
+def par_step_record(ft, m, names, arrays: bool) -> dict:
+    """A step's loss and norm and, with ``arrays``, (gathered whole) the
+    gradients of ``names``, the BatchNorm stats and, after the update,
+    ``names``."""
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "lr": m["lr"]}
+    if not arrays:
+        return out
+    with torch.no_grad():
+        arrays = {f"grad/{n}": p.grad.float().cpu() for n, p in ft._named
+                  if n in names and p.grad is not None}
+        arrays.update({f"leaf/{n}": p.detach().float().cpu()
+                       for n, p in ft._named
+                       if n in names or "batch_norm" in n})
+    out["arrays"] = ft._gather_shards({k: v.numpy()
+                                       for k, v in arrays.items()})
+    return out
+
+
+def par_training(name: str, manifest: str, mesh=None, steps: int = 2,
+                 fault: str = None) -> dict:
+    """``steps`` ``FineTuner`` steps (bf16) of ``par_model(name)`` on the
+    first batch of 16: each step's record (the last with its arrays), the
+    launches and the heads a rank's K3/K5 ran on.  ``fault``
+    "pos_bias_u from the other rank" gives each "model" rank of a rel-pos
+    model the other rank's heads' ``pos_bias_u``."""
+    from gigaam_tpu_torch.parallel import mesh as pmesh
+
+    model = par_model(name)
+    batch = first_batch(manifest, model.tokenizer, PAR_CLIPS)
+    full = [layer["self_attn"]["pos_bias_u"].detach().clone()
+            for layer in model.encoder.layers] if fault else None
+    ft = FineTuner(model, TrainConfig(total_steps=10, precision="bf16"),
+                   mesh=mesh)
+    if fault == "pos_bias_u from the other rank":
+        m = pmesh.axis_size(mesh, "model")
+        h = full[0].shape[0] // m
+        other = (pmesh.axis_rank(mesh, "model") + 1) % m
+        with torch.no_grad():
+            for layer, u in zip(model.encoder.layers, full):
+                layer["self_attn"]["pos_bias_u"].copy_(
+                    u[other * h:(other + 1) * h])
+    elif fault is not None:
+        raise ValueError(fault)
+    leaves = par_leaves(model.cfg.encoder.n_layers)
+    names = {n for n, _ in ft._named if re.search(leaves, n)}
+    fa.reset_launch_counts()
+    records, walls = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ft.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        records.append(par_step_record(ft, m, names, step == steps - 1))
+    q = model.encoder.layers[0]["self_attn"]["linear_q"]["w"]
+    out = {"steps": records, "launches": {k: n for k, n in counts().items()
+                                          if n},
+           "heads": q.shape[1] * model.cfg.encoder.n_heads
+           // model.cfg.encoder.d_model, "step_wall_ms": walls,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del ft, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def masked_encode(model, clips) -> torch.Tensor:
+    """``encode_batch``'s output with its padded frames zeroed, fp32, CPU."""
+    enc, lens = model.encode_batch(clips)
+    valid = torch.arange(enc.shape[1], device=enc.device)[None] < \
+        lens[:, None]
+    return torch.where(valid[..., None], enc.float(), 0.0).cpu()
+
+
+def par_fault_encode(clips, mesh=None, fault: str = None) -> torch.Tensor:
+    """The 2-layer v3_ctc's encoder output on ``clips`` (fp32, CPU): one
+    process, or tensor-parallel over ``mesh`` with ``fault`` planted."""
+    from gigaam_tpu_torch.ops import attention as att
+    from gigaam_tpu_torch.ops import conformer_ops as co
+    from gigaam_tpu_torch.parallel import collectives
+    from gigaam_tpu_torch.parallel import mesh as pmesh
+
+    model = par_model("v3_ctc", n_layers=2)
+    if mesh is not None:
+        pmesh.shard_model(model, mesh)
+    saved = (co.reduce_from_model, att.reduce_from_model, co.row_parallel)
+    if fault == "reduce dropped":
+        co.reduce_from_model = att.reduce_from_model = lambda x, g: x
+    elif fault == "bias added twice":
+        co.row_parallel = lambda p, x, tp: collectives.reduce_from_model(
+            co.linear(p, x), tp)
+    try:
+        return masked_encode(model, clips)
+    finally:
+        co.reduce_from_model, att.reduce_from_model, co.row_parallel = saved
+
+
+def par_fault_step(manifest: str, mesh=None, fault: str = None) -> dict:
+    """One bf16 step of the 2-layer v3_ctc on the first batch of 16 (sorted
+    by duration: data rank 0 holds the shorter clips, so more padding):
+    the batch moments the BatchNorm took (read back from the running stats:
+    momentum 0.1 from a mean of 0 and a variance of 1) and the loss;
+    ``fault`` "per-rank BN statistics" runs the BatchNorm without its data
+    group."""
+    from gigaam_tpu_torch.ops import conformer_ops as co
+
+    model = par_model("v3_ctc", n_layers=2)
+    batch = first_batch(manifest, model.tokenizer, PAR_CLIPS)
+    ft = FineTuner(model, TrainConfig(total_steps=10, precision="bf16"),
+                   mesh=mesh)
+    saved = co.batch_norm_train
+    if fault == "per-rank BN statistics":
+        co.batch_norm_train = lambda p, x, group=None: saved(p, x)
+    try:
+        m = ft.train_step(batch)
+    finally:
+        co.batch_norm_train = saved
+    stats = {k: torch.stack([layer["conv"]["batch_norm"][k].detach().cpu()
+                             for layer in model.encoder.layers])
+             for k in ("mean", "var")}
+    return {"loss": float(m["loss"]), "bn": {
+        "mean": stats["mean"] / 0.1, "var": (stats["var"] - 0.9) / 0.1}}
+
+
+def par_rank(rank: int, world: int, port: int, root: str) -> None:
+    """One of the 2 ranks that share the card over gloo: the DP inference
+    calls, the four training layouts, the planted faults.  Writes what it
+    saw to ``<root>/rank<r>.pt``."""
+    from gigaam_tpu_torch.models import model as model_mod
+    from gigaam_tpu_torch.parallel import distributed as pdist
+    from gigaam_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.initialize("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                     world_size=world, rank=rank)
+    inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(step):
+        out["seconds"][step] = time.perf_counter() - t0 - sum(
+            out["seconds"].values())
+
+    dp = pmesh.make_mesh(data=2)
+    model = par_model("v3_ctc")
+    with torch.no_grad():
+        model.head["proj"]["b"].copy_(inp["head_b"])
+    model.set_mesh(dp)
+    out["inference"] = par_inference(model, inp["clips"], inp["long_path"],
+                                     inp["texts16"])
+    lap("inference")
+    # a rank's rows swapped: each rank runs the other's block
+    saved = model_mod.data_rows
+    model_mod.data_rows = lambda mesh, n: saved(mesh, n) if mesh is None \
+        else [slice(n // 2, n), slice(0, n // 2)][pmesh.axis_rank(mesh,
+                                                                  "data")]
+    try:
+        out["rows_swapped"] = masked_encode(model, inp["clips"][:4])
+    finally:
+        model_mod.data_rows = saved
+    del model
+    torch.cuda.empty_cache()
+    lap("rows swapped")
+    out["training"] = {}
+    for name, d, m in PAR_CONFIGS:
+        mesh = pmesh.make_mesh(data=d, model=m)
+        out["training"][f"{name} data {d} x model {m}"] = par_training(
+            name, inp["manifest"], mesh)
+        lap(f"{name} {d}x{m}")
+    tp = pmesh.make_mesh(data=1, model=2)
+    # one step: the reference's second step ran on the same weights (the
+    # first update's rate is 0)
+    out["pos fault"] = par_training("v2_ctc", inp["manifest"], tp, steps=1,
+                                    fault="pos_bias_u from the other rank")
+    out["tp_encode"] = par_fault_encode(inp["clips"][:4], tp)
+    for fault in ("reduce dropped", "bias added twice"):
+        out[fault] = par_fault_encode(inp["clips"][:4], tp, fault)
+    out["dp_step"] = par_fault_step(inp["manifest"], dp)
+    out["per-rank BN statistics"] = par_fault_step(
+        inp["manifest"], dp, "per-rank BN statistics")
+    lap("faults")
+    out["jax_loaded"] = [m_ for m_ in sys.modules if m_ == "jax"
+                         or m_.startswith(("jax.", "gigaam_tpu."))]
+    if rank:                 # rank 0's arrays are the ones compared
+        for g in [*out["training"].values(), out["pos fault"]]:
+            g["steps"][-1].pop("arrays")
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def par_nccl(port: int, root: str) -> None:
+    """One rank in a one-rank ``nccl`` group: the v3_ctc train step under a
+    1 x 1 mesh against the same step with no group, in this process."""
+    from gigaam_tpu_torch.parallel import distributed as pdist
+    from gigaam_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.initialize("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                     world_size=1, rank=0)
+    manifest = torch.load(os.path.join(root, "inputs.pt"),
+                          weights_only=False)["manifest"]
+    got = {}
+    for label, mesh in (("no group", None),
+                        ("nccl 1x1", pmesh.make_mesh(1, 1, "cuda"))):
+        got[label] = par_training("v3_ctc", manifest, mesh)
+    a, b = got["no group"]["steps"], got["nccl 1x1"]["steps"]
+    equal = all(ra["loss"] == rb["loss"] and ra["grad_norm"] == rb["grad_norm"]
+                for ra, rb in zip(a, b))
+    arrays_a, arrays_b = a[-1]["arrays"], b[-1]["arrays"]
+    equal = equal and arrays_a.keys() == arrays_b.keys() and all(
+        np.array_equal(arrays_a[k], arrays_b[k]) for k in arrays_a)
+    torch.save({"bit_equal": equal, "backend": torch.distributed.get_backend(),
+                "launches": got["nccl 1x1"]["launches"],
+                "loss": [r["loss"] for r in b]},
+               os.path.join(root, "nccl.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def par_spawn(target, args, n: int) -> None:
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args) if n > 1 else args)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"phase 19: rank exit codes "
+                             f"{[p.exitcode for p in procs]}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).norm() / ref.norm())
+
+
+def par_outputs(res: dict, label: str) -> list:
+    """A call's per-row outputs: texts, or the 16 alignments."""
+    if label == "longform":
+        return [t for t, *_ in res["longform"]]
+    return res[label]
+
+
+def par_compare_inference(ref: dict, got: dict, failures: list) -> dict:
+    """DP results, first against their own log-probs, exactly, on every
+    row: each text is the host's greedy decode of the log-probs its call
+    decoded, each alignment one process's ``align_batch`` on the
+    log-probs its call aligned (one process's results are held so too).
+    Then against one process: ``err`` is the largest difference of the
+    log-probs on valid frames; on every frame whose top-1/top-2 gap
+    exceeds 2 err the greedy ids are equal; every row (segment) whose ids
+    are equal on all its frames has the same text or alignment; the
+    longform segment bounds are equal."""
+    bad = []
+    for side, res in (("one process", ref), ("DP", got)):
+        for label, replayed in res["replayed"].items():
+            own = par_outputs(res, label)
+            if len(own) != len(replayed):
+                bad.append(f"{side} {label}: {len(own)} rows, "
+                           f"{len(replayed)} decoded")
+            bad += [f"{side} {label}[{i}] not its log-probs' result"
+                    for i, (a, b) in enumerate(zip(own, replayed)) if a != b]
+    err = max(float((g[:n] - r[:n]).abs().max())
+              for label in ref["lp"]
+              for (r, n), (g, _) in zip(ref["lp"][label], got["lp"][label]))
+    report = {"logprob_max_abs_err": err, "rows": {},
+              "rows_checked_against_own_logprobs": {
+                  label: len(v) for label, v in got["replayed"].items()}}
+    for label, rows in ref["lp"].items():
+        same_ids = []
+        for i, ((r, n), (g, n_got)) in enumerate(zip(rows, got["lp"][label])):
+            if n != n_got:
+                bad.append(f"{label}[{i}] length")
+                continue
+            top = r[:n].topk(2, dim=-1).values
+            clear = (top[:, 0] - top[:, 1]) > 2 * err
+            ids_r, ids_g = r[:n].argmax(-1), g[:n].argmax(-1)
+            if bool((ids_r != ids_g)[clear].any()):
+                bad.append(f"{label}[{i}] ids past a tie")
+            same_ids.append(bool((ids_r == ids_g).all()))
+        mine, theirs = par_outputs(got, label), par_outputs(ref, label)
+        bad += [f"{label}[{i}] differs from one process"
+                for i, same in enumerate(same_ids)
+                if same and mine[i] != theirs[i]]
+        report["rows"][label] = f"{sum(same_ids)}/{len(same_ids)}"
+    if [s[1:] for s in got["longform"]] != [s[1:] for s in ref["longform"]]:
+        bad.append("longform segment bounds")
+    if not err <= PAR_LOGP_ATOL:
+        bad.append(f"log-probs {err}")
+    failures += [f"DP inference: {b}" for b in bad]
+    return report
+
+
+def par_compare_training(ref: dict, got: dict, failures: list, label: str
+                         ) -> dict:
+    """A layout's steps against one process's: the loss within
+    PAR_LOSS_RTOL; the norm, gradients and BatchNorm stats by group within
+    PAR_GRAD_RTOL (the position group within PAR_POS_GRAD_RTOL); after
+    the second update (the first's rate is 0) every
+    compared leaf within 2 lr of one process's (an Adam step moves an
+    element by at most about lr; a misplaced shard by the weights' own
+    size)."""
+    report = {"loss_rel": [], "grad_norm_rel": [], "grad_groups": [],
+              "bn_rel": [], "leaf_max_abs": None}
+    for r, g in zip(ref["steps"], got["steps"]):
+        report["loss_rel"].append(abs(g["loss"] - r["loss"]) / abs(r["loss"]))
+        report["grad_norm_rel"].append(
+            abs(g["grad_norm"] - r["grad_norm"]) / r["grad_norm"])
+        if "arrays" not in r:
+            continue
+        grads = {k[5:]: torch.from_numpy(v) for k, v in g["arrays"].items()
+                 if k.startswith("grad/")}
+        grads_ref = {k[5:]: torch.from_numpy(v)
+                     for k, v in r["arrays"].items() if k.startswith("grad/")}
+        if grads.keys() != grads_ref.keys():
+            raise AssertionError("phase 19: gradient leaves differ")
+        report["grad_groups"].append(grad_group_errors(grads, grads_ref))
+        bn = [k for k in r["arrays"] if "batch_norm" in k and (
+            k.endswith(".mean") or k.endswith(".var"))]
+        report["bn_rel"].append(max(rel_err(
+            torch.from_numpy(g["arrays"][k]), torch.from_numpy(
+                r["arrays"][k])) for k in bn))
+    last_r, last_g = ref["steps"][-1], got["steps"][-1]
+    leaves = [k for k in last_r["arrays"] if k.startswith("leaf/")
+              and "batch_norm" not in k]
+    report["leaf_max_abs"] = max(float(np.abs(last_g["arrays"][k]
+                                              - last_r["arrays"][k]).max())
+                                 for k in leaves)
+    lr = last_r["lr"]
+    ok = (max(report["loss_rel"]) <= PAR_LOSS_RTOL
+          and max(report["grad_norm_rel"]) <= PAR_GRAD_RTOL
+          and all(v <= (PAR_POS_GRAD_RTOL if g == GRAD_GROUPS[0][0]
+                        else PAR_GRAD_RTOL)
+                  for gr in report["grad_groups"] for g, v in gr.items())
+          and max(report["bn_rel"]) <= PAR_GRAD_RTOL
+          and 0 < lr and report["leaf_max_abs"] <= 2 * lr * (1 + 1e-3))
+    if not ok:
+        failures.append(f"{label}: training differs")
+    return report
+
+
+def parallel_path(card: str) -> dict:
+    """Phase 19: DP inference (v3_ctc over 2 ranks on the one card) and
+    DP x TP fine-tuning (v3_ctc, v2_ctc at data 2 and at model 2) against
+    one process, the planted faults, and the one-rank nccl step."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    report = {"seconds_by_step": {}, "backends": {
+        "ranks": "gloo: 2 processes share the card, which NCCL refuses",
+        "one-rank step": "nccl"}}
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+
+    with tempfile.TemporaryDirectory() as root:
+        clips = [synth_wav(float(s), rng)
+                 for s in np.linspace(10.0, 20.0, PAR_CLIPS)]
+        long_path = os.path.join(root, "long.wav")
+        save_wav(long_path, longform_audio(PAR_LONGFORM_SECONDS, rng))
+        manifest = write_train_set(root, rng, PAR_CLIPS, 10.0, 20.0)
+        model = par_model("v3_ctc")
+        shape_ctc_head(model, clips)
+        ref = par_inference(model, clips, long_path)
+        ref_rows = masked_encode(model, clips[:4])
+        torch.save({"clips": clips, "long_path": long_path,
+                    "manifest": manifest, "texts16": ref["decode16"],
+                    "head_b": model.head["proj"]["b"].detach().cpu()},
+                   os.path.join(root, "inputs.pt"))
+        del model
+        torch.cuda.empty_cache()
+        lap("one-process inference")
+        ref_train = {name: par_training(name, manifest)
+                     for name in ("v3_ctc", "v2_ctc")}
+        # the same one-process v2 steps again: the card's run-to-run spread
+        ref_v2_again = par_training("v2_ctc", manifest)
+        ref_encode = par_fault_encode(clips[:4])
+        ref_step = par_fault_step(manifest)
+        lap("one-process training")
+        par_spawn(par_rank, (2, free_port(), root), 2)
+        lap("2 gloo ranks")
+        par_spawn(par_nccl, (free_port(), root), 1)
+        lap("1 nccl rank")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        nccl = torch.load(os.path.join(root, "nccl.pt"), weights_only=False)
+    failures = []
+    if any(r["jax_loaded"] for r in ranks):
+        failures.append(f"a rank imported {[r['jax_loaded'] for r in ranks]}")
+    enc_cfg = make_preset("v3_ctc").encoder
+    n_layers = enc_cfg.n_layers
+    report["inference"] = [par_compare_inference(ref, r["inference"],
+                                                 failures) for r in ranks]
+    # K1 at a per-rank batch of 8 (16 rows) and 2 (3 rows padded to 4), K2
+    # at one row a rank (2 rows)
+    want = {"decode16": {"K1": n_layers}, "decode2": {"K2": n_layers},
+            "decode3": {"K1": n_layers}, "encode16": {"K1": n_layers}}
+    for r in ranks:
+        got = r["inference"]["launches"]
+        if {k: got[k] for k in want} != want:
+            failures.append(f"DP launches {got}")
+    report["inference_launches"] = [r["inference"]["launches"] for r in ranks]
+    report["inference_wall_ms"] = {"one process": ref["wall_ms"], **{
+        f"rank {i}": r["inference"]["wall_ms"] for i, r in enumerate(ranks)}}
+    report["training"] = {}
+    for label, got in ranks[0]["training"].items():
+        name = label.split()[0]
+        want = ({"K3": 2 * n_layers, "K4": 2 * n_layers} if name == "v3_ctc"
+                else {"K5": 2 * n_layers, "K6": 2 * n_layers})
+        heads = enc_cfg.n_heads // (2 if "model 2" in label else 1)
+        for r in ranks:
+            g = r["training"][label]
+            if g["launches"] != want or g["heads"] != heads:
+                failures.append(f"{label}: launches {g['launches']}, heads "
+                                f"{g['heads']}")
+        report["training"][label] = dict(
+            par_compare_training(ref_train[name], got, failures, label),
+            launches=want, heads_per_rank=heads,
+            step_wall_ms=got["step_wall_ms"],
+            one_process_step_wall_ms=ref_train[name]["step_wall_ms"],
+            peak_gib=got["peak_gib"])
+
+    def bn_err(got):
+        return max(rel_err(got["bn"][k], ref_step["bn"][k])
+                   for k in ("mean", "var"))
+
+    tp_err = rel_err(ranks[0]["tp_encode"], ref_encode)
+    dp_bn_err = bn_err(ranks[0]["dp_step"])
+    faults = {
+        "reduce dropped": rel_err(ranks[0]["reduce dropped"], ref_encode),
+        "bias added twice": rel_err(ranks[0]["bias added twice"],
+                                    ref_encode),
+        "per-rank BN statistics": bn_err(ranks[0]["per-rank BN statistics"]),
+        "a rank's rows swapped": rel_err(ranks[0]["rows_swapped"],
+                                         ref_rows),
+    }
+    report["tp_encode_rel"], report["dp_bn_rel"] = tp_err, dp_bn_err
+    report["faults_rel"] = faults
+
+    def pos_group(got, ref) -> float:
+        grads = [{k[5:]: torch.from_numpy(v)
+                  for k, v in r["steps"][-1]["arrays"].items()
+                  if k.startswith("grad/")} for r in (got, ref)]
+        return grad_group_errors(*grads)[GRAD_GROUPS[0][0]]
+
+    v2 = ref_train["v2_ctc"]
+    pos = {"one-process run to run": pos_group(ref_v2_again, v2), **{
+        label.split(" ", 1)[1]: g["grad_groups"][-1][GRAD_GROUPS[0][0]]
+        for label, g in report["training"].items()
+        if label.startswith("v2_ctc")},
+        "pos_bias_u from the other rank": pos_group(ranks[0]["pos fault"],
+                                                    v2),
+        "limit": PAR_POS_GRAD_RTOL}
+    report["pos_group_rel"] = pos
+    if not pos["one-process run to run"] <= PAR_POS_GRAD_RTOL:
+        failures.append(f"one-process v2 steps differ: {pos}")
+    if not pos["pos_bias_u from the other rank"] > (PAR_FAULT_GAIN
+                                                    * PAR_POS_GRAD_RTOL):
+        failures.append(f"planted fault not caught: pos_bias_u {pos}")
+    if not (tp_err <= PAR_GRAD_RTOL and dp_bn_err <= PAR_GRAD_RTOL):
+        failures.append(f"2-layer TP encode {tp_err}, DP BN {dp_bn_err}")
+    failures += [f"planted fault not caught: {k} {v}"
+                 for k, v in faults.items()
+                 if not v > PAR_FAULT_GAIN * PAR_GRAD_RTOL]
+    if not nccl["bit_equal"] or nccl["backend"] != "nccl":
+        failures.append(f"one-rank nccl step {nccl}")
+    report["nccl_one_rank"] = nccl
+    report["rank_seconds"] = ranks[0]["seconds"]
+    report["seconds"] = time.perf_counter() - t0
+    report["launches"] = {
+        k: sum(r["inference"]["launches"][c].get(k, 0)
+               for r in ranks for c in r["inference"]["launches"])
+        + sum(g["launches"].get(k, 0) for r in ranks
+              for g in r["training"].values())
+        + nccl["launches"].get(k, 0)
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    print(f"parallel phase: {report['seconds']:.1f} s; card {card}",
+          flush=True)
+    if failures:
+        print("parallel " + json.dumps(report, default=str), flush=True)
+        raise AssertionError(f"phase 19: {failures}")
+    return report
+
+
 def batch1_wall(rounds: int = 7, calls: int = 20) -> None:
     """``python3 chip_smoke.py --batch1-wall``: the wall of v3_ctc
     ``transcribe`` on 20 s (batch 1, K2) of whichever ``gigaam_tpu_torch``
@@ -4807,6 +5497,9 @@ def main() -> int:
     export_serve = export_serve_path(card)
     for key, n in export_serve["launches"].items():
         launches[key] += n
+    parallel = parallel_path(card)
+    for key, n in parallel["launches"].items():
+        launches[key] += n
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -4847,6 +5540,7 @@ def main() -> int:
     print("serve " + json.dumps(dict(export_serve["serve"], seconds_by_step=
                                      export_serve["seconds_by_step"],
                                      seconds=export_serve["seconds"])))
+    print("parallel " + json.dumps(parallel))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

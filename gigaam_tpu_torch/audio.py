@@ -146,3 +146,16 @@ def save_wav(path: str, wav: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None
         wf.setsampwidth(2)
         wf.setframerate(sample_rate)
         wf.writeframes(pcm.tobytes())
+
+
+def format_time(seconds: float) -> str:
+    """HH:MM:SS:mm formatting, hours only when there are any (reference
+    ``gigaam/utils.py:68-80``; JAX ``audio.py:150``)."""
+    hours = int(seconds // 3600)
+    minutes = int((seconds % 3600) // 60)
+    seconds = seconds % 60
+    full_seconds = int(seconds)
+    milliseconds = int((seconds - full_seconds) * 100)
+    if hours > 0:
+        return f"{hours:02}:{minutes:02}:{full_seconds:02}:{milliseconds:02}"
+    return f"{minutes:02}:{full_seconds:02}:{milliseconds:02}"

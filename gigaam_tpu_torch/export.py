@@ -66,8 +66,13 @@ class _EncoderGraph(nn.Module):
         from .models.encoder import _LNRES_MIN_BATCH, _MAX_FOLD_T
         from .ops.fused_attention import prepare_folded_weights
 
+        if model.encoder.tp_group is not None:
+            raise ValueError("a tensor-parallel shard does not export: "
+                             "gather the model first (save_model, then "
+                             "load_model)")
         cfg = model.cfg.encoder
         self.cfg, self.kind = cfg, kind
+        self.tp_group = None         # conformer_forward's: one process
         self.compute_dtype = model.compute_dtype
         self.use_fused = model.use_fused_attention
         t_sub = static_subsampled_length(t_feat, cfg.num_subsampling_stages,

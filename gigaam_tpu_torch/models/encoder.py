@@ -54,6 +54,11 @@ from ..ops.rotary import rotary_tables
 # 0.57-0.64 of LN + K2 + the residual add at every batch measured, 1 to 32
 # (T' 500), so it runs from batch 2 on.  Batch 1 keeps K2, which is its
 # only main path (K1 would save ~0.03 ms a layer there: ROADMAP, Queue 2).
+# The gate reads the batch this process runs: under data-parallel inference
+# (``GigaAM.set_mesh``) that is the per-rank block of rows, so a global batch
+# of 2 over 2 ranks takes K2 on each rank and a batch of 3 (padded to 4)
+# takes K1.  The JAX package gated on the global batch
+# (``gigaam_tpu/models/encoder.py:284``) while each device ran its block.
 _MAX_FOLD_T = 3000       # fold the attention module when T' <= this
 _LNRES_MIN_BATCH = 2     # fold LN + residual too (K1) from this batch on
 
@@ -223,6 +228,9 @@ class ConformerEncoder(nn.Module):
         self.pre_encode = as_module(state["pre_encode"])
         self.layers = nn.ModuleList(
             ConformerLayer(lp, cfg.n_heads) for lp in state["layers"])
+        # the "model" group when the weights are this rank's tensor-parallel
+        # shard (``parallel.mesh.shard_model``)
+        self.tp_group = None
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor, pos: Pos,
                 compute_dtype: torch.dtype, use_fused: bool = True
@@ -252,8 +260,8 @@ def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
                    valid: torch.Tensor, cfg: EncoderConfig, train: bool,
                    bn_train: bool, use_fused: bool = True,
-                   folded: Optional[FoldedWeights] = None
-                   ) -> Tuple[torch.Tensor, BNStats]:
+                   folded: Optional[FoldedWeights] = None, tp=None,
+                   bn_group=None) -> Tuple[torch.Tensor, BNStats]:
     """One Conformer layer (``gigaam/encoder.py:473-498``), with the JAX
     package's attention dispatch (``encoder.py:301-347``):
 
@@ -277,16 +285,27 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
     ``bn_train`` makes the conv module's BatchNorm use batch statistics; a
     trainer with a frozen encoder passes ``train`` without it.  Returns (x, that BatchNorm's new running stats or None).  On the CPU
     every kernel wrapper takes its plain version.
+
+    ``tp`` (the "model" group; ``lp`` holds this rank's shard) runs the
+    layer tensor-parallel: the FFNs, the attention on H/m heads and the
+    conv module on C/m channels, each summed over ``tp`` before its bias
+    and the residual; LayerNorm on the full, replicated width.  The
+    rotary module then takes the composed path with its core on K3 in
+    inference too: K1 adds the output bias and the residual inside its
+    GEMM, and K1/K2 hold square [D, D] weights.  ``bn_group`` (the "data"
+    group) makes the BatchNorm sync-BN (``batch_norm_train``).
     """
     b, t, _ = x.shape
     residual = x
     residual = residual + 0.5 * ffn(lp["feed_forward1"],
-                                    layer_norm(lp["norm_feed_forward1"], x))
+                                    layer_norm(lp["norm_feed_forward1"], x),
+                                    tp)
     if cfg.self_attention_model == "rel_pos":
         y = layer_norm(lp["norm_self_att"], residual)
         residual = residual + relpos_mha(lp["self_attn"], y, pos, valid,
-                                         cfg.n_heads, use_fused=use_fused)
-    elif use_fused and t <= _MAX_FOLD_T and not train:
+                                         cfg.n_heads, use_fused=use_fused,
+                                         tp=tp)
+    elif use_fused and t <= _MAX_FOLD_T and not train and tp is None:
         cos, sin = pos
         w = folded if folded is not None else lp.folded_weights(x.dtype)
         if b >= _LNRES_MIN_BATCH:
@@ -300,13 +319,15 @@ def _layer_forward(lp: ConformerLayer, x: torch.Tensor, pos: Pos,
         y = layer_norm(lp["norm_self_att"], residual)
         cos, sin = pos
         residual = residual + rotary_mha(lp["self_attn"], y, cos, sin, valid,
-                                         cfg.n_heads, use_fused=use_fused)
+                                         cfg.n_heads, use_fused=use_fused,
+                                         tp=tp)
 
     y = layer_norm(lp["norm_conv"], residual)
     y, new_stats = conformer_conv(lp["conv"], y, valid, cfg.conv_norm_type,
-                                  train=bn_train)
+                                  train=bn_train, tp=tp, bn_group=bn_group)
     residual = residual + y
-    y = ffn(lp["feed_forward2"], layer_norm(lp["norm_feed_forward2"], residual))
+    y = ffn(lp["feed_forward2"], layer_norm(lp["norm_feed_forward2"], residual),
+            tp)
     residual = residual + 0.5 * y
     return layer_norm(lp["norm_out"], residual), new_stats
 
@@ -316,7 +337,8 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
                       compute_dtype: torch.dtype = torch.float32,
                       train: bool = False, bn_train: Optional[bool] = None,
                       use_fused: bool = True,
-                      folded: Optional[Sequence[FoldedWeights]] = None
+                      folded: Optional[Sequence[FoldedWeights]] = None,
+                      bn_group=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, BNStats]:
     """feats [B, T, F] (time-major), lengths [B] in feature frames, pos =
     (cos, sin) sliced to T' for rotary, or the [2T'-1, D] table for
@@ -324,7 +346,9 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
     ``bn_train`` (``train`` unless given) switches BatchNorm to batch
     statistics; ``use_fused=False`` keeps the attention off the kernels
     (``_layer_forward``); ``folded`` holds each layer's prepared K1/K2
-    weights in place of the layers' caches.  Returns (encoded [B, T', D],
+    weights in place of the layers' caches; ``bn_group`` is the "data"
+    group of sync-BN.  An encoder holding a tensor-parallel shard
+    (``encoder.tp_group``) runs every layer and the subsampling over it.  Returns (encoded [B, T', D],
     out_lengths [B], new BatchNorm stats): with ``bn_train`` and a
     batch-norm conv module the stats are ``{"mean", "var"}``, each [n_layers, D], stacked on a layer axis as the
     JAX package's layer scan returns them; else None.
@@ -335,9 +359,10 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
     all but the 2-D products' outputs (``save_dots``)."""
     subsample = (striding_subsampling_conv2d if cfg.subsampling == "conv2d"
                  else striding_subsampling_conv1d)
+    tp = encoder.tp_group
     x, out_len = subsample(
         encoder.pre_encode, feats.to(compute_dtype), lengths,
-        cfg.num_subsampling_stages, cfg.subs_kernel_size)
+        cfg.num_subsampling_stages, cfg.subs_kernel_size, tp=tp)
     t = x.shape[1]
     valid = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
     remat = cfg.activation_checkpointing and train
@@ -351,12 +376,12 @@ def conformer_forward(encoder: ConformerEncoder, feats: torch.Tensor,
             kw = ({} if cfg.remat_policy == "full" else {"context_fn": partial(
                 create_selective_checkpoint_contexts, save_dots)})
             x, new_stats = checkpoint(_layer_forward, lp, x, pos, valid, cfg,
-                                      train, bn_train, use_fused,
-                                      use_reentrant=False, **kw)
+                                      train, bn_train, use_fused, None, tp,
+                                      bn_group, use_reentrant=False, **kw)
         else:
             x, new_stats = _layer_forward(
                 lp, x, pos, valid, cfg, train, bn_train, use_fused,
-                None if folded is None else folded[i])
+                None if folded is None else folded[i], tp, bn_group)
         stats.append(new_stats)
     bn_stats = None
     if bn_train and cfg.conv_norm_type == "batch_norm":

@@ -37,6 +37,15 @@ head) and GigaAMEmo (emotion head), ported from
   runs on one stream, so stream order keeps the shared state of the
   decoders' CUDA graphs, their lazy captures, the folded-weight caches and
   ``_resolve_lm``'s tables safe.
+* ``set_mesh``: data-parallel inference, one process per device, each
+  holding a whole replica (JAX ``model.py:115-140``).  ``encode_batch``,
+  ``_decode_batch_submit`` (and so ``transcribe_longform``) and
+  ``align_batch`` pad the rows to a multiple of the data size
+  (``_dp_pad``), run this rank's contiguous block of them and gather the
+  results in rank order, so that every rank returns what one process
+  returns.  Every rank must make the same calls.  The gathers run after
+  the device lock is released (``finalize``), so that no collective waits
+  while another thread holds the lock.
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ from ..decode.timestamps import compute_frame_shift, frames_to_words
 from ..decode.tokenizer import Tokenizer
 from ..frontend import LogMelFrontend, num_frames
 from ..ops.conformer_ops import static_subsampled_length
+from ..parallel.collectives import all_gather_rows
+from ..parallel.mesh import axis_group, axis_size, data_rows
 from ..types import (
     LongformTranscriptionResult,
     Segment,
@@ -186,6 +197,8 @@ class GigaAM(nn.Module):
                                     else bool(use_fused_attention))
         self._int16_wire = False
         self._device_lock = threading.RLock()
+        self.mesh = None
+        self._data_group = None
         if state is None:
             state = init_state(cfg, seed)
         self.frontend = LogMelFrontend(cfg.preprocessor)
@@ -194,6 +207,32 @@ class GigaAM(nn.Module):
         if "head" in state:
             self.head = as_module(state["head"])
         self.to(device)
+
+    def set_mesh(self, mesh) -> None:
+        """Data-parallel inference over a ("data", "model") ``DeviceMesh``
+        (``parallel.mesh.make_mesh``): this process keeps its whole replica
+        on its own device; every batch's rows are split over "data" (the
+        "model" ranks of one data block run the same rows).  The weights
+        must be the same on every rank (the same artifact or seed)."""
+        self.mesh = mesh
+        self._data_group = axis_group(mesh, "data")
+
+    def _dp_pad(self, wavs: List[np.ndarray]
+                ) -> Tuple[List[np.ndarray], int]:
+        """Pad the row count to a multiple of the data size with filler
+        rows (zeros of the shortest length); returns (rows, fillers)."""
+        if self.mesh is None:
+            return wavs, 0
+        pad = (-len(wavs)) % axis_size(self.mesh, "data")
+        if pad:
+            filler = np.zeros(min(len(w) for w in wavs), dtype=np.float32)
+            wavs = list(wavs) + [filler] * pad
+        return wavs, pad
+
+    def _gather(self, local: List[Any], n: int) -> List[Any]:
+        """Every rank's per-row results in rank order (one process: its
+        own), cut to the first ``n``."""
+        return all_gather_rows(self._data_group, local)[:n]
 
     def cast_encoder(self, dtype: torch.dtype = torch.bfloat16) -> None:
         """Cast the encoder weights in place (reference ``fp16_encoder``,
@@ -225,22 +264,34 @@ class GigaAM(nn.Module):
 
     def _device_batch(self, wavs: List[np.ndarray],
                       bucket: int = BUCKET_SAMPLES):
-        """(padded batch and lengths on the device, host lengths, pos)."""
+        """(padded batch and lengths on the device, host lengths, pos).
+        Under a mesh, of this rank's rows only, padded to the whole batch's
+        length (as one process pads them)."""
         batch, lens = pad_wav_batch(wavs, bucket)
         pos = self._pos_for(batch.shape[1])
+        if self.mesh is not None:
+            rows = data_rows(self.mesh, len(wavs))
+            batch, lens = batch[rows], lens[rows]
         if self._int16_wire:
             batch = np.clip(np.rint(batch * 32768.0), -32768,
                             32767).astype(np.int16)
         return (_to_device(batch, self.device),
                 _to_device(lens, self.device), lens, pos)
 
-    @_holds_device_lock
     @torch.inference_mode()
     def encode_batch(self, wavs: List[np.ndarray]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Waveforms -> (encoded [B, T', D], enc_lens [B]) on the device."""
-        dev_batch, dev_lens, _, pos = self._device_batch(wavs)
-        return self._encode(dev_batch, dev_lens, pos)
+        n = len(wavs)
+        with self._device_lock:
+            dev_batch, dev_lens, _, pos = self._device_batch(
+                self._dp_pad(wavs)[0])
+            encoded, enc_lens = self._encode(dev_batch, dev_lens, pos)
+        if self.mesh is None:
+            return encoded, enc_lens
+        rows = self._gather(list(zip(encoded.cpu(), enc_lens.cpu())), n)
+        return (torch.stack([e for e, _ in rows]).to(self.device),
+                torch.stack([l for _, l in rows]).to(self.device))
 
     def prepare_wav(self, wav_file: Union[str, np.ndarray]) -> np.ndarray:
         """Path -> 16 kHz float waveform; arrays pass through."""
@@ -436,7 +487,8 @@ class GigaAMASR(GigaAM):
         runs the RNNT beam on the device or the CTC prefix beam on the host
         (in ``finalize``); ``lm`` (an ``NGramLM`` or an npz path) adds
         shallow fusion with weight ``lm_weight`` and a per-token
-        ``token_bonus``, and requires ``beam_size > 1``."""
+        ``token_bonus``, and requires ``beam_size > 1``.  Under a mesh
+        ``finalize()`` gathers every rank's rows (a collective)."""
         if lm is not None and beam_size <= 1:
             raise ValueError("LM shallow fusion requires beam_size > 1")
         lm, lm_spec = self._resolve_lm(lm)
@@ -444,17 +496,21 @@ class GigaAMASR(GigaAM):
         if pad_rows_to > n:
             filler = np.zeros(min(len(w) for w in wavs), np.float32)
             wavs = list(wavs) + [filler] * (pad_rows_to - n)
+        wavs, _ = self._dp_pad(wavs)
         dev_batch, dev_lens, lens, pos = self._device_batch(wavs, bucket)
+        # the rows to bring back: every row of this rank's block under a
+        # mesh (the fillers go after the gather)
+        keep = n if self.mesh is None else len(lens)
         if self.rnnt is not None:
-            decode_host = self._rnnt_submit(dev_batch, dev_lens, pos, n,
+            decode_host = self._rnnt_submit(dev_batch, dev_lens, pos, keep,
                                             beam_size, lm_spec, lm_weight,
                                             token_bonus)
         elif beam_size > 1:
-            decode_host = self._ctc_beam_submit(dev_batch, dev_lens, pos, n,
-                                                beam_size, lm, lm_weight,
-                                                token_bonus)
+            decode_host = self._ctc_beam_submit(dev_batch, dev_lens, pos,
+                                                keep, beam_size, lm,
+                                                lm_weight, token_bonus)
         else:
-            decode_host = self._ctc_submit(dev_batch, dev_lens, pos, n)
+            decode_host = self._ctc_submit(dev_batch, dev_lens, pos, keep)
 
         def finalize() -> List[Tuple[str, Optional[List[Word]]]]:
             decoded, enc_lens = decode_host()
@@ -467,7 +523,7 @@ class GigaAMASR(GigaAM):
                     words = frames_to_words(self.tokenizer, ids, frames,
                                             shift, token_logps=logps)
                 out.append((self.tokenizer.decode(ids), words))
-            return out
+            return self._gather(out, n)
 
         return finalize
 
@@ -591,12 +647,16 @@ class GigaAMASR(GigaAM):
                     for t in texts]
 
         n = len(wavs)
-        per_sample = [pad_targets(ids) for ids in ids_list]
-        targets = np.zeros((n, max(t.shape[0] for t in per_sample)),
-                           np.int32)
+        wavs, pad = self._dp_pad(wavs)
+        # this rank's rows (fillers align an empty transcript)
+        rows = data_rows(self.mesh, len(wavs))
+        ids_mine = (ids_list + [[]] * pad)[rows]
+        per_sample = [pad_targets(ids) for ids in ids_mine]
+        targets = np.zeros((len(ids_mine),
+                            max(t.shape[0] for t in per_sample)), np.int32)
         for i, t in enumerate(per_sample):
             targets[i, :t.shape[0]] = t
-        tlens = np.asarray([len(ids) for ids in ids_list], np.int32)
+        tlens = np.asarray([len(ids) for ids in ids_mine], np.int32)
         with self._device_lock:
             dev_batch, dev_lens, lens, pos = self._device_batch(wavs)
             log_probs, enc_lens = self._ctc_logprobs(dev_batch, dev_lens, pos)
@@ -605,30 +665,32 @@ class GigaAMASR(GigaAM):
                 _to_device(tlens, self.device), self.blank_id)
             wait = _host_copies(bp, final_state, scores, enc_lens, log_probs)
         bp, final_state, scores, enc_lens, log_probs = wait()
-        # enc_len 0 (a clip shorter than one frontend hop) would read frame
-        # 0's alphas: no path exists, whatever the score says
-        bad = [i for i in range(n) if ids_list[i] and (
-            enc_lens[i] <= 0 or not np.isfinite(scores[i])
-            or scores[i] <= -1e29)]
+        # per row: its result, or (tokens, frames) of a transcript that
+        # cannot fit (enc_len 0, a clip shorter than one frontend hop, would
+        # read frame 0's alphas: no path exists, whatever the score says)
+        out: List[Any] = []
+        for i, ids in enumerate(ids_mine):
+            enc_len = int(enc_lens[i])
+            if not ids:
+                out.append(TranscriptionResult(text="", words=[]))
+            elif (enc_len <= 0 or not np.isfinite(scores[i])
+                    or scores[i] <= -1e29):
+                out.append((len(ids), enc_len))
+            else:
+                frames, logps = backtrack(bp[i], int(final_state[i]), enc_len,
+                                          len(ids), log_probs[i], targets[i])
+                shift = compute_frame_shift(int(lens[i]), enc_len)
+                out.append(TranscriptionResult(
+                    text=self.tokenizer.decode(ids),
+                    words=frames_to_words(self.tokenizer, ids, frames, shift,
+                                          token_logps=logps)))
+        out = self._gather(out, n)
+        bad = [i for i, r in enumerate(out) if isinstance(r, tuple)]
         if bad:
             raise ValueError(
                 f"transcript does not fit the audio for sample(s) {bad}: no "
                 f"CTC path emits it within the encoder frames "
-                f"({[(len(ids_list[i]), int(enc_lens[i])) for i in bad]} "
-                f"as (tokens, frames))")
-        out: List[TranscriptionResult] = []
-        for i, ids in enumerate(ids_list):
-            if not ids:
-                out.append(TranscriptionResult(text="", words=[]))
-                continue
-            enc_len = int(enc_lens[i])
-            frames, logps = backtrack(bp[i], int(final_state[i]), enc_len,
-                                      len(ids), log_probs[i], targets[i])
-            shift = compute_frame_shift(int(lens[i]), enc_len)
-            out.append(TranscriptionResult(
-                text=self.tokenizer.decode(ids),
-                words=frames_to_words(self.tokenizer, ids, frames, shift,
-                                      token_logps=logps)))
+                f"({[out[i] for i in bad]} as (tokens, frames))")
         return out
 
 

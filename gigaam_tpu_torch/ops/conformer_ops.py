@@ -11,6 +11,13 @@ Weights layout (``weights.py`` converts from the JAX package):
 * Conv1d depthwise: w [C, 1, K]  (JAX [K, 1, C])
 * Conv2d: w [Cout, Cin, Kh, Kw]  (JAX [Kh, Kw, Cin, Cout])
 * Conv1d subsampling: w [Cout, Cin, K]  (JAX [K, Cin, Cout])
+
+Tensor parallelism (``tp``, the "model" group of ``parallel/mesh.py``):
+the parameters are this rank's shards.  A column-parallel product takes its
+replicated input through ``copy_to_model``; a row-parallel one leaves out
+its bias, and the bias is added once after ``reduce_from_model``.  With
+``tp`` None both collectives return their input, so one process runs the
+same code.
 """
 
 from __future__ import annotations
@@ -19,6 +26,12 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+    reduce_from_model,
+)
 
 Params = Mapping[str, torch.Tensor]
 
@@ -51,19 +64,35 @@ def batch_norm_infer(p: Params, x: torch.Tensor,
 
 
 def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-5,
-                     momentum: float = 0.1
+                     momentum: float = 0.1, group=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training BatchNorm over (batch, time) for x [B, T, C], with
     ``BatchNorm1d``'s semantics: statistics in fp32 over all B*T positions,
     the zeroed padding included; the biased variance normalizes, the unbiased
     one (``var * n / (n - 1)``) goes into the running stat.  Returns the
     output and the new running ``{"mean", "var"}`` (detached: they are
-    buffers, not part of the graph).  Statistics across data-parallel
-    replicas (the JAX package's ``axis_name``) are not ported."""
+    buffers, not part of the graph).
+
+    ``group`` (the "data" group, each rank an equal block of rows) makes it
+    sync-BN, as the JAX package's ``axis_name``
+    (``gigaam_tpu/ops/conformer_ops.py:57-80``): the global moments from the
+    summed first and second raw moments (a mean of per-rank variances would
+    drop the spread of the ranks' means), ``n`` scaled by the group size,
+    and the gradient summed back to every rank's moments.  A group of one
+    holds the whole batch and takes the plain statistics."""
     xf = x.float()
     n = x.shape[0] * x.shape[1]
-    mean = xf.mean(dim=(0, 1))
-    var = ((xf - mean) ** 2).mean(dim=(0, 1))
+    size = 1 if group is None else torch.distributed.get_world_size(group)
+    if size > 1:
+        moments = all_reduce_sum(torch.stack([xf.mean(dim=(0, 1)),
+                                              (xf * xf).mean(dim=(0, 1))]),
+                                 group) / size
+        mean = moments[0]
+        var = moments[1] - mean * mean
+        n = n * size
+    else:
+        mean = xf.mean(dim=(0, 1))
+        var = ((xf - mean) ** 2).mean(dim=(0, 1))
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * p["scale"].float() + p["bias"].float()
     with torch.no_grad():
@@ -75,9 +104,18 @@ def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-5,
     return y.to(x.dtype), new_stats
 
 
-def ffn(p: Mapping[str, Params], x: torch.Tensor) -> torch.Tensor:
-    """Linear -> SiLU -> Linear (``gigaam/encoder.py:412-424``)."""
-    return linear(p["linear2"], F.silu(linear(p["linear1"], x)))
+def row_parallel(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel ``linear``: this rank's partial product, summed over
+    ``tp``, then the replicated bias once."""
+    y = reduce_from_model(x @ p["w"].to(x.dtype), tp)
+    return y + p["b"].to(x.dtype) if "b" in p else y
+
+
+def ffn(p: Mapping[str, Params], x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Linear -> SiLU -> Linear (``gigaam/encoder.py:412-424``); under
+    ``tp`` the first column-parallel, the second row-parallel."""
+    h = F.silu(linear(p["linear1"], copy_to_model(x, tp)))
+    return row_parallel(p["linear2"], h, tp)
 
 
 def depthwise_conv1d(w: torch.Tensor, b: Optional[torch.Tensor],
@@ -92,7 +130,7 @@ def depthwise_conv1d(w: torch.Tensor, b: Optional[torch.Tensor],
 
 def conformer_conv(p: Mapping[str, Params], x: torch.Tensor,
                    valid: Optional[torch.Tensor], norm_type: str,
-                   train: bool = False
+                   train: bool = False, tp=None, bn_group=None
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Conformer convolution module (``gigaam/encoder.py:364-409``).
 
@@ -101,9 +139,12 @@ def conformer_conv(p: Mapping[str, Params], x: torch.Tensor,
     (y, new BatchNorm running stats or None); the stats come only from
     ``train`` with ``norm_type == "batch_norm"``.  The padded tail is zeroed
     before the depthwise conv, so the garbage that attention leaves in padded
-    rows never reaches a batch statistic.
+    rows never reaches a batch statistic.  Under ``tp`` the rank holds C/m
+    channels from the GLU to ``pointwise_conv2``, which is row-parallel;
+    ``bn_group`` is ``batch_norm_train``'s ``group``.
     """
     pc1 = p["pointwise_conv1"]
+    x = copy_to_model(x, tp)
 
     def half(which: str) -> dict:
         h = {"w": pc1[f"w_{which}"]}
@@ -123,10 +164,10 @@ def conformer_conv(p: Mapping[str, Params], x: torch.Tensor,
     if norm_type != "batch_norm":
         y = layer_norm(p["batch_norm"], y)
     elif train:
-        y, new_stats = batch_norm_train(p["batch_norm"], y)
+        y, new_stats = batch_norm_train(p["batch_norm"], y, group=bn_group)
     else:
         y = batch_norm_infer(p["batch_norm"], y)
-    return linear(p["pointwise_conv2"], F.silu(y)), new_stats
+    return row_parallel(p["pointwise_conv2"], F.silu(y), tp), new_stats
 
 
 # ---------------------------------------------------------------------------
@@ -174,29 +215,45 @@ def _mask_time(x: torch.Tensor, lengths: torch.Tensor,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _stage(conv_fn, x: torch.Tensor, conv: Params, i: int, tp, **kw
+           ) -> torch.Tensor:
+    """Stage ``i``'s strided conv.  Under ``tp`` an even stage is
+    column-parallel (this rank's output channels, from the replicated
+    input), an odd one row-parallel (this rank's input channels, summed over
+    ``tp``, then the replicated bias).  One process keeps the bias inside
+    the convolution, whose kernel may add it before the bf16 rounding, so
+    that its numerics stay those of a plain conv; an odd stage's sum over
+    ranks must come before its bias, so its path differs under ``tp``."""
+    w, b = conv["w"].to(x.dtype), conv["b"].to(x.dtype)
+    if tp is None or i % 2 == 0:
+        return conv_fn(copy_to_model(x, tp), w, b, **kw)
+    y = reduce_from_model(conv_fn(x, w, None, **kw), tp)
+    return y + b.reshape(-1, *(1,) * (y.ndim - 2))
+
+
 def striding_subsampling_conv2d(
     p: Mapping[str, Params],
     feats: torch.Tensor,
     lengths: torch.Tensor,
     num_stages: int,
     kernel_size: int = 3,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """conv2d subsampling: feats [B, T, F] -> [B, T', d_model].
 
     Stage convs stride 2 over (time, freq) with ReLU, the time tail
     re-masked after each; the channel x freq block then flattens
     channel-major (torch's [b, t, C, f] reshape at
-    ``gigaam/encoder.py:125-127``) through a Linear.
+    ``gigaam/encoder.py:125-127``) through a Linear.  ``tp``: see
+    ``_stage`` (an even count of stages leaves the output replicated).
     """
     pad = (kernel_size - 1) // 2
     x = feats[:, None]                                   # [B, 1, T, F] NCHW
     cur_len = lengths
     x = _mask_time(x, cur_len, dim=2)
     for i in range(num_stages):
-        conv = p[f"conv_{i}"]
-        x = F.conv2d(x, conv["w"].to(x.dtype), conv["b"].to(x.dtype),
-                     stride=2, padding=pad)
-        x = F.relu(x)
+        x = F.relu(_stage(F.conv2d, x, p[f"conv_{i}"], i, tp, stride=2,
+                          padding=pad))
         cur_len = subsampled_length(cur_len, 1, kernel_size)
         x = _mask_time(x, cur_len, dim=2)
     b, c, t, f = x.shape
@@ -212,18 +269,19 @@ def striding_subsampling_conv1d(
     lengths: torch.Tensor,
     num_stages: int,
     kernel_size: int = 3,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """conv1d subsampling: feats [B, T, F] -> [B, T', d_model].
 
     Each stage is a stride-2 ``F.conv1d`` over time on [B, C, T] (padding
-    (K-1)//2), then bias and ReLU, the time tail re-masked after it."""
+    (K-1)//2), then bias and ReLU, the time tail re-masked after it.
+    ``tp``: see ``_stage``."""
     pad = (kernel_size - 1) // 2
     x = _mask_time(feats.transpose(1, 2), lengths, dim=2)   # [B, F, T]
     cur_len = lengths
     for i in range(num_stages):
-        conv = p[f"conv_{i}"]
-        x = F.relu(F.conv1d(x, conv["w"].to(x.dtype), conv["b"].to(x.dtype),
-                            stride=2, padding=pad))
+        x = F.relu(_stage(F.conv1d, x, p[f"conv_{i}"], i, tp, stride=2,
+                          padding=pad))
         cur_len = subsampled_length(cur_len, 1, kernel_size)
         x = _mask_time(x, cur_len, dim=2)
     return x.transpose(1, 2).contiguous(), cur_len

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import global_count
+
 
 def ctc_loss(
     logits: torch.Tensor,
@@ -21,6 +23,7 @@ def ctc_loss(
     targets: torch.Tensor,
     target_lengths: torch.Tensor,
     blank_id: int,
+    group=None,
 ) -> torch.Tensor:
     """torch-``reduction='mean'`` CTC loss over the valid rows.
 
@@ -33,7 +36,9 @@ def ctc_loss(
     * each row's loss divides by ``max(target_length, 1)`` (an empty
       transcript trains pure blank emission);
     * rows with ``input_length == 0`` (pad rows) are left out of the mean,
-      whose denominator is ``max(number of valid rows, 1)``.
+      whose denominator is ``max(number of valid rows, 1)``; under a
+      data ``group`` the rows of every rank count (``global_count``), so
+      that the rank's loss is its part of the batch's.
     """
     t = logits.shape[1]
     input_lengths = torch.clamp(input_lengths, max=t).long()
@@ -45,4 +50,5 @@ def ctc_loss(
                          zero_infinity=True)
     per_seq = per_seq / torch.clamp(target_lengths, min=1)
     valid = (input_lengths > 0).to(per_seq.dtype)
-    return (per_seq * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return (per_seq * valid).sum() / torch.clamp(
+        global_count(valid.sum(), group), min=1.0)

@@ -29,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.heads import rnnt_joint_logits, rnnt_predict_sequence
+from ..parallel.collectives import global_count
 from .precision import full_fp32
 
 # a finite stand-in for -inf: logaddexp(NEG, NEG) and its gradient stay
@@ -188,12 +189,13 @@ def rnnt_loss_from_log_probs(blank_lp: torch.Tensor, emit_lp: torch.Tensor,
 def rnnt_loss(head: Mapping[str, Any], encoded: torch.Tensor,
               targets: torch.Tensor, logit_lengths: torch.Tensor,
               target_lengths: torch.Tensor, blank_id: int,
-              time_chunk: int = 64) -> torch.Tensor:
+              time_chunk: int = 64, group=None) -> torch.Tensor:
     """The batch-mean RNNT loss from the encoder output: the teacher-forced
     prediction net, the chunked joint and the wavefront.  encoded [B, T, D]
     (fp32); targets [B, U].  ``logit_lengths`` is clamped to [1, T] for the
     recursion and rows of zero length are left out of the mean;
-    ``target_lengths`` of 0 (an empty transcript) is valid."""
+    ``target_lengths`` of 0 (an empty transcript) is valid.  Under a data
+    ``group`` the mean's count is the batch's (``ctc_loss``)."""
     t_max, u_max = encoded.shape[1], targets.shape[1]
     with full_fp32():
         pred_out = rnnt_predict_sequence(head, targets.long())
@@ -204,4 +206,5 @@ def rnnt_loss(head: Mapping[str, Any], encoded: torch.Tensor,
         target_lengths.clamp(0, u_max))
     valid = logit_lengths > 0
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1).to(nll.dtype)
+    return nll.sum() / global_count(valid.sum(), group).clamp(min=1).to(
+        nll.dtype)

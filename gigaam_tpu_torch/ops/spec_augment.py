@@ -5,7 +5,8 @@ Matches torchaudio's ``FrequencyMasking``/``TimeMasking`` semantics used by
 the reference (``train_utils/module.py:48-55,123-127``): mask width drawn
 uniform in [0, param), start uniform in [0, size - width), zero fill,
 applied ``n`` times per axis.  ``spec_augment_from_draws`` takes the uniform
-draws as tensors, so that a test can feed it another package's draws.
+draws as tensors: the trainer draws them from its generator, and a test can
+feed it another package's draws.
 """
 
 from __future__ import annotations
@@ -46,13 +47,3 @@ def spec_augment_from_draws(feats: torch.Tensor, draws: torch.Tensor,
         feats = _mask_axis(feats, draws[i, 0], draws[i, 1], time_width, 2)
     return feats
 
-
-def spec_augment(gen: torch.Generator, feats: torch.Tensor,
-                 freq_masks: int = 2, freq_width: int = 27,
-                 time_masks: int = 2, time_width: int = 20) -> torch.Tensor:
-    """feats [B, F, T] -> masked features (training-time augmentation); the
-    draws come from ``gen``, which lives on feats' device."""
-    draws = torch.rand((freq_masks + time_masks, 2, feats.shape[0]),
-                       generator=gen, device=feats.device)
-    return spec_augment_from_draws(feats, draws, freq_masks, freq_width,
-                                   time_masks, time_width)

@@ -1,18 +1,43 @@
-"""Timing of the port's kernels (counterpart of ``gigaam_tpu/profiling.py``).
+"""Tracing and timing of the port (counterpart of
+``gigaam_tpu/profiling.py``).
 
-``device_timeit(fn, args)`` times ``fn(*args)`` the way the JAX package's
-``device_timeit`` does: runs of ``k`` calls (on the card one CUDA graph
-replay each, with no host work between the calls), the median of ``reps``
-runs, the best of ``windows`` medians, in seconds per call.
+* ``trace(log_dir)``: a context manager around ``torch.profiler`` (host and,
+  on the card, CUDA activity) that writes a Chrome trace of everything
+  inside into ``log_dir`` (open it in Perfetto or ``chrome://tracing``);
+  the JAX package's writes an XProf trace.
+* ``device_timeit(fn, args)`` times ``fn(*args)`` the way the JAX package's
+  ``device_timeit`` does: runs of ``k`` calls (on the card one CUDA graph
+  replay each, with no host work between the calls), the median of
+  ``reps`` runs, the best of ``windows`` medians, in seconds per call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block and write its Chrome trace to
+    ``<log_dir>/trace_<pid>_<n>.json``; yields the profiler (its
+    ``key_averages()`` summarise the same events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    n = len([f for f in os.listdir(log_dir) if f.startswith("trace_")])
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}_{n}.json"))
 
 
 def _first_tensor(out):

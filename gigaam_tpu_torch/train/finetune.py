@@ -24,8 +24,25 @@ Lightning module, ``train_utils/module.py:16-271``).
   whole (``remat_policy="full"``) or but for its 2-D products' outputs
   (``"dots"``, ``models/encoder.py::save_dots``).
 
-Not ported here: training across devices (the JAX package's ``mesh``
-argument).
+Across devices (``mesh``, a ("data", "model") ``DeviceMesh`` of
+``parallel/mesh.py``, one process per device; the JAX package's ``mesh``
+argument, ``finetune.py:136-200``):
+
+* every rank is given the same global batch and runs its contiguous block
+  of rows; random draws (SpecAugment, BEST-RQ's starts and noise) are made
+  for the global batch from the trainer's generator, which every rank
+  seeds alike, and sliced, so a rank draws what one process draws;
+* the encoder is sharded over "model" (``parallel.mesh.shard_model``), the
+  AdamW moments live on the shards;
+* one convention on "data": a rank's loss is its part of the global
+  numerator over the global count (``parallel.collectives.global_count``), the
+  gradients are summed over "data" (then the sync-BN backward, whose sum
+  runs over "data" too, agrees), the reported loss is that sum;
+* the global-norm clip counts a sharded leaf's squares summed over "model"
+  and a replicated leaf once;
+* eval runs under the mesh and returns the whole batch's loss and
+  hypotheses; checkpoints gather the shards and rank 0 alone writes them;
+  a restore re-shards.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..config import CTCHeadConfig, ModelConfig
 from ..decode.ctc_greedy import ctc_extract, ctc_greedy_mask
@@ -48,7 +66,18 @@ from ..models import heads as heads_lib
 from ..models.encoder import conformer_forward
 from ..ops.ctc_loss import ctc_loss
 from ..ops.rnnt_loss import rnnt_loss
-from ..ops.spec_augment import spec_augment
+from ..ops.spec_augment import spec_augment_from_draws
+from ..parallel.collectives import all_gather_rows, all_reduce_
+from ..parallel.mesh import (
+    axis_group,
+    axis_rank,
+    axis_size,
+    data_rows,
+    gather_params,
+    model_specs,
+    shard_model,
+    shard_params,
+)
 from ..weights import (
     _flatten,
     _unflatten,
@@ -117,15 +146,41 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def _sum_squares(tensors: List[torch.Tensor], like: torch.Tensor
+                 ) -> torch.Tensor:
+    if not tensors:
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+    return torch.stack(torch._foreach_norm(tensors)).float().square().sum()
+
+
+def _split_axis(full: Tuple[int, ...], local: Tuple[int, ...]
+                ) -> Optional[int]:
+    """The axis along which a leaf of shape ``full`` was sharded into
+    ``local``, or None for a replicated leaf."""
+    diff = [i for i, (a, b) in enumerate(zip(full, local)) if a != b]
+    return diff[0] if diff else None
+
+
 class TrainerBase:
     """Shared training machinery: optimizer build, the train step, npz
-    checkpointing.  Subclasses define the objective (``_forward_loss``)."""
+    checkpointing, the mesh.  Subclasses define the objective
+    (``_forward_loss``)."""
 
-    def __init__(self, model, tc: TrainConfig, seed: int = 0):
+    def __init__(self, model, tc: TrainConfig, seed: int = 0, mesh=None):
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.tc = tc
         self.device = model.device
+        self.mesh = mesh
+        self._data_group = axis_group(mesh, "data")
+        self._model_group = (axis_group(mesh, "model")
+                             if axis_size(mesh, "model") > 1 else None)
+        # (global row count, this rank's rows, the rows before eval's
+        # padding) of the batch in flight, under a mesh
+        self._batch: Optional[Tuple[int, slice, int]] = None
+        full_shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        if mesh is not None:
+            shard_model(model, mesh)
         self.enc_cfg = dataclasses.replace(
             self.cfg.encoder,
             activation_checkpointing=tc.activation_checkpointing,
@@ -143,6 +198,10 @@ class TrainerBase:
         # every leaf records a gradient (the reported grad_norm is over all
         # of them); AdamW owns the trainable ones only
         self._named = named
+        # the leaves shard_model split, by name, with their axis
+        self._shard_axis = {
+            n: ax for n, p in named if n in full_shapes and (ax := _split_axis(
+                full_shapes[n], tuple(p.shape))) is not None}
         for _, p in named:
             p.requires_grad_(True)
         self._train_names = [n for n, _ in named if self._trainable(n)]
@@ -189,6 +248,74 @@ class TrainerBase:
     def _to_device(self, batch) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(x).to(self.device) for x in batch)
 
+    def _local_batch(self, batch, pad: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
+        """This rank's rows of a global batch, on the device; without a
+        mesh the whole batch.  ``pad`` (evaluation) first pads the rows to
+        a multiple of the data size with zero-length rows, which every
+        objective leaves out of its mean (``_without_padding``); a train
+        batch must divide."""
+        if self.mesh is None:
+            return self._to_device(batch)
+        n = len(batch[0])
+        extra = (-n) % axis_size(self.mesh, "data") if pad else 0
+        if extra:
+            batch = tuple(np.concatenate([np.asarray(x), np.zeros(
+                (extra, *np.shape(x)[1:]), np.asarray(x).dtype)])
+                for x in batch)
+        self._batch = (n + extra, data_rows(self.mesh, n + extra), n)
+        return self._to_device(tuple(x[self._batch[1]] for x in batch))
+
+    def _rows_of(self, draw: Callable[[int], torch.Tensor], b: int,
+                 axis: int = 0) -> torch.Tensor:
+        """``draw(n)``, a draw whose ``axis`` runs over the rows of a batch,
+        made for the global batch and cut to this rank's rows: every rank
+        draws what one process draws.  ``b`` is the rows this rank holds."""
+        if self._batch is None:
+            return draw(b)
+        n, rows, real = self._batch
+        drawn = draw(real)
+        if n > real:               # eval's padding rows: never counted
+            shape = list(drawn.shape)
+            shape[axis] = n - real
+            drawn = torch.cat([drawn, drawn.new_zeros(shape)], axis)
+        return drawn.narrow(axis, rows.start, rows.stop - rows.start)
+
+    def _without_padding(self, lens: torch.Tensor) -> torch.Tensor:
+        """Encoder lengths with eval's padding rows at 0, so that every
+        objective leaves them out of its mean (a zero-length row may still
+        get a frame from a centred frontend)."""
+        if self._batch is None or self._batch[0] == self._batch[2]:
+            return lens
+        _, rows, real = self._batch
+        idx = torch.arange(rows.start, rows.stop, device=lens.device)
+        return torch.where(idx < real, lens, torch.zeros_like(lens))
+
+    def _sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """A reported number (a loss, an accuracy) summed over "data"."""
+        return all_reduce_(t.detach().clone(), self._data_group)
+
+    def _norm(self, names: List[str], tensors: List[torch.Tensor]
+              ) -> torch.Tensor:
+        """The global norm of leaves of which some may be "model" shards:
+        their squares are summed over "model", a replicated leaf's counted
+        once."""
+        if self._model_group is None:
+            return global_norm(tensors)
+        sharded = [t for n, t in zip(names, tensors) if n in self._shard_axis]
+        whole = [t for n, t in zip(names, tensors)
+                 if n not in self._shard_axis]
+        sq = all_reduce_(_sum_squares(sharded, tensors[0]), self._model_group)
+        return torch.sqrt(_sum_squares(whole, tensors[0]) + sq)
+
+    def _sum_grads_over_data(self) -> None:
+        """Sum every leaf's gradient over "data", in one flat buffer."""
+        grads = [p.grad for _, p in self._named if p.grad is not None]
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        all_reduce_(flat, self._data_group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
     def _pos(self, padded_samples: int):
         return self.model._pos_for(padded_samples)
 
@@ -215,8 +342,8 @@ class TrainerBase:
             if mini != k - 1:
                 return
             grads, self._acc = self._acc, None
-        scale = self.tc.grad_clip / torch.clamp(global_norm(grads),
-                                                min=self.tc.grad_clip)
+        scale = self.tc.grad_clip / torch.clamp(
+            self._norm(self._train_names, grads), min=self.tc.grad_clip)
         torch._foreach_mul_(grads, scale)
         for p, g in zip(self._train_params, grads):
             p.grad = g
@@ -230,8 +357,9 @@ class TrainerBase:
         scalars: nothing here waits for the device, so a caller pays one
         host sync per logged step, not per step.  SpecAugment draws from the
         trainer's own generator (``seed``).  ``lr`` is the rate the last
-        update applied."""
-        batch = self._to_device(batch)
+        update applied.  Under a mesh every rank passes the same global
+        batch and gets the global loss and norm."""
+        batch = self._local_batch(batch)
         for _, p in self._named:
             p.grad = None
         self._mark("start")
@@ -240,15 +368,19 @@ class TrainerBase:
         loss.backward()
         self._mark("backward")
         with torch.no_grad():
+            if self.mesh is not None:
+                self._sum_grads_over_data()
             if bn_stats is not None:
                 self._write_bn_stats(bn_stats)
-            grad_norm = global_norm(
-                [p.grad for _, p in self._named if p.grad is not None])
+            with_grad = [(n, p.grad) for n, p in self._named
+                         if p.grad is not None]
+            grad_norm = self._norm([n for n, _ in with_grad],
+                                   [g for _, g in with_grad])
             self._update()
         self._mark("optimizer")
         self.step += 1
         opt_steps = self.step // max(1, self.tc.accumulate_grad_batches)
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
+        return {"loss": self._sum_over_data(loss), "grad_norm": grad_norm,
                 "lr": self._host_lr(max(0, opt_steps - 1))}
 
     # ------------------------------------------------------------------
@@ -257,26 +389,61 @@ class TrainerBase:
 
     _CKPT_FORMAT = "gigaam_tpu_torch_train_ckpt_v1"
 
+    def _gather_shards(self, arrays: Dict[str, np.ndarray]
+                       ) -> Dict[str, np.ndarray]:
+        """Arrays keyed ``<kind>/<leaf name>/...`` with the sharded leaves'
+        parts joined over "model" (one collective every rank joins)."""
+        if self._model_group is None:
+            return arrays
+        mine = {k: a for k, a in arrays.items()
+                if k.split("/")[1] in self._shard_axis}
+        parts: List[Any] = [None] * tdist.get_world_size(self._model_group)
+        tdist.all_gather_object(parts, mine, group=self._model_group)
+        return dict(arrays, **{
+            k: np.concatenate([part[k] for part in parts],
+                              self._shard_axis[k.split("/")[1]])
+            for k in mine})
+
+    def _local_part(self, name: str, a: np.ndarray) -> np.ndarray:
+        """This rank's "model" part of a whole leaf's array."""
+        axis = self._shard_axis.get(name)
+        if axis is None or self._model_group is None:
+            return a
+        return np.split(a, axis_size(self.mesh, "model"), axis)[
+            axis_rank(self.mesh, "model")]
+
     def save_checkpoint(self, path: str) -> None:
         """Write one self-describing npz file: the parameters in the JAX
         package's layout, AdamW's moments by parameter name, pending
         accumulated gradients, the SpecAugment generator's state, and a
-        JSON metadata entry.  No pickle anywhere."""
+        JSON metadata entry.  No pickle anywhere.  Under a mesh every rank
+        calls it: the shards are gathered and rank 0 alone writes, the same
+        file one process writes; the call returns once the file is there."""
         arrays = {f"params/{k}": v
-                  for k, v in _flatten(params_to_jax(self.model)).items()}
+                  for k, v in _flatten(gather_params(self.model)).items()}
         arrays.update({f"params/{k}": v
                        for k, v in self._extra_arrays().items()})
         opt_step = 0.0
+        state_arrays = {}
         for i, (name, p) in enumerate(zip(self._train_names,
                                           self._train_params)):
             state = self.optimizer.state.get(p)
             if state:
                 opt_step = float(state["step"])
-                arrays[f"opt/{name}/exp_avg"] = state["exp_avg"].cpu().numpy()
-                arrays[f"opt/{name}/exp_avg_sq"] = (
+                state_arrays[f"opt/{name}/exp_avg"] = (
+                    state["exp_avg"].cpu().numpy())
+                state_arrays[f"opt/{name}/exp_avg_sq"] = (
                     state["exp_avg_sq"].cpu().numpy())
             if self._acc is not None:
-                arrays[f"acc/{name}"] = self._acc[i].cpu().numpy()
+                state_arrays[f"acc/{name}"] = self._acc[i].cpu().numpy()
+        arrays.update(self._gather_shards(state_arrays))
+        if self.mesh is None or tdist.get_rank() == 0:
+            self._write_checkpoint(path, arrays, opt_step)
+        if self.mesh is not None:
+            tdist.barrier()          # the file exists when any rank returns
+
+    def _write_checkpoint(self, path: str, arrays: Dict[str, np.ndarray],
+                          opt_step: float) -> None:
         arrays["gen_state"] = self.gen.get_state().cpu().numpy()
         meta = {
             "format": self._CKPT_FORMAT,
@@ -292,6 +459,8 @@ class TrainerBase:
         os.replace(tmp, path)
 
     def restore_checkpoint(self, path: str) -> None:
+        """Read a ``save_checkpoint`` file (of this or any mesh) back, each
+        rank taking its "model" part."""
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
             if meta.get("format") != self._CKPT_FORMAT:
@@ -308,6 +477,10 @@ class TrainerBase:
         tree = migrate_params(_unflatten(
             {k[len("params/"):]: v for k, v in arrays.items()
              if k.startswith("params/")}))
+        if self._model_group is not None:
+            tree = shard_params(tree, model_specs(self.model, tree),
+                                axis_rank(self.mesh, "model"),
+                                axis_size(self.mesh, "model"))
         state = params_from_jax(tree)
         enc = self.model.encoder
         load_state_into(enc.pre_encode, state["encoder"]["pre_encode"])
@@ -319,9 +492,10 @@ class TrainerBase:
             load_state_into(self.model.head, state["head"])
         self._restore_extra(tree)
 
-        def like(p: torch.Tensor, a: np.ndarray) -> torch.Tensor:
+        def like(p: torch.Tensor, name: str, a: np.ndarray) -> torch.Tensor:
             # the parameter's own strides, as AdamW allocates its moments
-            return torch.zeros_like(p).copy_(torch.from_numpy(a))
+            return torch.zeros_like(p).copy_(
+                torch.from_numpy(self._local_part(name, a)))
 
         has_acc = any(k.startswith("acc/") for k in arrays)
         acc = []
@@ -331,15 +505,16 @@ class TrainerBase:
                 self.optimizer.state[p] = {
                     "step": torch.tensor(float(meta["opt_step"]),
                                          dtype=torch.float32),
-                    "exp_avg": like(p, arrays[key]),
-                    "exp_avg_sq": like(p, arrays[f"opt/{name}/exp_avg_sq"]),
+                    "exp_avg": like(p, name, arrays[key]),
+                    "exp_avg_sq": like(p, name,
+                                       arrays[f"opt/{name}/exp_avg_sq"]),
                 }
             elif meta["opt_step"]:
                 raise ValueError(
                     f"{path}: no optimizer state for {name}: TrainConfig "
                     "(freeze_encoder) mismatch")
             if has_acc:
-                acc.append(like(p, arrays[f"acc/{name}"]))
+                acc.append(like(p, name, arrays[f"acc/{name}"]))
         self._acc = acc if has_acc else None
         self.gen.set_state(torch.from_numpy(arrays["gen_state"]))
         self.step = int(meta["step"])
@@ -353,13 +528,13 @@ class FineTuner(TrainerBase):
     """CTC or RNNT fine-tuning loop around a ``GigaAMASR`` model (reference
     ``train_utils/module.py:16-271``); the head decides the objective.  The
     model's device is the trainer's; build the model with ``device="cpu"``
-    to train on the CPU."""
+    to train on the CPU.  ``mesh``: see the module's docstring."""
 
-    def __init__(self, model, tc: TrainConfig, seed: int = 0):
+    def __init__(self, model, tc: TrainConfig, seed: int = 0, mesh=None):
         self.blank_id = model.blank_id
         self.mode = ("ctc" if isinstance(model.cfg.head, CTCHeadConfig)
                      else "rnnt")
-        super().__init__(model, tc, seed)
+        super().__init__(model, tc, seed, mesh)
 
     # ------------------------------------------------------------------
     # forward / loss
@@ -371,19 +546,26 @@ class FineTuner(TrainerBase):
                          else torch.float32)
         feats, feat_lens = self.model.frontend(wavs, wav_lens)   # [B, F, T]
         if train and self.tc.spec_augment:
-            feats = spec_augment(self.gen, feats, self.tc.freq_masks,
-                                 self.tc.freq_width, self.tc.time_masks,
-                                 self.tc.time_width)
+            tc = self.tc
+            draws = self._rows_of(lambda n: torch.rand(
+                (tc.freq_masks + tc.time_masks, 2, n), generator=self.gen,
+                device=feats.device), feats.shape[0], axis=2)
+            feats = spec_augment_from_draws(feats, draws, tc.freq_masks,
+                                            tc.freq_width, tc.time_masks,
+                                            tc.time_width)
         # a frozen encoder still passes gradients (they count in grad_norm),
         # so it keeps the differentiable attention path; only its BatchNorm
         # switches to the running stats
         encoded, enc_lens, bn_stats = conformer_forward(
             self.model.encoder, feats.transpose(1, 2), feat_lens,
             self.enc_cfg, self._pos(wavs.shape[1]), compute_dtype,
-            train=train, bn_train=train and not self.tc.freeze_encoder)
+            train=train, bn_train=train and not self.tc.freeze_encoder,
+            bn_group=self._data_group)
+        enc_lens = self._without_padding(enc_lens)
         if self.mode == "ctc":
             logits = heads_lib.ctc_logits(self.model.head, encoded)
-            loss = ctc_loss(logits, enc_lens, tokens, tok_lens, self.blank_id)
+            loss = ctc_loss(logits, enc_lens, tokens, tok_lens, self.blank_id,
+                            self._data_group)
         else:
             # no lower clip on enc_lens: a pad row must reach the loss as 0
             # to leave the mean; an empty transcript (tok_lens 0) is valid
@@ -391,7 +573,7 @@ class FineTuner(TrainerBase):
                 self.model.head, encoded.float(), tokens,
                 torch.clamp(enc_lens, max=encoded.shape[1]),
                 torch.clamp(tok_lens, 0, tokens.shape[1]),
-                self.blank_id, self.tc.rnnt_time_chunk)
+                self.blank_id, self.tc.rnnt_time_chunk, self._data_group)
         return loss, (bn_stats, encoded, enc_lens)
 
     # ------------------------------------------------------------------
@@ -399,12 +581,17 @@ class FineTuner(TrainerBase):
     # ------------------------------------------------------------------
 
     def eval_step(self, batch) -> Tuple[float, List[str]]:
-        """(loss, hypotheses) of a batch, through the inference forward."""
+        """(loss, hypotheses) of a batch, through the inference forward;
+        under a mesh each rank runs its rows and every rank gets the whole
+        batch's loss and hypotheses."""
         with torch.inference_mode():
             loss, (_, encoded, enc_lens) = self._forward_loss(
-                self._to_device(batch), train=False)
+                self._local_batch(batch, pad=True), train=False)
             hyps = self.decode(encoded, enc_lens)
-        return float(loss), hyps
+            loss = float(self._sum_over_data(loss))
+        if self.mesh is not None:
+            hyps = all_gather_rows(self._data_group, hyps)[:len(batch[0])]
+        return loss, hyps
 
     def decode(self, encoded: torch.Tensor, enc_lens: torch.Tensor
                ) -> List[str]:

@@ -27,8 +27,11 @@ The draws (quantizer, head init, mask starts, noise) come from
 ``quantizer``/``ssl_head`` arguments and the ``sample_starts``/
 ``sample_noise`` methods are where a caller (the tests) puts in other
 draws.  The trainer is ``TrainerBase``'s: AdamW and its schedule, remat,
-gradient accumulation, npz train checkpoints.  The quantizer is no
-parameter at all, so no optimizer ever sees it.
+gradient accumulation, npz train checkpoints, the mesh (``mesh``: DP x TP
+over a ("data", "model") ``DeviceMesh``; the starts and the noise are drawn
+for the global batch and cut to each rank's rows, and the loss's count of
+masked positions, which differs between ranks, is the batch's).  The
+quantizer is no parameter at all, so no optimizer ever sees it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import torch.nn.functional as F
 from ..models.encoder import as_module, conformer_forward
 from ..ops.conformer_ops import static_subsampled_length, subsampled_length
 from ..ops.precision import full_fp32
+from ..parallel.collectives import global_count
 from .finetune import TrainConfig, TrainerBase
 
 
@@ -69,11 +73,12 @@ def _array(a, device) -> torch.Tensor:
 class SSLPretrainer(TrainerBase):
     """BEST-RQ pretraining around a ``GigaAM`` (SSL) model.  Batches are
     (wavs, wav_lens).  ``quantizer`` ({"proj", "codebook"}) and ``ssl_head``
-    ({"w", "b"}) replace the draws of ``quantizer_seed``."""
+    ({"w", "b"}) replace the draws of ``quantizer_seed``; ``mesh`` is
+    ``TrainerBase``'s."""
 
     def __init__(self, model, pc: PretrainConfig, seed: int = 0,
                  quantizer: Optional[Dict[str, Any]] = None,
-                 ssl_head: Optional[Dict[str, Any]] = None):
+                 ssl_head: Optional[Dict[str, Any]] = None, mesh=None):
         self.pc = pc
         enc = model.cfg.encoder
         self.stack = 2 ** enc.num_subsampling_stages
@@ -95,7 +100,7 @@ class SSLPretrainer(TrainerBase):
         h = ssl_head or head
         self.ssl_head = as_module({k: _array(h[k], dev).clone()
                                    for k in ("w", "b")})
-        super().__init__(model, pc, seed)
+        super().__init__(model, pc, seed, mesh)
 
     # hooks ------------------------------------------------------------
 
@@ -170,7 +175,8 @@ class SSLPretrainer(TrainerBase):
                      gen: torch.Generator) -> torch.Tensor:
         """Span mask [B, t_sub] bool: frame i is masked when a span starts
         in (i - mask_span, i], and only on valid frames."""
-        cs = torch.cumsum(self.sample_starts(b, t_sub, gen).int(), dim=1)
+        starts = self._rows_of(lambda n: self.sample_starts(n, t_sub, gen), b)
+        cs = torch.cumsum(starts.int(), dim=1)
         shifted = F.pad(cs, (self.pc.mask_span, 0))[:, :t_sub]
         valid = (torch.arange(t_sub, device=cs.device)[None, :]
                  < sub_lens[:, None])
@@ -198,19 +204,22 @@ class SSLPretrainer(TrainerBase):
             mask_feat = F.pad(mask_feat, (0, t_feat - mask_feat.shape[1]))
         # masked in eval too: the objective means nothing on clean features
         # (eval draws from a fixed generator)
-        feats_in = torch.where(mask_feat[:, :, None],
-                               self.sample_noise(feats.shape, gen), feats)
+        noise = self._rows_of(
+            lambda n: self.sample_noise((n, *feats.shape[1:]), gen), b)
+        feats_in = torch.where(mask_feat[:, :, None], noise, feats)
         encoded, enc_lens, bn_stats = conformer_forward(
             self.model.encoder, feats_in, feat_lens, enc,
             self._pos(wavs.shape[1]), compute_dtype, train=train,
-            bn_train=train and not pc.freeze_encoder)
+            bn_train=train and not pc.freeze_encoder,
+            bn_group=self._data_group)
+        enc_lens = self._without_padding(enc_lens)
         with full_fp32():
             logits = encoded.float() @ self.ssl_head["w"] + self.ssl_head["b"]
         ce = -torch.log_softmax(logits, dim=-1).gather(
             -1, targets[:, :, None])[:, :, 0]
         active = mask_sub & (torch.arange(t_sub, device=ce.device)[None, :]
                              < torch.clamp(enc_lens, max=n_codes)[:, None])
-        denom = active.sum().clamp(min=1)
+        denom = global_count(active.sum(), self._data_group).clamp(min=1)
         loss = torch.where(active, ce, 0.0).sum() / denom
         acc = ((logits.argmax(dim=-1) == targets) & active).sum() / denom
         return loss, (bn_stats, acc, enc_lens)
@@ -218,12 +227,13 @@ class SSLPretrainer(TrainerBase):
     def eval_step(self, batch) -> Tuple[float, float]:
         """(masked-prediction loss, masked accuracy), through the inference
         forward, with the same mask and noise each call (a generator seeded
-        0), so that validation numbers compare across steps."""
+        0), so that validation numbers compare across steps.  Under a mesh, the whole batch's."""
         gen = torch.Generator(device=self.device).manual_seed(0)
         with torch.inference_mode():
-            loss, (_, acc, _) = self._forward_loss(self._to_device(batch),
-                                                   train=False, gen=gen)
-        return float(loss), float(acc)
+            loss, (_, acc, _) = self._forward_loss(
+                self._local_batch(batch, pad=True), train=False, gen=gen)
+            return (float(self._sum_over_data(loss)),
+                    float(self._sum_over_data(acc)))
 
 
 # ----------------------------------------------------------------------
@@ -276,6 +286,10 @@ def parse_args(argv=None):
     p.add_argument("--save_top_k", type=int, default=1)
     p.add_argument("--resume_from_checkpoint", default=None)
     p.add_argument("--seed", type=int, default=0)
+    # parallelism (``train.py``'s flags and launch)
+    from .train import add_parallel_args
+
+    add_parallel_args(p)
     return p.parse_args(argv)
 
 
@@ -286,12 +300,15 @@ def main(argv=None) -> None:
 
     import gigaam_tpu_torch
     from gigaam_tpu_torch.data import AudioDataset, prefetch_batches
-    from gigaam_tpu_torch.train.train import TopKKeeper
+    from gigaam_tpu_torch.parallel.distributed import rank
+    from gigaam_tpu_torch.train.train import TopKKeeper, parallel_setup
     from gigaam_tpu_torch.weights import save_model
 
     args = parse_args(argv)
+    device, mesh = parallel_setup(args)
+    is_main = rank() == 0
     # fp32 master weights (bf16 is the compute dtype only)
-    model = gigaam_tpu_torch.load_model(args.model_name, device=args.device,
+    model = gigaam_tpu_torch.load_model(args.model_name, device=device,
                                         init=args.init, seed=args.seed)
     train_ds = AudioDataset(args.train_manifest,
                             min_duration=args.min_duration,
@@ -313,20 +330,23 @@ def main(argv=None) -> None:
         noise_std=args.noise_std, codebook_size=args.codebook_size,
         codebook_dim=args.codebook_dim, quantizer_seed=args.quantizer_seed)
 
-    pt = SSLPretrainer(model, pc, seed=args.seed)
+    pt = SSLPretrainer(model, pc, seed=args.seed, mesh=mesh)
     if args.resume_from_checkpoint:
         pt.restore_checkpoint(args.resume_from_checkpoint)
         print(f"resumed from {args.resume_from_checkpoint} @ step {pt.step}")
 
     os.makedirs(args.save_dir, exist_ok=True)
-    metrics_f = open(os.path.join(args.save_dir, "metrics.jsonl"), "a")
+    metrics_f = (open(os.path.join(args.save_dir, "metrics.jsonl"), "a")
+                 if is_main else None)
 
     def log(rec):
+        if not is_main:
+            return
         rec["time"] = round(time.time(), 3)
         metrics_f.write(json.dumps(rec) + "\n")
         metrics_f.flush()
 
-    keeper = TopKKeeper(args.save_dir, args.save_top_k)
+    keeper = TopKKeeper(args.save_dir, args.save_top_k, writer=is_main)
 
     def validate(step):
         tot_loss = tot_acc = rows = 0.0
@@ -381,8 +401,9 @@ def main(argv=None) -> None:
         validate(pt.step)
     pt.sync_model()
     save_model(model, os.path.join(args.save_dir, "final"))
-    print(f"saved the pretrained encoder to {args.save_dir}/final.npz")
-    metrics_f.close()
+    if is_main:
+        print(f"saved the pretrained encoder to {args.save_dir}/final.npz")
+        metrics_f.close()
 
 
 if __name__ == "__main__":

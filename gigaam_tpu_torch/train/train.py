@@ -6,13 +6,28 @@ Usage:
       --train_manifest train.tsv --val_manifest val.tsv \\
       --save_dir exp/run1 [flags]
 
-``--model_name`` is a ``save_model`` artifact (``.npz`` + ``.json``), or a
-preset name with ``--init random``.  The run is on the card unless
-``--device cpu`` is given.
+``--model_name`` is anything ``load_model`` takes: a ``save_model``
+artifact (``.npz`` + ``.json``), a reference ``.ckpt`` file, a model name
+(``v3_ctc``, ``ctc``, ...; downloaded and converted once), or a preset name
+with ``--init random``.  The run is on the card unless ``--device cpu`` is
+given.
+
+Across devices, one process per device under ``torchrun``::
+
+  torchrun --nproc_per_node 4 -m gigaam_tpu_torch.train.train \
+      --model_name v3_ctc --data_parallel 2 --model_parallel 2 [flags]
+
+``--model_parallel`` shards the encoder over that many ranks
+(tensor parallelism), ``--data_parallel`` (0: the largest size that divides
+``--batch_size`` and fits the processes, the JAX CLI's choice) splits each
+batch's rows; their product must be the number of processes.  Every rank
+reads the same batches; rank 0 alone writes metrics and checkpoints.  The
+backend is ``nccl`` on the card (each rank takes the card of its
+``LOCAL_RANK``) and ``gloo`` with ``--device cpu``.
 
 Differences from the reference:
-  * one device (the JAX package's ``--data_parallel``/``--model_parallel``
-    mesh flags are not ported);
+  * a ("data", "model") ``DeviceMesh`` with explicit collectives
+    (``parallel/mesh.py``), not Lightning DDP;
   * batches are padded to bucketed lengths, as the JAX package pads them;
   * metrics stream to ``<save_dir>/metrics.jsonl`` (+ stdout); checkpoints
     are npz train states with top-k selection on val WER; the final model
@@ -32,8 +47,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="GigaAM fine-tuning (PyTorch/CUDA)")
     # model / data
     p.add_argument("--model_name", required=True,
-                   help="native artifact, or a preset name with "
-                        "--init random")
+                   help="native artifact, reference .ckpt or model name, "
+                        "or a preset name with --init random")
     p.add_argument("--init", choices=["weights", "random"], default="weights",
                    help="'random': seed-initialized weights for a preset")
     p.add_argument("--device", default=None,
@@ -96,7 +111,52 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "handoff (reference v*_ssl lineage)")
     p.add_argument("--initial_validation", action="store_true")
     p.add_argument("--seed", type=int, default=0)
+    add_parallel_args(p)
     return p.parse_args(argv)
+
+
+def add_parallel_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="data-parallel size; 0 = the largest that divides "
+                        "--batch_size and fits the processes")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel size (the encoder's shards)")
+
+
+def parallel_setup(args) -> Tuple[Optional[str], object]:
+    """(this process's device, its mesh or None) from the CLI's flags and
+    ``torchrun``'s environment (``gigaam_tpu/train/train.py:265-283``)."""
+    from ..parallel import distributed as pdist
+
+    device = args.device
+    if pdist._env_configured() and device is None:
+        import torch
+
+        device = f"cuda:{pdist.local_rank()}"
+        torch.cuda.set_device(device)
+    backend = ("gloo" if device is not None and device.startswith("cpu")
+               else "nccl")
+    pdist.initialize(backend)
+    world, mp = pdist.world_size(), args.model_parallel
+    if world == 1 and mp == 1:
+        return device, None
+    dp = args.data_parallel
+    if dp == 0:
+        dp = next((c for c in range(world // mp, 0, -1)
+                   if args.batch_size % c == 0), 1)
+    if args.batch_size % dp:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible "
+                         f"by data-parallel size {dp}")
+    if dp * mp != world:
+        raise SystemExit(f"data {dp} x model {mp} needs {dp * mp} "
+                         f"processes, {world} were launched")
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=dp, model=mp,
+                     device_type="cuda" if backend == "nccl" else "cpu")
+    if pdist.rank() == 0:
+        print(f"mesh: data={dp} model={mp} ({world} processes, {backend})")
+    return device, mesh
 
 
 def _fmt_num(v) -> str:
@@ -163,11 +223,14 @@ class TopKKeeper:
     """Keep the k best (lowest val_wer) checkpoints on disk.
 
     Lightning ModelCheckpoint semantics (reference ``train.py:157-163``):
-    ``k == 0`` disables checkpointing, ``k < 0`` keeps every checkpoint."""
+    ``k == 0`` disables checkpointing, ``k < 0`` keeps every checkpoint.
+    In a multi-process run every rank keeps the books and calls
+    ``save_fn`` (a collective), and only the ``writer`` removes files."""
 
-    def __init__(self, save_dir: str, k: int):
+    def __init__(self, save_dir: str, k: int, writer: bool = True):
         self.save_dir = save_dir
         self.k = k
+        self.writer = writer
         self.kept: List[Tuple[float, str]] = []
 
     def submit(self, wer: float, step: int, save_fn) -> Optional[str]:
@@ -182,7 +245,7 @@ class TopKKeeper:
             self.kept.sort()
             while self.k > 0 and len(self.kept) > self.k:
                 _, worst = self.kept.pop()
-                if os.path.exists(worst):
+                if self.writer and os.path.exists(worst):
                     os.remove(worst)
             return path
         return None
@@ -192,7 +255,9 @@ def run_validation(ft, val_ds, batch_size: int,
                    first_batches: Optional[int] = None
                    ) -> Tuple[float, float]:
     """Full-val loss + WER (reference ``module.py:216-250``: WER counts
-    aggregated over the whole set).  ``first_batches``
+    aggregated over the whole set; under a mesh ``eval_step`` returns each
+    batch's loss and hypotheses gathered over "data", so the counts are
+    the whole set's on every rank).  ``first_batches``
     caps validation to the first N batches (reference
     ``--val_first_batches``)."""
     tot_loss, n_batches, n_rows = 0.0, 0, 0
@@ -223,14 +288,17 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     import gigaam_tpu_torch
     from gigaam_tpu_torch.data import AudioDataset, prefetch_batches
+    from gigaam_tpu_torch.parallel.distributed import rank
     from gigaam_tpu_torch.train.finetune import FineTuner, TrainConfig
     from gigaam_tpu_torch.weights import (
         init_encoder_from_artifact,
         save_model,
     )
 
+    device, mesh = parallel_setup(args)
+    is_main = rank() == 0
     # fp32 master weights for training (bf16 is the compute dtype only)
-    model = gigaam_tpu_torch.load_model(args.model_name, device=args.device,
+    model = gigaam_tpu_torch.load_model(args.model_name, device=device,
                                         init=args.init, seed=args.seed)
     assert model.cfg.decoding is not None, "ASR model required"
     if args.init_encoder_from:
@@ -262,20 +330,23 @@ def main(argv: Optional[List[str]] = None) -> None:
         remat_policy=args.remat_policy,
         accumulate_grad_batches=args.accumulate_grad_batches)
 
-    ft = FineTuner(model, tc, seed=args.seed)
+    ft = FineTuner(model, tc, seed=args.seed, mesh=mesh)
     if args.resume_from_checkpoint:
         ft.restore_checkpoint(args.resume_from_checkpoint)
         print(f"resumed from {args.resume_from_checkpoint} @ step {ft.step}")
 
     os.makedirs(args.save_dir, exist_ok=True)
-    metrics_f = open(os.path.join(args.save_dir, "metrics.jsonl"), "a")
+    metrics_f = (open(os.path.join(args.save_dir, "metrics.jsonl"), "a")
+                 if is_main else None)
 
     def log(rec):
+        if not is_main:
+            return
         rec["time"] = round(time.time(), 3)
         metrics_f.write(json.dumps(rec) + "\n")
         metrics_f.flush()
 
-    keeper = TopKKeeper(args.save_dir, args.save_top_k)
+    keeper = TopKKeeper(args.save_dir, args.save_top_k, writer=is_main)
 
     def validate(step):
         vl, vw = run_validation(ft, val_ds,
@@ -338,8 +409,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         validate(ft.step)
     ft.sync_model()
     save_model(model, os.path.join(args.save_dir, "final"))
-    print(f"saved final model to {args.save_dir}/final.npz")
-    metrics_f.close()
+    if is_main:
+        print(f"saved final model to {args.save_dir}/final.npz")
+        metrics_f.close()
 
 
 if __name__ == "__main__":

@@ -245,10 +245,26 @@ def save_model(model, path: str) -> None:
     (``<base>.json``), readable by ``load_native`` of either package.  A
     SentencePiece tokenizer is copied next to the npz as
     ``<name>_tokenizer.model`` and stored by that relative path, so the
-    artifact can move (``gigaam_tpu/models/model.py:777-792``)."""
+    artifact can move (``gigaam_tpu/models/model.py:777-792``).
+
+    In a ``torch.distributed`` run every rank calls it: a tensor-parallel
+    encoder's shards are gathered (a collective), rank 0 alone writes the
+    same pair one process writes (JAX ``model.py:759-771``), and every rank
+    returns once it is written."""
+    from .parallel.mesh import gather_params
+
+    tree = gather_params(model)
+    ranks = torch.distributed.is_initialized()
+    if not ranks or torch.distributed.get_rank() == 0:
+        _write_artifact(model, tree, path)
+    if ranks:
+        torch.distributed.barrier()  # the pair exists when any rank returns
+
+
+def _write_artifact(model, tree: Tree, path: str) -> None:
     base = path[:-4] if path.endswith(".npz") else path
     os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
-    np.savez(base + ".npz", **_flatten(params_to_jax(model)))
+    np.savez(base + ".npz", **_flatten(tree))
     cfg = model.cfg
     dec = cfg.decoding
     if dec is not None and dec.model_path:

@@ -425,7 +425,17 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/exported_infer.py",
             "gigaam_tpu_torch/serve.py",
             "gigaam_tpu_torch/streaming.py",
-            "gigaam_tpu_torch/client.py"} <= rel
+            "gigaam_tpu_torch/client.py",
+            "gigaam_tpu_torch/parallel/collectives.py",
+            "gigaam_tpu_torch/parallel/distributed.py",
+            "gigaam_tpu_torch/parallel/mesh.py",
+            "gigaam_tpu_torch/tools/train_lm.py",
+            "gigaam_tpu_torch/tools/export_hf_dataset.py",
+            "gigaam_tpu_torch/tools/run_parity.py",
+            "gigaam_tpu_torch/examples/common.py",
+            "gigaam_tpu_torch/examples/quickstart.py",
+            "gigaam_tpu_torch/examples/serving.py",
+            "gigaam_tpu_torch/examples/streaming.py"} <= rel
     for path in cuda:
         with open(path) as f:
             for line in f:
