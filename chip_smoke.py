@@ -52,7 +52,9 @@ Phases, each fatal on failure:
    above the limit; each kernel from its forward's saved (out, lse) and
    without them, the same bits; times (with the pair given, and without),
    bounds, two runs bit-equal, but for K6's dp, whose spread over two runs
-   is printed (its batch sum uses atomics);
+   is printed (its batch sum uses atomics); K4's library time is SDPA's
+   backward alone on a pinned backend (``SDPA_YARDSTICK``), printed beside
+   the backend PyTorch picks unpinned and each backend's reading;
 8. the SDPA ablation (P9-P12, ``gigaam_tpu_torch/probes/sdpa_ablation.py``):
    each of its eleven variants of K3 against its plain version at B 8,
    T' 501 and B 16, T' 500 (ragged masks, peaked scores), with planted faults
@@ -76,17 +78,23 @@ Phases, each fatal on failure:
 10. the conv2d-subsampling probes (P1-P3,
    ``gigaam_tpu_torch/probes/subsampling_probe.py``): the tap products (P1,
    aligned and with copies) and the im2col product (P2, without and with the
-   linear) against their plain versions at the script's B 1, T 32-128 and
+   linear), on the warp-specialised redesign (``csrc/subsampling_ws.cu``),
+   against their plain versions at the script's B 1, T 32-128 and
    at the main path's stage 2, B 16, T' 500 (the blocks of a stage-1 output
    drawn on the card), with planted faults (the misaligned taps read
    aligned, the odd-time blocks' hi offset dropped, two taps' weights
    swapped, ReLU skipped before the linear and, fed through the inputs, a
    tile that reads across a batch edge), each timed by CUDA events, by
-   the profile's kernel sum and (B 16) by graph replays beside its bound,
-   its plain version and the library call (cuDNN's stride-2 conv in the
+   the profile's kernel sum and by graph replays beside its bound,
+   its plain version, the library call (cuDNN's stride-2 conv in the
    port's NCHW layout and in ``channels_last``; a ``torch.matmul`` for P1
-   aligned), at B 16 with each call's kernels and, for P1, the SM clock
-   and power under 400 gapless calls (``nvidia-smi`` samples);
+   aligned) and the earlier design (the TMA ring of
+   ``csrc/subsampling_probe.cu``, also held to the plain version); the
+   redesign's steps one by one at B 16, T 500 and B 1, T 64, the forced
+   K splits at B 1, T 64, the linear's K splits at B 16; at B 16 each
+   call's kernels, P2's peak memory (no patch, no ``patch_kernel``) and,
+   for P1, the SM clock and power under 400 gapless calls (``nvidia-smi``
+   samples), which turns the card's reading into the graph's;
    P3's shared-memory ceiling against the card's opt-in limit, with 2 x
    exact at every granted size; then the probe's own ``main``, from zeroed
    launch counts, printed as a ``subsampling_probe`` line in microseconds;
@@ -940,6 +948,53 @@ def grad_distances(names, got, ref, valid):
     return out
 
 
+# the SDPA backend K4's library yardstick is pinned to: the one PyTorch
+# picks unpinned for K4's inputs on an H100 (a boolean key mask, d_h 48,
+# bf16; flash takes no mask), whose backward is also the fastest of the
+# three that take them
+SDPA_YARDSTICK = "CUDNN_ATTENTION"
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_backward_yardstick(label: str, leaves, mask4, do) -> float:
+    """K4's library time: SDPA's backward alone (the forward's graph kept
+    and its gradient taken again) by CUDA events, on the backend
+    SDPA_YARDSTICK pinned with ``sdpa_kernel``.  Prints the backend that
+    PyTorch picks unpinned (its kernels' names) and each backend's backward
+    by events and by the profile's kernel sum, beside the old reading
+    (forward + backward less forward, both by events with the host in the
+    loop)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+
+    def both():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    unpinned = sorted(device_ms(both))
+    readings = {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                out = fwd()
+                both_less_fwd = time_ms(both) - time_ms(fwd)
+            bwd = lambda: torch.autograd.grad(out, leaves, do,
+                                              retain_graph=True)
+            split = device_ms(bwd)
+            readings[name] = dict(events=time_ms(bwd),
+                                  card=sum(split.values()),
+                                  both_less_fwd=both_less_fwd,
+                                  kernels=[n[:60] for n in sorted(split)][:3])
+            del out
+        except RuntimeError as e:     # a backend that refuses these inputs
+            readings[name] = {"refused": str(e).splitlines()[0][:120]}
+    print(f"  {label} SDPA backward yardstick: unpinned kernels "
+          f"{[n[:60] for n in unpinned]}; by backend {json.dumps(readings)};"
+          f" pinned to {SDPA_YARDSTICK}", flush=True)
+    return readings[SDPA_YARDSTICK]["events"]
+
+
 def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
     key = "K6" if relpos else "K4"
     kernel, plain, fwd_kernel, fwd_plain = (
@@ -1068,14 +1123,8 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
             mask4 = valid[:, None, None, :]
             q, k, v, do = (x for x in args[:4])
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-
-            def lib_fwd():
-                return F.scaled_dot_product_attention(*leaves, attn_mask=mask4)
-
-            def lib_both():
-                torch.autograd.grad(lib_fwd(), leaves, do)
-
-            lib_ms = time_ms(lib_both) - time_ms(lib_fwd)
+            lib_ms = sdpa_backward_yardstick(f"{key} B={b} T'={t}", leaves,
+                                             mask4, do)
         print(f"  {key} B={b} T'={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, library "
               f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}"
@@ -1467,6 +1516,13 @@ SUB_SHAPES = (("P1", 1, 32, False), ("P1", 1, 32, True), ("P1", 1, 64, False),
               ("P2", 16, 500, False), ("P2", 16, 500, True))
 SUB_ROW = (16, 500, True)
 SUB_FAULTS = (1, 64)
+# the redesign's steps are timed at the main path's stage 2 and the
+# script's middle shape; the forced K splits at B 1, T 64 (fp32 partials
+# and a reduction pass), the linear's at B 16, T 500
+SUB_STEP_SHAPES = ((16, 500), (1, 64))
+SUB_SPLITS = (1, 2, 3, 4, 5, 6, 8, 11)
+SUB_LIN_SPLITS = (1, 2, 3, 4)
+SUB_ROUNDS = 3             # interleaved rounds of the steps' timing
 # id -> (wrapper, the `pallas_call` it replaces, what the variant flag means)
 SUB_PROBES = {
     "P1": ("taps_product", "benchmarks/pallas_subsampling_probe.py:78",
@@ -1538,9 +1594,9 @@ def batch_merged(blocks):
 
 def subsampling_calls(sp, pid: str, variant: bool, inputs):
     """(kernel call, plain call, library call, the conv in channels_last or
-    None, faults) of P1 (``variant``: with copies) or P2 (with the linear)
-    on ``inputs``; the faults at B 1 with copies or for P2, at B 16 the
-    batch edge (P1 only)."""
+    None, faults, the TMA ring's call) of P1 (``variant``: with copies) or
+    P2 (with the linear) on ``inputs``; the faults at B 1 with copies or
+    for P2, at B 16 the batch edge (P1 only)."""
     ee, eo, oe, oo, w, wl, x1 = inputs
     b, t = ee.shape[:2]
     blocks = (ee, eo, oe, oo)
@@ -1579,7 +1635,8 @@ def subsampling_calls(sp, pid: str, variant: bool, inputs):
                  lambda: sp.taps_product(*blocks, swapped, taps)))
         return (lambda: sp.taps_product(*blocks, w, taps),
                 lambda: sp.taps_plain(*blocks, w, taps), lib, lib_cl,
-                faults if variant else ())
+                faults if variant else (),
+                lambda: sp.taps_product_ring(*blocks, w, taps))
     w2 = w.view(9 * D_MODEL, D_MODEL)
     lin = wl if variant else None
     if x1 is None:
@@ -1604,23 +1661,194 @@ def subsampling_calls(sp, pid: str, variant: bool, inputs):
         *((("ReLU skipped before the linear", relu_skipped),) if variant
           else ()))
     return (lambda: sp.im2col_product(*blocks, w2, lin),
-            lambda: sp.im2col_plain(*blocks, w2, lin), lib, lib_cl, faults)
+            lambda: sp.im2col_plain(*blocks, w2, lin), lib, lib_cl, faults,
+            lambda: sp.im2col_product_ring(*blocks, w2, lin))
+
+
+def three_times(fn, out):
+    """({ms: CUDA events, sum_ms: the profile's kernel sum, graph_ms:
+    graph replays}, the profile's ms by kernel) of ``fn``, whose output is
+    shaped like ``out``."""
+    split = device_ms(fn)
+    return dict(ms=time_ms(fn), sum_ms=sum(split.values()),
+                graph_ms=device_timeit(lambda _: fn(), [out], k=5) * 1e3), split
+
+
+def ab_times(kernel, ring, out):
+    """``three_times`` of the redesign and the ring in turns (redesign,
+    ring, ring, redesign), each reading the mean of its two: (redesign's,
+    its kernels, ring's, its kernels)."""
+    got = {}
+    for name, fn in (("k", kernel), ("r", ring), ("r", ring), ("k", kernel)):
+        got.setdefault(name, []).append(three_times(fn, out))
+    mean = lambda runs: {key: sum(r[key] for r, _ in runs) / len(runs)
+                         for key in runs[0][0]}
+    return mean(got["k"]), got["k"][0][1], mean(got["r"]), got["r"][0][1]
+
+
+def times_text(r: dict) -> str:
+    return (f"{r['sum_ms']:.4f} card, {r['graph_ms']:.4f} graph, "
+            f"{r['ms']:.4f} events")
+
+
+def sustained_line(label: str, name: str, fn) -> dict:
+    """Prints and returns 400 gapless calls' ms with the SM clock and power
+    that ``nvidia-smi`` sampled meanwhile."""
+    s_ms, samples = sustained_ms(fn)
+    clocks = sorted(c for c, _ in samples) or [0.0]
+    watts = sorted(w for _, w in samples) or [0.0]
+    print(f"  {label} {name} sustained: {s_ms:.4f} ms a call over 400 calls; "
+          f"{len(samples)} samples, SM clock {clocks[0]:.0f}-{clocks[-1]:.0f} "
+          f"MHz (median {np.median(clocks):.0f}), power median "
+          f"{np.median(watts):.1f} W, max {watts[-1]:.1f} W", flush=True)
+    return dict(ms=s_ms, clock_median=float(np.median(clocks)),
+                clock_max=clocks[-1], watts_median=float(np.median(watts)))
+
+
+def subsampling_steps(sp, label, blocks, w, ref, valid, ring) -> list:
+    """The redesign's steps (``sp.WS_STEPS``) on P1 with copies, each held
+    to the plain version, then timed with the TMA ring in SUB_ROUNDS
+    interleaved rounds (forward, backward, forward): medians of each
+    reading, and each step's share of the ring-to-last-step gain on the
+    card and by graph replays."""
+    taps, calls = sp.TAPS_WITH_COPIES, [("the TMA ring", ring)]
+    errs = {}
+    for step, variant, persistent in sp.WS_STEPS:
+        fn = (lambda variant=variant, persistent=persistent:
+              sp.taps_ws(*blocks, w, taps, variant, persistent))
+        errs[step], _ = check_kernel(f"{label} step {step}", fn(), ref, valid,
+                                     1, ())
+        calls.append((step, fn))
+    samples = defaultdict(list)
+    for rnd in range(SUB_ROUNDS):
+        for name, fn in (calls if rnd % 2 == 0 else calls[::-1]):
+            samples[name].append(three_times(fn, ref)[0])
+    med = {name: {key: float(np.median([r[key] for r in rs]))
+                  for key in ("ms", "sum_ms", "graph_ms")}
+           for name, rs in samples.items()}
+    first, last = med[calls[0][0]], med[calls[-1][0]]
+    rows, prev = [], first
+    for name, _ in calls[1:]:
+        r = dict(med[name], step=name, max_abs_err=errs[name])
+        for key, share in (("sum_ms", "share_card"), ("graph_ms",
+                                                      "share_graph")):
+            gain = first[key] - last[key]
+            r[share] = (prev[key] - r[key]) / gain if gain else None
+        prev = r
+        rows.append(r)
+    fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+    print(f"  {label} steps, medians of {SUB_ROUNDS} interleaved rounds "
+          f"(card / graph / events ms; share of the ring's gain, card / "
+          f"graph): the TMA ring {times_text(first)}; " + "; ".join(
+              f"{r['step']} {times_text(r)}, share {fmt(r['share_card'])} / "
+              f"{fmt(r['share_graph'])}" for r in rows), flush=True)
+    return [dict(first, step="the TMA ring")] + rows
+
+
+def subsampling_splits(sp, label, blocks, w, ref, valid, b, t) -> list:
+    """P1 with copies at each forced K split (fp32 partials in device
+    memory and a reduction pass), beside the plan's own choice."""
+    taps, rows = sp.TAPS_WITH_COPIES, []
+    plan = sp.taps_plan_splits(b, t, torch.cuda.current_device())
+    for n in SUB_SPLITS:
+        fn = lambda n=n: sp.taps_ws(*blocks, w, taps, splits=n)
+        out = fn()
+        err, _ = check_kernel(f"{label} {n} splits", out, ref, valid, 1, ())
+        r, _ = three_times(fn, out)
+        r.update(splits=n, max_abs_err=err)
+        rows.append(r)
+    print(f"  {label} K splits (the plan's {plan}; card / graph / events "
+          "ms): " + "; ".join(f"{r['splits']}: {times_text(r)}"
+                              for r in rows), flush=True)
+    return rows
+
+
+def clock_reasons(fn, calls: int = 300) -> str:
+    """What ``nvidia-smi`` reads (SM clock, its maximum, power, temperature,
+    the active clock-event reasons) while ``calls`` gapless calls of
+    ``fn`` run."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        fn()
+    fields = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu,{}"
+    text = ""
+    for reasons in ("clocks_event_reasons.active",
+                    "clocks_throttle_reasons.active"):
+        got = subprocess.run(["nvidia-smi", "--query-gpu=" + fields.format(
+            reasons), "--format=csv,noheader"], capture_output=True,
+            text=True)
+        text = (got.stdout or got.stderr).strip()
+        if got.returncode == 0:
+            break
+    torch.cuda.synchronize()
+    return text
+
+
+def subsampling_linear_splits(sp, label, blocks, w, wl, b, t) -> list:
+    """P2's linear alone at each forced K split, on relu(s2) from the
+    redesign, held to its fp32 product."""
+    s2 = torch.relu(sp.taps_ws(*blocks, w, sp.TAPS_WITH_COPIES))
+    a = s2.view(b * t, 16 * D_MODEL)
+    with full_fp32():
+        ref = (a.float() @ wl.float()).to(a.dtype)
+    valid = torch.ones(b * t, 1, dtype=torch.bool, device=a.device)
+    rows = []
+    for n in SUB_LIN_SPLITS:
+        fn = lambda n=n: sp.linear_ws(a, wl, splits=n)
+        out = fn()
+        err, _ = check_kernel(f"{label} linear, {n} splits", out, ref, valid,
+                              1, ())
+        r, _ = three_times(fn, out)
+        r.update(splits=n, max_abs_err=err)
+        rows.append(r)
+    print(f"  {label} the linear alone by K splits (card / graph / events "
+          "ms): " + "; ".join(f"{r['splits']}: {times_text(r)}"
+                              for r in rows), flush=True)
+    return rows
+
+
+def no_patch_check(label, kernel, split: dict, b: int, t: int) -> None:
+    """P2's path launches no ``patch_kernel`` and allocates far less than
+    the [B T 16, 6912] patch."""
+    names = sorted(split)
+    if (any("patch_kernel" in n for n in names)
+            or not any("ws_conv_kernel" in n for n in names)):
+        raise AssertionError(f"{label}: kernels {names}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernel()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    patch = b * t * 16 * 9 * D_MODEL * 2
+    print(f"  {label}: kernels {[n[:40] for n in names]}, no patch_kernel; "
+          f"{peak} bytes allocated at the peak against the patch's {patch}",
+          flush=True)
+    if peak >= patch // 2:
+        raise AssertionError(f"{label}: {peak} bytes at the peak")
 
 
 def subsampling_probe_phase(dev):
-    """P1-P3: P1 and P2 against their plain versions at SUB_SHAPES (the
-    planted faults at SUB_FAULTS, the batch edge at B 16), two calls
-    bit-equal, each timed by CUDA events and by the profile's kernel sum
-    beside its bound, its plain version and the library call; P3's ceiling
+    """P1-P3: P1 and P2 (the warp-specialised redesign) against their plain
+    versions at SUB_SHAPES (the planted faults at SUB_FAULTS, the batch edge
+    at B 16), two calls bit-equal, each timed by CUDA events, by the
+    profile's kernel sum and by graph replays beside its bound, its plain
+    version, the library call and the TMA ring of the earlier design (held
+    to the plain version too); at SUB_STEP_SHAPES the redesign's steps, at
+    B 1, T 64 the forced K splits, at B 16 the linear's K splits, P2's
+    kernels and peak memory (no patch) and the SM clock under gapless load
+    that separates the card's reading from the graph's; P3's ceiling
     against the card's opt-in limit, 2 x exact at every granted size; then
-    the probe's own ``main``, from zeroed launch counts.  Returns ({id: JSON
-    row}, {wrapper: launches in ``main``})."""
+    the probe's own ``main``, from zeroed launch counts.  Returns ({id:
+    JSON row}, {wrapper: launches in ``main``})."""
     from gigaam_tpu_torch.probes import subsampling_probe as sp
 
+    t_phase = time.perf_counter()
     readings = defaultdict(dict)
     for pid, b, t, variant in SUB_SHAPES:
         inputs = subsampling_inputs(sp, pid, b, t, variant, dev)
-        kernel, plain, lib, lib_cl, faults = subsampling_calls(
+        kernel, plain, lib, lib_cl, faults, ring = subsampling_calls(
             sp, pid, variant, inputs)
         shape = f"B {b}, T {t}, {SUB_PROBES[pid][2][variant]}"
         label = f"{pid} {SUB_PROBES[pid][0]} {shape}"
@@ -1628,60 +1856,90 @@ def subsampling_probe_phase(dev):
         if not torch.equal(kernel(), got):
             raise AssertionError(f"{label}: two calls differ")
         valid = torch.ones(b, t, dtype=torch.bool, device=dev)
+        ref = plain()
         err, rel = check_kernel(
-            label, got, plain(), valid, 1,
+            label, got, ref, valid, 1,
             faults if (b, t) in (SUB_FAULTS, SUB_ROW[:2]) else ())
-        ms = time_ms(kernel)
-        split = device_ms(kernel)
-        sum_ms = sum(split.values())
+        ring_got = ring()
+        ring_err, _ = check_kernel(f"{label} (the TMA ring)", ring_got, ref,
+                                   valid, 1, ())
+        del ring_got
+        times, split, ring_times, ring_split = ab_times(kernel, ring, got)
+        ring_times["max_abs_err"] = ring_err
         plain_ms = time_ms(plain, iters=3, warmup=1)
         lib_ms = time_ms(lib)
         lib_cl_ms = None if lib_cl is None else time_ms(lib_cl)
         bms, by = subsampling_bound(pid, b, t, variant)
-        graph_ms = None
+        print(f"  {label} A/B: the TMA ring {times_text(ring_times)} "
+              f"({bms / ring_times['sum_ms']:.3f} of the bound on the card); "
+              f"the redesign {times_text(times)} "
+              f"({bms / times['sum_ms']:.3f}); redesign / ring "
+              f"{times['sum_ms'] / ring_times['sum_ms']:.3f} card, "
+              f"{times['graph_ms'] / ring_times['graph_ms']:.3f} graph",
+              flush=True)
+        extra = {}
+        blocks, w, wl = inputs[:4], inputs[4], inputs[5]
         if b > 1:
-            # B 16's graph replays (the script's shapes get theirs from
-            # main) and where each call's device time goes, by kernel
-            graph_ms = device_timeit(lambda _: kernel(), [got], k=5) * 1e3
-            for name, times in (
-                    ("kernel", split), ("library", device_ms(lib)),
-                    ("channels_last", {} if lib_cl is None
+            # where each call's device time goes, by kernel
+            for name, sp_times in (
+                    ("kernel", split), ("ring", ring_split),
+                    ("library", device_ms(lib)),
+                    ("channels_last", None if lib_cl is None
                      else device_ms(lib_cl))):
-                top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+                if sp_times is None:
+                    continue
+                top = sorted(sp_times.items(), key=lambda kv: -kv[1])[:6]
                 print(f"  {label} {name} on the card by kernel (sum "
-                      f"{sum(times.values()):.4f} ms): " + json.dumps(
+                      f"{sum(sp_times.values()):.4f} ms): " + json.dumps(
                           [[k[:70], round(v, 4)] for k, v in top]),
                       flush=True)
-            # the profile leaves gaps between calls, events and graph
-            # replays none: the SM clock and power under the gapless load
-            for name, fn in (("kernel", kernel), ("library", lib),
-                             ("channels_last", lib_cl)):
-                if fn is None or pid != "P1":
-                    continue
-                s_ms, samples = sustained_ms(fn)
-                clocks = sorted(c for c, _ in samples)
-                watts = sorted(w for _, w in samples)
-                print(f"  {label} {name} sustained: {s_ms:.4f} ms a call "
-                      f"over 400 calls; {len(samples)} samples, SM clock "
-                      f"{clocks[0] if clocks else 0:.0f}-"
-                      f"{clocks[-1] if clocks else 0:.0f} MHz (median "
-                      f"{np.median(clocks) if clocks else 0:.0f}), power "
-                      f"median {np.median(watts) if watts else 0:.1f} W, "
-                      f"max {watts[-1] if watts else 0:.1f} W", flush=True)
+            if pid == "P2":
+                no_patch_check(label, kernel, split, b, t)
+                if variant:
+                    extra["lin_splits"] = subsampling_linear_splits(
+                        sp, label, blocks, w, wl, b, t)
+            else:
+                # the profile leaves gaps between calls, events and graph
+                # replays none: the SM clock and power under gapless load
+                sustained = {name: sustained_line(label, name, fn)
+                             for name, fn in (("kernel", kernel),
+                                              ("ring", ring),
+                                              ("library", lib),
+                                              ("channels_last", lib_cl))
+                             if fn is not None}
+                k = sustained["kernel"]
+                ratio = k["clock_max"] / max(k["clock_median"], 1.0)
+                print(f"  {label} nvidia-smi under gapless calls (SM clock, "
+                      f"its maximum, power, temperature, clock-event "
+                      f"reasons): {clock_reasons(kernel)}", flush=True)
+                print(f"  {label} card to graph: {times['sum_ms']:.4f} -> "
+                      f"{times['graph_ms']:.4f} ms (x "
+                      f"{times['graph_ms'] / times['sum_ms']:.3f}); the "
+                      f"gapless calls' SM clock median "
+                      f"{k['clock_median']:.0f} MHz against the "
+                      f"{k['clock_max']:.0f} MHz of the gapped ones (x "
+                      f"{ratio:.3f}): card x clock ratio {times['sum_ms'] * ratio:.4f} ms",
+                      flush=True)
+                extra["sustained"] = sustained
+        if pid == "P1" and variant and (b, t) in SUB_STEP_SHAPES:
+            extra["steps"] = subsampling_steps(sp, label, blocks, w, ref,
+                                               valid, ring)
+        if pid == "P1" and variant and (b, t) == SUB_FAULTS:
+            extra["splits"] = subsampling_splits(sp, label, blocks, w, ref,
+                                                 valid, b, t)
         cl_text = ("" if lib_cl_ms is None
                    else f", channels_last {lib_cl_ms:.4f} ms")
-        graph_text = ("" if graph_ms is None
-                      else f", {graph_ms:.4f} ms by graph replays")
         print(f"{label}: max_abs_err {err:.3e}, {rel:.4f} x RMS (limit "
-              f"{KERNEL_REL}); kernel {ms:.4f} ms by events, {sum_ms:.4f} ms "
-              f"on the card{graph_text}; plain {plain_ms:.4f} ms, library "
+              f"{KERNEL_REL}); kernel {times['ms']:.4f} ms by events, "
+              f"{times['sum_ms']:.4f} ms on the card, {times['graph_ms']:.4f}"
+              f" ms by graph replays; plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms{cl_text}, bound {bms:.4f} ms ({by})",
               flush=True)
         readings[pid][(b, t, variant)] = dict(
-            ms=ms, sum_ms=sum_ms, graph_ms=graph_ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            library_cl_ms=lib_cl_ms, max_abs_err=err, shape=shape)
-        del inputs, kernel, plain, lib, lib_cl, faults, got
+            times, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib_ms, library_cl_ms=lib_cl_ms, max_abs_err=err,
+            shape=shape, ring=ring_times, **extra)
+        del inputs, kernel, plain, lib, lib_cl, faults, got, ref, ring
         torch.cuda.empty_cache()
 
     # P3: the ceiling is the card's opt-in limit; 2 x comes back exactly at
@@ -1740,19 +1998,26 @@ def subsampling_probe_phase(dev):
         main = entries.pop(SUB_ROW)
         rows[pid] = dict(main, also=list(entries.values()))
     rows["P3"] = dict(p3, probe_us=None, also=[])
+    print(f"subsampling probe phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return rows, launches
 
 
 def subsampling_kernel_rows(rows: dict, launches: dict) -> list:
-    """The kernels line's rows of P1-P3."""
+    """The kernels line's rows of P1-P3: P1 and P2 the redesign
+    (``csrc/subsampling_ws.cu``), with the ring's readings under
+    ``ring``."""
     return [{
         "name": f"{pid} {wrapper}", "route": "cuda",
-        "source": "gigaam_tpu_torch/csrc/subsampling_probe.cu",
+        "source": ("gigaam_tpu_torch/csrc/subsampling_probe.cu" if pid == "P3"
+                   else "gigaam_tpu_torch/csrc/subsampling_ws.cu"),
         "replaces": repl, "launches": launches[wrapper], **{
             key: rows[pid][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "sum_ms", "graph_ms", "library_cl_ms",
-                "probe_us", "shape", "also")}}
+                "probe_us", "shape", "also") + tuple(
+                    k for k in ("ring", "steps", "splits", "lin_splits",
+                                "sustained") if k in rows[pid])}}
         for pid, (wrapper, repl, _) in SUB_PROBES.items()]
 
 
@@ -5426,7 +5691,10 @@ def main() -> int:
                      "out_proj_kernel<1, 64, 1>",
                      "out_proj_kernel<1, 64, 0>", "ffn_fold_kernel",
                      "glu_fold_kernel", "dw_proj_kernel", "taps_kernel",
-                     "probe_gemm_kernel") + ablation_kernels
+                     "probe_gemm_kernel", "ws_conv_kernel<256, 2, true>",
+                     "ws_conv_kernel<256, 1, true>",
+                     "ws_conv_kernel<128, 1, true>",
+                     "ws_conv_kernel<128, 1, false>") + ablation_kernels
     # the attention-fold probes' GEMMs; the instances that K1/K2's library
     # also compiles carry the probe library's name (kernel_resources)
     wgmma_kernels += (

@@ -70,6 +70,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_smem_probe": [_P, _P, _I, _P, _P],
         "gigaam_subsampling_probe_occupancy": [_P],
     },
+    "subsampling_ws": {
+        "gigaam_ws_taps": [_P] * 9 + [_I] * 8 + [_P],
+        "gigaam_ws_gemm": [_P] * 5 + [_I] * 8 + [_P],
+        "gigaam_subsampling_ws_occupancy": [_P],
+        "gigaam_ws_max_clusters": [_P],
+    },
 }
 
 
@@ -188,7 +194,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
     kernels, the projection GEMMs, one entry per tile configuration and
     epilogue (the third template argument: 0 no residual, 1 the residual
     added in bf16, 2 in fp32), the fold probes' kernels, the subsampling
-    probes' products and the attention-fold probes' GEMMs, named as
+    probes' products (the TMA ring's and the warp-specialised redesign's
+    four steps) and the attention-fold probes' GEMMs, named as
     ``kernel_resources`` names them):
     the dynamic shared memory in bytes and how many blocks one SM holds at
     a time, as the CUDA runtime reports them for the current card."""
@@ -205,6 +212,10 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
              ("ffn_fold_kernel", "glu_fold_kernel", "dw_proj_kernel")),
             ("subsampling_probe", "gigaam_subsampling_probe_occupancy",
              ("taps_kernel", "probe_gemm_kernel")),
+            ("subsampling_ws", "gigaam_subsampling_ws_occupancy",
+             ("ws_conv_kernel<256, 2, true>", "ws_conv_kernel<256, 1, true>",
+              "ws_conv_kernel<128, 1, true>",
+              "ws_conv_kernel<128, 1, false>")),
             ("attn_fold_probe", "gigaam_attn_fold_probe_occupancy",
              ("qkv_kernel<1, 128> (attn_fold_probe)",
               "qkv_kernel<2, 128> (attn_fold_probe)", "qkv_kernel<4, 128>",

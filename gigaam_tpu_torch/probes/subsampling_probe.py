@@ -8,15 +8,29 @@ by the parity of each coordinate into four blocks, ee = X[1::2, 1::2]
 = X[0::2, 0::2] [T + 1, 17]; the conv's output (t, f) is then the sum of nine
 taps, each a row of one block at (t + dt, f + df) times a [768, 768] weight
 (``TAPS_WITH_COPIES``, ``TAP_POSITIONS``).  Each probe is a hand-written
-Hopper kernel (``csrc/subsampling_probe.cu``):
+Hopper kernel:
 
   P1  taps_product(ee, eo, oe, oo, w, taps)   bf16(sum_i tap_i . w[i])
-  P2  im2col_product(ee, eo, oe, oo, w, wl)   the [M, 6912] patch of the
-      nine taps, then one K-6912 product: bf16(patch . w) at frequency row 0
+  P2  im2col_product(ee, eo, oe, oo, w, wl)   one K-6912 product over the
+      [M, 6912] patch of the nine taps: bf16(patch . w) at frequency row 0
       of each step, or with wl bf16(bf16(relu(patch . w)) viewed [T, 12288]
       . wl)
   P3  smem_copy(x, n_bytes)                   2 x through the last 16 KB of
       a dynamic shared-memory buffer of n_bytes, and the blocks an SM holds
+
+P1 and P2 run on ``csrc/subsampling_ws.cu``: a warp-specialised, persistent
+implicit GEMM (``csrc/conv_ws.cuh``) whose A tiles are 4-D TMA boxes of the
+blocks at each tap's offset, so P2's patch is only ever a view: no
+[M, 6912] tensor is written.  Each launch walks a plan, a static list of
+work units (``ws_plan``, a pure function of the shapes and the card's SM
+count): the column tiles of one row tile side by side, K split where the
+tiles do not fill the card, partner row tiles for the cluster of two that
+shares the weights by multicast.  The earlier design, ``gemm.cuh``'s TMA
+ring (``csrc/subsampling_probe.cu``: ``taps_kernel``, ``patch_kernel`` +
+``probe_gemm_kernel``), stays callable as ``taps_product_ring`` and
+``im2col_product_ring`` for an A/B on the same card; ``taps_ws`` runs the
+redesign's steps one by one (``WS_STEPS``).  P3 is
+``csrc/subsampling_probe.cu``'s ``smem_probe_kernel``.
 
 Each block takes a leading batch dimension (ee [B, T, 16, 768] ...); the
 script's calls are B 1, and the same kernels run the main path's stage 2 at
@@ -51,7 +65,8 @@ Beside each kernel wrapper is the plain version of its Pallas body
 values, summed in fp32 and rounded where the body rounds.  A wrapper takes
 it for tensors on the CPU; for CUDA tensors it launches its kernels or
 raises.  ``<wrapper>.launches`` counts the calls that launched.  Only the
-tests and ``chip_smoke.py`` call the plain versions on the card.
+tests and ``chip_smoke.py`` call the plain versions on the card; the ring
+and the steps count nothing: they are only compared and timed.
 """
 
 from __future__ import annotations
@@ -171,6 +186,137 @@ def split_plan(tiles: int, k_tiles: int, sms: int) -> int:
     return 1 if tiles >= sms else min(k_tiles, math.ceil(sms / tiles))
 
 
+# ---------------------------------------------------------------------------
+# The plan of the warp-specialised kernel (csrc/subsampling_ws.cu)
+# ---------------------------------------------------------------------------
+
+WS_BM, WS_BK = 128, 64     # rows of an output tile; K columns an item
+WS_STEPS_A_TILE = WS_BM // FREQ   # time steps of a taps row tile
+# the kernel's variants: name -> (code, columns of a tile, blocks a cluster)
+WS_VARIANTS = {"multicast": (0, 256, 2), "wide": (1, 256, 1),
+               "inflight": (2, 128, 1), "producer": (3, 128, 1)}
+WS_VARIANT = "multicast"   # what taps_product and im2col_product launch
+# the design's steps, in the order they were added: (label, variant,
+# persistent grid); each is timed against the one before it
+WS_STEPS = (("producer warp", "producer", False),
+            ("products in flight", "inflight", False),
+            ("128 x 256 tiles", "wide", False),
+            ("persistent", "wide", True),
+            ("multicast", "multicast", True))
+# the model's constants: the card the plan is made for (H100 SXM), and a
+# unit's fixed cost in K items (the ring's fill, the epilogue)
+WS_PEAK_BF16, WS_PEAK_BYTES, WS_MODEL_SMS = 989e12, 3.35e12, 132
+WS_UNIT_ITEMS = 4
+
+
+def ws_cost(tiles: int, splits: int, k_items: int, slots: int,
+            outputs: int, bn: int = 256) -> float:
+    """A plan's modelled time, in the time one SM takes for one K item of
+    one [128, bn] tile at the card's peak: ceil(tiles x splits / slots)
+    waves of units, each its share of the K items plus ``WS_UNIT_ITEMS``,
+    and with splits > 1 the partials' fp32 write and read (8 bytes an
+    output value a split) and the reduction at the memory rate."""
+    item_s = 2 * WS_BM * bn * WS_BK * WS_MODEL_SMS / WS_PEAK_BF16
+    waves = -(-tiles * splits // slots)
+    fixup = 0.0 if splits == 1 else (
+        8 * splits * outputs / WS_PEAK_BYTES / item_s)
+    return waves * (k_items / splits + WS_UNIT_ITEMS) + fixup
+
+
+def ws_splits(tiles: int, k_items: int, slots: int, outputs: int,
+              bn: int = 256) -> int:
+    """The K splits of least ``ws_cost`` (the fewest on a tie): where the
+    tiles leave SMs idle, as many as one wave holds (``split_plan`` fills
+    the card the same way, without the one-wave cap of a persistent grid);
+    past that, a split only where it evens out the last wave."""
+    costs = [ws_cost(tiles, s, k_items, slots, outputs, bn)
+             for s in range(1, k_items + 1)]
+    return 1 + min(range(len(costs)), key=lambda i: (costs[i], i))
+
+
+def ws_plan(row_tiles: int, col_tiles: int, k_items: int, slots: int,
+            outputs: int, bn: int = 256, cluster: int = 1,
+            splits: int = None, persistent: bool = True):
+    """(units int32 [U, 4], grid, splits): the work list that
+    ``ws_conv_kernel`` walks, unit u on block u % grid.  A unit is (row
+    tile, column tile | split << 16, first K item, K items); splits K
+    ranges of k_items // splits or one more.  Row tiles go in groups of
+    ``cluster`` (the last group padded with phantom tiles past the end,
+    which read zeros and store nothing); within a group, for each split,
+    for each column tile, the group's row tiles are consecutive units:
+    partners, on the two blocks of a cluster, sharing the column tile and
+    the K range.  The column tiles of one row tile are neighbours, so they
+    run at the same time.  ``slots``: the blocks the card holds at once;
+    the grid is that many (a multiple of ``cluster``), or one block a unit
+    without ``persistent``.  ``splits`` None: ``ws_splits``."""
+    groups = -(-row_tiles // cluster)
+    if splits is None:
+        splits = ws_splits(groups * cluster * col_tiles, k_items, slots,
+                           outputs, bn)
+    units = []
+    for g in range(groups):
+        for s in range(splits):
+            first = s * k_items // splits
+            count = (s + 1) * k_items // splits - first
+            for c in range(col_tiles):
+                for r in range(g * cluster, (g + 1) * cluster):
+                    units.append((r, c | s << 16, first, count))
+    units = np.asarray(units, dtype=np.int32).reshape(-1, 4)
+    grid = (min(len(units), slots // cluster * cluster) if persistent
+            else len(units))
+    return units, grid, splits
+
+
+def ws_taps_rows(row_tile: int, batch: int, steps: int) -> range:
+    """The output rows m = (b T + t) 16 + f that the kernel stores for a
+    taps row tile (its epilogue): 8 steps of one batch element, none past
+    T, none for a phantom tile."""
+    tiles_per_b = -(-steps // WS_STEPS_A_TILE)
+    b, t0 = divmod(row_tile, tiles_per_b)
+    if b >= batch:
+        return range(0)
+    t0 *= WS_STEPS_A_TILE
+    t1 = min(t0 + WS_STEPS_A_TILE, steps)
+    return range((b * steps + t0) * FREQ, (b * steps + t1) * FREQ)
+
+
+def ws_gemm_rows(row_tile: int, m: int) -> range:
+    """The rows the kernel stores for a row tile of a plain product."""
+    return range(min(row_tile * WS_BM, m), min((row_tile + 1) * WS_BM, m))
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_slots(index: int) -> int:
+    """Blocks of the multicast variant (clusters of two) that card
+    ``index`` holds at once, as the runtime reports them."""
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(index):
+        cuda_lib.check(cuda_lib.library("subsampling_ws")
+                       .gigaam_ws_max_clusters(out), "gigaam_ws_max_clusters")
+    return 2 * out[0]
+
+
+def ws_slots(variant: str, index: int) -> int:
+    """The persistent grid's ceiling for ``variant`` on card ``index``."""
+    sms = _sm_count(index)
+    if WS_VARIANTS[variant][2] == 1:
+        return sms
+    return min(sms, _cluster_slots(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(row_tiles: int, col_tiles: int, k_items: int, outputs: int,
+                 variant: str, persistent: bool, splits, index: int):
+    """(units on card ``index``, grid, splits), made once a shape: the
+    first call of a shape copies its plan to the card, so it must not be
+    under CUDA-graph capture."""
+    _, bn, cluster = WS_VARIANTS[variant]
+    units, grid, splits = ws_plan(row_tiles, col_tiles, k_items,
+                                  ws_slots(variant, index), outputs, bn,
+                                  cluster, splits, persistent)
+    return torch.from_numpy(units).to(f"cuda:{index}"), grid, splits
+
+
 def _partials(splits: int, m: int, n: int, dev):
     """fp32 scratch for the split products' partials, or None."""
     return (torch.empty(splits, m, n, dtype=torch.float32, device=dev)
@@ -210,12 +356,139 @@ def _check_blocks(ee, eo, oe, oo, taps) -> None:
                  f"tap {i} {(block, dt, df)} reads past its block")
 
 
+def _ws_taps(ee, eo, oe, oo, w, taps, out, relu: bool,
+             variant: str = WS_VARIANT, persistent: bool = True,
+             splits: int = None) -> None:
+    """out [B T 16, 768] (a contiguous tensor of that size) = bf16(sum_i
+    tap_i . w[i]), relu'd where asked, on ``ws_conv_kernel`` (and the
+    partials' reduction where the plan splits K)."""
+    dev = ee.device
+    code, bn, _ = WS_VARIANTS[variant]
+    b, steps = ee.shape[:2]
+    m = b * steps * FREQ
+    units, grid, splits = _device_plan(
+        b * math.ceil(steps / WS_STEPS_A_TILE), D // bn, 9 * D // WS_BK,
+        m * D, variant, persistent, splits, dev.index)
+    partial = _partials(splits, m, D, dev)
+    cuda_lib.check(cuda_lib.library("subsampling_ws").gigaam_ws_taps(
+        ee.data_ptr(), eo.data_ptr(), oe.data_ptr(), oo.data_ptr(),
+        w.data_ptr(), out.data_ptr(), _ptr(partial), units.data_ptr(),
+        _tap_table(taps), b, steps, eo.shape[2], len(units), grid, splits,
+        int(relu), code, _stream(dev)), "gigaam_ws_taps")
+
+
+def _ws_gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+             splits: int = None) -> None:
+    """out [M, N] = bf16(a [M, K] . b [K, N]) on ``ws_conv_kernel``'s
+    plain-product mode (``WS_VARIANT``, persistent, the plan's K splits or
+    ``splits``)."""
+    m, k = a.shape
+    n = b.shape[1]
+    code, bn, _ = WS_VARIANTS[WS_VARIANT]
+    units, grid, splits = _device_plan(
+        math.ceil(m / WS_BM), n // bn, k // WS_BK, m * n, WS_VARIANT, True,
+        splits, a.device.index)
+    partial = _partials(splits, m, n, a.device)
+    cuda_lib.check(cuda_lib.library("subsampling_ws").gigaam_ws_gemm(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(partial),
+        units.data_ptr(), m, n, k, len(units), grid, splits, 0, code,
+        _stream(a.device)), "gigaam_ws_gemm")
+
+
+def taps_ws(ee, eo, oe, oo, w, taps, variant: str = WS_VARIANT,
+            persistent: bool = True, splits: int = None) -> torch.Tensor:
+    """P1 on the card by the redesign: ``variant`` (``WS_VARIANTS``) on a
+    persistent grid or one block a unit, the plan's K splits or
+    ``splits``.  Counts no launch: ``chip_smoke.py`` times the design's
+    steps and splits with it."""
+    _check_blocks(ee, eo, oe, oo, taps)
+    _check_tensor("w", w, ee.device, torch.bfloat16, (9, D, D))
+    out = torch.empty_like(ee)
+    with torch.cuda.device(ee.device):
+        _ws_taps(ee, eo, oe, oo, w, taps, out, False, variant, persistent,
+                 splits)
+    return out
+
+
+def taps_plan_splits(batch: int, steps: int, index: int = 0) -> int:
+    """The K splits of the plan that ``taps_product`` runs for B
+    ``batch``, T ``steps`` on card ``index``."""
+    _, bn, cluster = WS_VARIANTS[WS_VARIANT]
+    row_tiles = batch * math.ceil(steps / WS_STEPS_A_TILE)
+    return ws_plan(row_tiles, D // bn, 9 * D // WS_BK,
+                   ws_slots(WS_VARIANT, index), batch * steps * FREQ * D, bn,
+                   cluster)[2]
+
+
+def linear_ws(a: torch.Tensor, b: torch.Tensor,
+              splits: int = None) -> torch.Tensor:
+    """P2's linear alone on the redesign: bf16(a [M, K] . b [K, N]) for bf16
+    row-major a and b, K a multiple of 64, N of 256, in the plan's K splits
+    or ``splits``.  Counts no launch."""
+    _require(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0]
+             and a.shape[1] % WS_BK == 0 and b.shape[1] % 256 == 0,
+             f"a {tuple(a.shape)} . b {tuple(b.shape)}")
+    _check_tensor("a", a, a.device, torch.bfloat16, tuple(a.shape))
+    _check_tensor("b", b, a.device, torch.bfloat16, tuple(b.shape))
+    out = torch.empty(a.shape[0], b.shape[1], dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        _ws_gemm(a, b, out, splits)
+    return out
+
+
 def taps_product(ee, eo, oe, oo, w, taps) -> torch.Tensor:
     """P1: bf16(sum_i tap_i . w[i]) [B, T, 16, 768] for w [9, 768, 768]
-    ([in, out] a tap): one launch of ``taps_kernel`` on the card,
-    ``taps_plain`` on the CPU."""
+    ([in, out] a tap): one launch of ``ws_conv_kernel`` on the card (and of
+    ``ws_reduce_kernel`` where the plan splits K), ``taps_plain`` on the
+    CPU."""
     if ee.device.type == "cpu":
         return taps_plain(ee, eo, oe, oo, w, taps)
+    out = taps_ws(ee, eo, oe, oo, w, taps)
+    taps_product.launches += 1
+    return out
+
+
+def im2col_ws(ee, eo, oe, oo, w, wl=None) -> torch.Tensor:
+    """P2 on the card by the redesign (``WS_VARIANT`` on the plan).
+    Counts no launch."""
+    _check_blocks(ee, eo, oe, oo, TAPS_WITH_COPIES)
+    dev = ee.device
+    _check_tensor("w", w, dev, torch.bfloat16, (9 * D, D))
+    if wl is not None:
+        _check_tensor("wl", wl, dev, torch.bfloat16, (FREQ * D, D))
+    b, steps = ee.shape[:2]
+    m = b * steps * FREQ
+    _require(m * D < 2 ** 31, f"B T = {b * steps} is too large")
+    s2 = torch.empty(m, D, dtype=ee.dtype, device=dev)
+    with torch.cuda.device(dev):
+        # the patch's column order is the taps with copies, w's rows tap
+        # by tap: w viewed [9, 768, 768] is P1's weight
+        _ws_taps(ee, eo, oe, oo, w, TAPS_WITH_COPIES, s2, wl is not None)
+        if wl is None:
+            return s2.view(b, steps, FREQ, D)[:, :, 0]
+        out = torch.empty(b, steps, D, dtype=ee.dtype, device=dev)
+        _ws_gemm(s2.view(b * steps, FREQ * D), wl, out.view(b * steps, D))
+    return out
+
+
+def im2col_product(ee, eo, oe, oo, w, wl=None) -> torch.Tensor:
+    """P2 for w [6912, 768] and, with the linear, wl [12288, 768]: on the
+    card ``ws_conv_kernel`` computes the whole [B T 16, 768] product over
+    the patch seen as a view (the taps with copies, no [M, 6912] tensor;
+    bf16, relu'd with the linear, which is a second ``ws_conv_kernel`` run
+    with a plain 2-D A); ``im2col_plain`` on the CPU.  Returns [B, T, 768]:
+    without the linear frequency row 0 of the product (a view of it)."""
+    if ee.device.type == "cpu":
+        return im2col_plain(ee, eo, oe, oo, w, wl)
+    out = im2col_ws(ee, eo, oe, oo, w, wl)
+    im2col_product.launches += 1
+    return out
+
+
+def taps_product_ring(ee, eo, oe, oo, w, taps) -> torch.Tensor:
+    """P1 on ``gemm.cuh``'s TMA ring (``taps_kernel``, one block a 128 x 128
+    tile, K split over blocks where the tiles are few): the design the
+    redesign replaced, kept for an A/B on the same card."""
     _check_blocks(ee, eo, oe, oo, taps)
     _check_tensor("w", w, ee.device, torch.bfloat16, (9, D, D))
     b, steps = ee.shape[:2]
@@ -228,7 +501,6 @@ def taps_product(ee, eo, oe, oo, w, taps) -> torch.Tensor:
             ee.data_ptr(), eo.data_ptr(), oe.data_ptr(), oo.data_ptr(),
             w.data_ptr(), out.data_ptr(), _ptr(partial), _tap_table(taps), b,
             steps, eo.shape[2], splits, _stream(ee.device)), "gigaam_taps")
-    taps_product.launches += 1
     return out
 
 
@@ -246,15 +518,11 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
         splits, int(relu), _stream(a.device)), "gigaam_probe_gemm")
 
 
-def im2col_product(ee, eo, oe, oo, w, wl=None) -> torch.Tensor:
-    """P2 for w [6912, 768] and, with the linear, wl [12288, 768]: on the
-    card ``patch_kernel`` writes the patch [B T 16, 6912], then
-    ``probe_gemm_kernel`` computes the whole [B T 16, 768] product (bf16;
-    relu'd with the linear, which is a second ``probe_gemm_kernel`` run);
-    ``im2col_plain`` on the CPU.  Returns [B, T, 768]: without the linear
-    frequency row 0 of the product (a view of it)."""
-    if ee.device.type == "cpu":
-        return im2col_plain(ee, eo, oe, oo, w, wl)
+def im2col_product_ring(ee, eo, oe, oo, w, wl=None) -> torch.Tensor:
+    """P2 on the TMA ring: ``patch_kernel`` writes the patch [B T 16, 6912]
+    to device memory, then ``probe_gemm_kernel`` computes the whole
+    [B T 16, 768] product (and the linear, a second run): the design the
+    redesign replaced, kept for an A/B on the same card."""
     _check_blocks(ee, eo, oe, oo, TAPS_WITH_COPIES)
     dev = ee.device
     _check_tensor("w", w, dev, torch.bfloat16, (9 * D, D))
@@ -272,12 +540,10 @@ def im2col_product(ee, eo, oe, oo, w, wl=None) -> torch.Tensor:
             eo.shape[2], _stream(dev)), "gigaam_im2col")
         _gemm(patch, w, s2, relu=wl is not None)
         if wl is None:
-            out = s2.view(b, steps, FREQ, D)[:, :, 0]
-        else:
-            out = torch.empty(b, steps, D, dtype=ee.dtype, device=dev)
-            _gemm(s2.view(b * steps, FREQ * D), wl, out.view(b * steps, D),
-                  relu=False)
-    im2col_product.launches += 1
+            return s2.view(b, steps, FREQ, D)[:, :, 0]
+        out = torch.empty(b, steps, D, dtype=ee.dtype, device=dev)
+        _gemm(s2.view(b * steps, FREQ * D), wl, out.view(b * steps, D),
+              relu=False)
     return out
 
 
