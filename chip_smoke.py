@@ -8,7 +8,9 @@ Phases, each fatal on failure:
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
 2. build the hand-written kernels (``gigaam_tpu_torch/csrc``, one ``nvcc``
    per source, all started together) and print each kernel's registers,
-   spills and shared memory (none of the ``wgmma`` kernels may spill);
+   spills and shared memory (none of the ``wgmma`` kernels may spill, and
+   K3's and P1/P2's core instances keep their registers,
+   ``KEPT_REGISTERS``);
 3. hold each kernel (K3, K2, K1, K5) against its plain PyTorch version at
    the main path's shapes in bf16, show that the check fails for a kernel
    with a planted fault (fed through its inputs: RoPE sign flipped, key mask
@@ -59,22 +61,32 @@ Phases, each fatal on failure:
    each of its eleven variants of K3 against its plain version at B 8,
    T' 501 and B 16, T' 500 (ragged masks, peaked scores), with planted faults
    fed through the inputs (key mask ignored; the k of the next head group;
-   another batch element's mask row per head; heads permuted in the packed
-   q), ``A_full`` bit-equal to K3, each timed by CUDA events and by the
-   profile's kernel sum beside its bound, its plain version and the library
-   call; then the ablation's own ``main`` with both switches, from zeroed
-   launch counts, printed as an ``ablation`` line in microseconds;
+   for I and J also the V of the previous head, a slip of the redesign's
+   ring; another batch element's mask row per head; heads permuted in the
+   packed q), ``A_full`` bit-equal to K3, each timed by CUDA events and by
+   the profile's kernel sum beside its bound, its plain version and the
+   library call; I and J (the head-group walk, P9) on its warp-specialised
+   redesign (``csrc/sdpa_groups_ws.cu``), against the kept head-group
+   kernel of ``csrc/sdpa_ablation.cu`` (held to the plain version too, the
+   two compared bit for bit) in turns by events, the kernel sum and graph
+   replays, with each grid's blocks; then the ablation's own ``main`` with
+   both switches, from zeroed launch counts, printed as an ``ablation``
+   line in microseconds;
 9. the FFN and conv-module fold probes (P4, P5,
    ``gigaam_tpu_torch/probes/fold_probes.py``): each fold against its plain
    version at the scripts' B 32, T 512 and B 128, T 768 and at the main
    path's B 16, T' 500 (the script's ragged lengths for P5), with planted
-   faults at the first shape (the 0.5 dropped, SiLU skipped, the mask
-   skipped, the depthwise window shifted by one tap, the depthwise bias left
-   out of the BatchNorm fold), each timed by CUDA events and by the
-   profile's kernel sum beside its bound, its plain version and both stock
-   paths (the in-model baseline, and the lean path as the library call);
-   then the probes' own ``main``, from zeroed launch counts, printed as a
-   ``fold_probes`` line in microseconds;
+   faults at the first shape (the 0.5 dropped, SiLU skipped, W2 one K item
+   late, a slip of the redesign's ring; the mask skipped, the depthwise
+   window shifted by one tap, the depthwise bias left out of the BatchNorm
+   fold), each timed by CUDA events and by the profile's kernel sum beside
+   its bound, its plain version and both stock paths (the in-model
+   baseline, and the lean path as the library call); P4 on its redesign
+   (``csrc/ffn_ws.cu``: a row pass and two products on the warp-specialised
+   core) against the kept one-launch fold (held to the plain version too)
+   in turns by events, the kernel sum and graph replays, the redesign's
+   sum by kernel; then the probes' own ``main``, from zeroed launch counts,
+   printed as a ``fold_probes`` line in microseconds;
 10. the conv2d-subsampling probes (P1-P3,
    ``gigaam_tpu_torch/probes/subsampling_probe.py``): the tap products (P1,
    aligned and with copies) and the im2col product (P2, without and with the
@@ -366,6 +378,13 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
+# registers a thread of K3's kernel and of P1/P2's core instances as ptxas
+# (CUDA 12.8) reports them for sm_90a, which the kernels added beside them
+# must leave as they are (no spills is checked for every `wgmma` kernel)
+KEPT_REGISTERS = {"sdpa_kernel": 98, "ws_conv_kernel<256, 2, true>": 168,
+                  "ws_conv_kernel<256, 1, true>": 168,
+                  "ws_conv_kernel<128, 1, true>": 168,
+                  "ws_conv_kernel<128, 1, false>": 168}
 # the inference main path of K3: a clip past the encoder's fold bound
 # (_MAX_FOLD_T = 3000 frames at 25 a second)
 K3_SECONDS, K3_T = 125.0, 3125
@@ -1158,6 +1177,8 @@ ABLATION = {
 }
 # the `pallas_call` of each probe in benchmarks/sdpa_ablation.py
 ABLATION_REPLACES = {"P12": 258, "P9": 186, "P10": 212, "P11": 235}
+# P9's labels: heads a cell
+P9_CELLS = {"I_allheads_cell": N_HEADS, "J_4heads_cell": 4}
 
 
 def ablation_bound(label: str, b: int, t: int):
@@ -1215,7 +1236,10 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
     calls["A_full"] = calls["A_full"][:3] + ((
         ("key mask ignored",
          lambda: heads(sa.full_sdpa)(q, k, v, torch.ones_like(mask))),),)
-    for label, hc in (("I_allheads_cell", h), ("J_4heads_cell", 4)):
+    # a slip of the redesign's ring by one head: each head reads the V of
+    # the head before it
+    v_prev = v4.roll(1, 1)
+    for label, hc in P9_CELLS.items():
         # each head group reads the k of the next group (of the next batch
         # element when one group holds all heads)
         k_next = k4.reshape(b * h // hc, hc, t, D_HEAD).roll(-1, 0).view(
@@ -1225,7 +1249,9 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
             lambda: sa.allheads_plain(q4, k4, v4, mask), sdpa(valid4),
             (("k of the next head group",
               lambda hc=hc, k_next=k_next: sa.allheads_sdpa(
-                  q4, k_next, v4, mask, hc)),))
+                  q4, k_next, v4, mask, hc)),
+             ("V of the previous head",
+              lambda hc=hc: sa.allheads_sdpa(q4, k4, v_prev, mask, hc))))
     calls["K_identity_maps"] = (
         lambda: heads(sa.identity_maps_sdpa)(q, k, v, mask_bh),
         lambda: heads(sa.full_plain)(q, k, v, mask_bh), sdpa(valid4),
@@ -1292,6 +1318,10 @@ def ablation_phase(gen, dev):
             readings[label][(b, t)] = dict(
                 ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, max_abs_err=err)
+            if label in P9_CELLS:
+                readings[label][(b, t)].update(p9_serial_ab(
+                    sa, label, q, k, v, valid, b, t, kernel, got, plain(),
+                    bms, lib))
         print(f"A_full B={b} T'={t}: K3's bits", flush=True)
         del calls, q, k, v
     torch.cuda.empty_cache()
@@ -1320,6 +1350,41 @@ def ablation_phase(gen, dev):
              for label, r in readings.items()}, launches)
 
 
+def p9_serial_ab(sa, label, q, k, v, valid, b: int, t: int, kernel, got,
+                 ref, bms: float, lib) -> dict:
+    """P9's redesign against the kept head-group kernel of the ablation
+    (held to the plain version too) at one shape: the blocks of each grid,
+    whether the two agree bit for bit, and both timed in turns (redesign,
+    old, old, redesign) by CUDA events, the profile's kernel sum and graph
+    replays."""
+    hc = P9_CELLS[label]
+    q4, k4, v4 = (x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v))
+    mask = valid[:, None].to(torch.int8).contiguous()
+    serial = lambda: sa.allheads_sdpa_serial(q4, k4, v4, mask, hc)
+    old = serial()
+    old_err, _ = check_kernel(f"{label} B={b} T'={t} (the serial walk)", old,
+                              ref, valid, 2, ())
+    same = torch.equal(old, got)
+    sms = torch.cuda.get_device_properties(valid.device).multi_processor_count
+    blocks = len(sa.groups_plan(b, N_HEADS, t, hc, sms))
+    old_blocks = -(-t // 64) * (N_HEADS // hc) * b
+    times, split, old_times, _ = ab_times(kernel, serial, got)
+    old_times["max_abs_err"] = old_err
+    lib_ms = sum(device_ms(lib).values())
+    print(f"  {label} B={b} T'={t} A/B: the serial walk ({old_blocks} blocks) "
+          f"{times_text(old_times)}; the redesign ({blocks} blocks) "
+          f"{times_text(times)}; redesign / serial "
+          f"{times['sum_ms'] / old_times['sum_ms']:.3f} card, "
+          f"{times['ms'] / old_times['ms']:.3f} events; bound {bms:.4f} ms, "
+          f"SDPA {lib_ms:.4f} ms on the card; "
+          f"bit-equal to the serial walk: {same}; kernels "
+          + json.dumps([[n[:60], round(v, 4)] for n, v in split.items()]),
+          flush=True)
+    return dict(graph_ms=times["graph_ms"], ab=times, blocks=blocks,
+                serial=dict(old_times, blocks=old_blocks),
+                bit_equal_serial=same, library_sum_ms=lib_ms)
+
+
 def ablation_kernel_rows(rows: dict, launches: dict) -> list:
     """The kernels line's rows of P9-P12: one per wrapper, P9's J under
     "also"."""
@@ -1334,15 +1399,20 @@ def ablation_kernel_rows(rows: dict, launches: dict) -> list:
                 dict(a, shape=f"J_4heads_cell, {a['shape']}")
                 for a in [{k: v for k, v in j.items() if k != "also"},
                           *j["also"]]]
+        p9 = label in P9_CELLS
         out.append({
             "name": f"{probe} {label} {wrapper}", "route": "cuda",
-            "source": "gigaam_tpu_torch/csrc/sdpa_ablation.cu",
+            "source": "gigaam_tpu_torch/csrc/" + (
+                "sdpa_groups_ws.cu" if p9 else "sdpa_ablation.cu"),
             "replaces": f"benchmarks/sdpa_ablation.py:"
                         f"{ABLATION_REPLACES[probe]}",
             "launches": launches[wrapper], **{
                 key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "sum_ms", "ablation_us", "shape", "also")}})
+                    "library_ms", "sum_ms", "ablation_us", "shape", "also")},
+            **({"status": "redesigned", **{key: r[key] for key in (
+                "graph_ms", "ab", "blocks", "serial", "bit_equal_serial",
+                "library_sum_ms")}} if p9 else {})})
     return out
 
 
@@ -1374,9 +1444,9 @@ def fold_probe_bound(probe: str, b: int, t: int):
 
 
 def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
-    """(kernel call, plain call, baseline call, lean call, faults, x, valid)
-    for the probe at (b, t) on the script's weights; each call returns the
-    [B, T, 768] output."""
+    """(kernel call, plain call, baseline call, lean call, faults, x, valid,
+    the kept kernel's call or None) for the probe at (b, t) on the script's
+    weights; each call returns the [B, T, 768] output."""
     from gigaam_tpu_torch.weights import sub_block_from_jax
 
     bf = torch.bfloat16
@@ -1394,6 +1464,9 @@ def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
         w = fp.prepare_ffn(ln_p, p32, bf)
         lw = fp.lean_ffn_weights(ln_p, p32, bf)
         doubled = dataclasses.replace(w, w2=w.w2 * 2, b2=w.b2 * 2)
+        # a slip of the W2 product's ring by one K item: each item of 64
+        # rows of W2 reads the item before it
+        late = dataclasses.replace(w, w2=w.w2.roll(64, 0))
 
         def silu_skipped():
             # what the kernel would return without its SiLU, up to rounding
@@ -1407,7 +1480,9 @@ def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
                 lambda: fp.ffn_baseline(ln_p, p16, x),
                 lambda: fp.ffn_lean(lw, x),
                 (("the 0.5 dropped", lambda: fp.ffn_fold(doubled, x)),
-                 ("SiLU skipped", silu_skipped)), x, valid)
+                 ("SiLU skipped", silu_skipped),
+                 ("W2 one K item late", lambda: fp.ffn_fold(late, x))), x,
+                valid, lambda: fp.ffn_fold_ring(w, x))
     w = fp.prepare_conv(ln_p, p32, bf)
     lw = fp.lean_conv_weights(ln_p, p32, bf)
     mask = valid[..., None].to(bf)
@@ -1424,7 +1499,7 @@ def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
              ("the depthwise window shifted by one tap",
               lambda: fp.conv_fold(shifted, x, valid)),
              ("the depthwise bias left out of the BatchNorm fold",
-              lambda: fp.conv_fold(no_dw_bias, x, valid))), x, valid)
+              lambda: fp.conv_fold(no_dw_bias, x, valid))), x, valid, None)
 
 
 def fold_probe_phase(dev):
@@ -1432,16 +1507,18 @@ def fold_probe_phase(dev):
     (the planted faults at the first, against the limit on the sub-block's
     term, out - x), two calls bit-equal, each timed by CUDA events and by
     the profile's kernel sum beside its bound, its plain version, the
-    in-model baseline and the lean path; then the probes' own ``main``, from
-    zeroed launch counts.  Returns ({id: JSON row}, {wrapper: launches in
-    ``main``})."""
+    in-model baseline and the lean path; P4's redesign also against the
+    kept one-launch fold, held to the plain version too and timed in turns
+    by events, the kernel sum and graph replays; then the probes' own
+    ``main``, from zeroed launch counts.  Returns ({id: JSON row}, {wrapper:
+    launches in ``main``})."""
     from gigaam_tpu_torch.probes import fold_probes as fp
 
     readings = defaultdict(dict)
     for b, t in FOLD_PROBE_SHAPES:
         for pid, (probe, wrapper, _) in FOLD_PROBES.items():
-            kernel, plain, base, lean, faults, x, valid = fold_probe_calls(
-                fp, probe, b, t, dev)
+            kernel, plain, base, lean, faults, x, valid, ring = (
+                fold_probe_calls(fp, probe, b, t, dev))
             got = kernel()
             if not torch.equal(kernel(), got):
                 raise AssertionError(f"{pid} B={b} T={t}: two calls differ")
@@ -1472,7 +1549,11 @@ def fold_probe_phase(dev):
                 ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lean_ms, baseline_ms=base_ms,
                 max_abs_err=err)
-            del kernel, plain, base, lean, faults, got, x
+            if ring is not None:
+                readings[pid][(b, t)].update(fold_ring_ab(
+                    f"{pid} {wrapper} B={b} T={t}", kernel, ring, got,
+                    plain(), x, valid, bms, lean))
+            del kernel, plain, base, lean, faults, got, x, ring
         torch.cuda.empty_cache()
 
     # the probes' main path: their main, both probes at the scripts' shapes
@@ -1493,16 +1574,46 @@ def fold_probe_phase(dev):
     return rows, launches
 
 
+def fold_ring_ab(label: str, kernel, ring, got, ref, x, valid, bms: float,
+                 lean) -> dict:
+    """P4's redesign against the kept one-launch fold at one shape: the
+    fold held to the plain version, and both timed in turns (redesign,
+    fold, fold, redesign) by CUDA events, the profile's kernel sum and
+    graph replays, the redesign's sum split by kernel (row pass, the two
+    products, a reduction where K is split)."""
+    old_err, _ = check_kernel(f"{label} (the one-launch fold)", ring(), ref,
+                              valid, 1, (), residual=x)
+    times, split, old_times, _ = ab_times(kernel, ring, got)
+    old_times["max_abs_err"] = old_err
+    lean_ms = sum(device_ms(lean).values())
+    print(f"  {label} A/B: the one-launch fold {times_text(old_times)}; the "
+          f"redesign {times_text(times)}; redesign / fold "
+          f"{times['sum_ms'] / old_times['sum_ms']:.3f} card, "
+          f"{times['graph_ms'] / old_times['graph_ms']:.3f} graph; bound "
+          f"{bms:.4f} ms ({bms / times['sum_ms']:.3f} of it on the card), "
+          f"lean {lean_ms:.4f} ms on the card; the redesign by kernel "
+          + json.dumps([[n[:60], round(v, 4)] for n, v in split.items()]),
+          flush=True)
+    return dict(graph_ms=times["graph_ms"], ab=times, ring=old_times,
+                stages={n[:60]: v for n, v in split.items()},
+                library_sum_ms=lean_ms)
+
+
 def fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
-    """The kernels line's rows of P4 and P5."""
+    """The kernels line's rows of P4 (the redesign, the kept fold under
+    ``ring``) and P5."""
     return [{
         "name": f"{pid} {wrapper}", "route": "cuda",
-        "source": "gigaam_tpu_torch/csrc/fold_probes.cu", "replaces": repl,
-        "launches": launches[wrapper], **{
+        "source": "gigaam_tpu_torch/csrc/" + (
+            "ffn_ws.cu" if pid == "P4" else "fold_probes.cu"),
+        "replaces": repl, "launches": launches[wrapper], **{
             key: rows[pid][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "sum_ms", "baseline_ms", "fold_us", "shape",
-                "also")}}
+                "also")},
+        **({"status": "redesigned", **{key: rows[pid][key] for key in (
+            "graph_ms", "ab", "ring", "stages", "library_sum_ms")}}
+           if pid == "P4" else {})}
         for pid, (_, wrapper, repl) in FOLD_PROBES.items()]
 
 
@@ -5694,7 +5805,9 @@ def main() -> int:
                      "probe_gemm_kernel", "ws_conv_kernel<256, 2, true>",
                      "ws_conv_kernel<256, 1, true>",
                      "ws_conv_kernel<128, 1, true>",
-                     "ws_conv_kernel<128, 1, false>") + ablation_kernels
+                     "ws_conv_kernel<128, 1, false>",
+                     "sdpa_groups_ws_kernel", "ffn_ws_kernel<1>",
+                     "ffn_ws_kernel<2>") + ablation_kernels
     # the attention-fold probes' GEMMs; the instances that K1/K2's library
     # also compiles carry the probe library's name (kernel_resources)
     wgmma_kernels += (
@@ -5710,6 +5823,11 @@ def main() -> int:
     spilled = [k for k in wgmma_kernels if resources[k]["spill_bytes"]]
     if spilled:
         raise AssertionError(f"register spills in {spilled}")
+    moved = {k: resources[k]["registers"] for k in KEPT_REGISTERS
+             if resources[k]["registers"] != KEPT_REGISTERS[k]}
+    if moved:
+        raise AssertionError(f"registers moved: {moved}, were "
+                             f"{KEPT_REGISTERS}")
     # the rel-pos kernels size their shared memory at launch
     print("kernel dynamic resources "
           + json.dumps(cuda_lib.dynamic_resources()), flush=True)

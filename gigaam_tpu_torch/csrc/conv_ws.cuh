@@ -353,4 +353,43 @@ struct WsCore {
   }
 };
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// Opts kKernel, a kernel on Core, in to Core::kSmem bytes of dynamic shared
+// memory, once per device.
+template <typename Core, auto kKernel>
+cudaError_t ws_opt_in() {
+  static bool done[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Core::kSmem);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// A launch of `grid` blocks of a kernel on Core, in clusters of kCluster
+// (*attr holds the cluster attribute the configuration points at)
+template <typename Core, int kCluster>
+cudaLaunchConfig_t ws_launch_config(int grid, cudaStream_t s,
+                                    cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(Core::kThreads);
+  cfg.dynamicSmemBytes = Core::kSmem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster > 1 ? 1 : 0;
+  return cfg;
+}
+
 }  // namespace gigaam

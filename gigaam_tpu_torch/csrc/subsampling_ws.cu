@@ -194,36 +194,8 @@ enum Variant {
 
 template <int kBN, int kCluster, bool kInflight>
 cudaError_t opt_in() {
-  static bool done[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ws_conv_kernel<kBN, kCluster, kInflight>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        WsCore<kBN, kCluster, kInflight>::kSmem);
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
-
-template <int kBN, int kCluster, bool kInflight>
-cudaLaunchConfig_t launch_config(int grid, cudaStream_t s,
-                                 cudaLaunchAttribute* attr) {
-  using Core = WsCore<kBN, kCluster, kInflight>;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(Core::kThreads);
-  cfg.dynamicSmemBytes = Core::kSmem;
-  cfg.stream = s;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kCluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = kCluster > 1 ? 1 : 0;
-  return cfg;
+  return ws_opt_in<WsCore<kBN, kCluster, kInflight>,
+                   ws_conv_kernel<kBN, kCluster, kInflight>>();
 }
 
 template <int kBN, int kCluster, bool kInflight>
@@ -233,7 +205,8 @@ cudaError_t launch_ws(int grid, cudaStream_t s, const WsMaps& maps,
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config<kBN, kCluster, kInflight>(grid, s, &attr);
+      ws_launch_config<WsCore<kBN, kCluster, kInflight>, kCluster>(grid, s,
+                                                                  &attr);
   err = cudaLaunchKernelEx(&cfg, ws_conv_kernel<kBN, kCluster, kInflight>,
                            maps, a);
   return err != cudaSuccess ? err : cudaGetLastError();
@@ -373,7 +346,7 @@ int gigaam_ws_max_clusters(int* out) {
   const cudaError_t err = opt_in<256, 2, true>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<256, 2, true>(
+  const cudaLaunchConfig_t cfg = ws_launch_config<WsCore<256, 2, true>, 2>(
       2 * (sm_count() > 0 ? sm_count() : 132), nullptr, &attr);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
       out, ws_conv_kernel<256, 2, true>, &cfg));

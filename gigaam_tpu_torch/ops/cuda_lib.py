@@ -52,6 +52,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "sdpa_ablation": {
         "gigaam_sdpa_ablation": [_P] * 5 + [_I] * 6 + [_F, _P],
     },
+    "sdpa_groups_ws": {
+        "gigaam_sdpa_groups_ws": [_P] * 6 + [_I] * 4 + [_F, _P],
+        "gigaam_sdpa_groups_ws_occupancy": [_P],
+    },
     "fold_probes": {
         "gigaam_ffn_fold": [_P] * 8 + [_I, _P],
         "gigaam_conv_fold": [_P] * 15 + [_I] * 2 + [_P],
@@ -69,6 +73,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_probe_gemm": [_P] * 4 + [_I] * 5 + [_P],
         "gigaam_smem_probe": [_P, _P, _I, _P, _P],
         "gigaam_subsampling_probe_occupancy": [_P],
+    },
+    "ffn_ws": {
+        "gigaam_ffn_ws_rows": [_P] * 4 + [_I, _P],
+        "gigaam_ffn_ws_product": [_P] * 7 + [_I] * 7 + [_P],
+        "gigaam_ffn_ws_max_clusters": [_P],
+        "gigaam_ffn_ws_occupancy": [_P],
     },
     "subsampling_ws": {
         "gigaam_ws_taps": [_P] * 9 + [_I] * 8 + [_P],
@@ -193,7 +203,9 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
     """Per kernel that sizes its shared memory at launch (the rel-pos
     kernels, the projection GEMMs, one entry per tile configuration and
     epilogue (the third template argument: 0 no residual, 1 the residual
-    added in bf16, 2 in fp32), the fold probes' kernels, the subsampling
+    added in bf16, 2 in fp32), the fold probes' kernels (and P4's
+    redesign: its two products, 1 the SiLU epilogue, 2 the residual one),
+    the head-group walk's redesign (P9), the subsampling
     probes' products (the TMA ring's and the warp-specialised redesign's
     four steps) and the attention-fold probes' GEMMs, named as
     ``kernel_resources`` names them):
@@ -210,6 +222,10 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
               "out_proj_kernel<2, 128, 1>", "out_proj_kernel<1, 64, 1>")),
             ("fold_probes", "gigaam_fold_probes_occupancy",
              ("ffn_fold_kernel", "glu_fold_kernel", "dw_proj_kernel")),
+            ("ffn_ws", "gigaam_ffn_ws_occupancy",
+             ("ffn_ws_kernel<1>", "ffn_ws_kernel<2>")),
+            ("sdpa_groups_ws", "gigaam_sdpa_groups_ws_occupancy",
+             ("sdpa_groups_ws_kernel",)),
             ("subsampling_probe", "gigaam_subsampling_probe_occupancy",
              ("taps_kernel", "probe_gemm_kernel")),
             ("subsampling_ws", "gigaam_subsampling_ws_occupancy",

@@ -44,6 +44,15 @@ weights are prepared once (``prepare_ffn``, ``prepare_conv``) and the timed
 call is the kernel wrapper's; the stock paths, too, get their matrices in
 bf16 once (the encoder after ``cast_encoder``).
 
+P4 runs on its redesign, ``csrc/ffn_ws.cu``: a row pass writes bf16(LN(x)),
+then the two products on ``csrc/conv_ws.cuh``'s warp-specialised,
+persistent core (``ws_plan``), the first with the bias and SiLU in its
+epilogue, the second with the bias, the 0.5 and the residual
+(``ffn_ws``; its stages alone: ``ffn_rows_ws``, ``silu_product_ws``,
+``residual_product_ws``, each beside its plain stage).  The one-launch fold
+of ``csrc/fold_probes.cu`` stays reachable as ``ffn_fold_ring`` for an A/B
+on the same card (it counts no launch).
+
 Beside each kernel wrapper is the plain version of its Pallas body
 (``ffn_fold_plain``, ``conv_fold_plain``), rounding where the body rounds.
 A wrapper takes it for tensors on the CPU; for CUDA tensors it launches its
@@ -53,7 +62,9 @@ Only the tests and ``chip_smoke.py`` call the plain versions on the card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import json
 from typing import Mapping
 
@@ -67,6 +78,7 @@ from ..ops.fused_attention import _check_tensor, _require, _stream
 from ..ops.precision import full_fp32
 from ..profiling import device_timeit
 from ..weights import sub_block_from_jax
+from .ws_plan import WS_BK, WS_BM, ws_plan
 
 D, DFF, K = 768, 3072, 31
 EPS = 1e-5
@@ -180,6 +192,30 @@ def ffn_fold_plain(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
     return (0.5 * y).to(x.dtype) + x
 
 
+def ffn_rows_plain(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """P4's row pass: bf16(LN(x)), fp32 statistics."""
+    return _layer_norm(x, w.ln_g, w.ln_b)
+
+
+def silu_product_plain(xn: torch.Tensor, w1: torch.Tensor,
+                       b1: torch.Tensor) -> torch.Tensor:
+    """P4's first product: bf16(SiLU(xn w1 + b1)), SiLU in fp32."""
+    return _silu(_product(xn, w1) + b1).to(xn.dtype)
+
+
+def residual_product_plain(h: torch.Tensor, w2: torch.Tensor,
+                           b2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """P4's second product: bf16(bf16(0.5 (h w2 + b2)) + x)."""
+    return (0.5 * (_product(h, w2) + b2)).to(x.dtype) + x
+
+
+def ffn_staged_plain(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """``ffn_fold_plain`` as the redesign's three stages compute it: the
+    row pass, the SiLU product, the residual product."""
+    h = silu_product_plain(ffn_rows_plain(w, x), w.w1, w.b1)
+    return residual_product_plain(h, w.w2, w.b2, x)
+
+
 def depthwise_taps(y: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
     """The Pallas body's depthwise conv of y [B, T, C] (any dtype) with taps
     dw [K, C]: K fp32 multiply-adds in order of k over y zero-padded by
@@ -239,12 +275,143 @@ def _check_conv_args(w: ConvFoldWeights, x: torch.Tensor,
     _check_tensor("dw", w.dw, x.device, torch.float32, (K, D))
 
 
+# P4's redesign (csrc/ffn_ws.cu): WsCore<256, 2, true>'s tile columns and
+# cluster, and the products' epilogues (its Mode)
+FFN_BN, FFN_CLUSTER = 256, 2
+_SILU_BIAS, _RESIDUAL = 1, 2
+
+
+def ffn_plans(m: int, slots: int, splits=(None, None)):
+    """The plans (``ws_plan``: units, grid, splits) of P4's two products
+    for M rows on ``slots`` blocks: xn [M, 768] . W1 [768, 3072], then h
+    [M, 3072] . W2 [3072, 768]; ``splits`` forces either's K splits."""
+    row_tiles = -(-m // WS_BM)
+    return tuple(ws_plan(row_tiles, n // FFN_BN, k // WS_BK, slots, m * n,
+                         FFN_BN, FFN_CLUSTER, forced)
+                 for (n, k), forced in zip(((DFF, D), (D, DFF)), splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _ffn_slots(index: int) -> int:
+    """The products' persistent grid's ceiling on card ``index``: blocks of
+    clusters of two that it holds at once, at most one an SM."""
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(index):
+        cuda_lib.check(cuda_lib.library("ffn_ws").gigaam_ffn_ws_max_clusters(
+            out), "gigaam_ffn_ws_max_clusters")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return min(sms, 2 * out[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(m: int, n: int, k: int, splits, index: int):
+    """(units on card ``index``, grid, splits) of one product, made once a
+    shape: the first call copies the plan to the card, so it must not be
+    under CUDA-graph capture."""
+    units, grid, splits = ws_plan(-(-m // WS_BM), n // FFN_BN, k // WS_BK,
+                                  _ffn_slots(index), m * n, FFN_BN,
+                                  FFN_CLUSTER, splits)
+    return torch.from_numpy(units).to(f"cuda:{index}"), grid, splits
+
+
+def _check_rows(name: str, a: torch.Tensor, dev, width: int) -> int:
+    _require(a.dim() == 2 and a.shape[1] == width and a.shape[0] >= 1
+             and a.shape[0] * DFF < 2 ** 31,
+             f"{name} must be [M, {width}] with 1 <= M < 2^31 / {DFF}, got "
+             f"{tuple(a.shape)}")
+    _check_tensor(name, a, dev, torch.bfloat16, a.shape)
+    return a.shape[0]
+
+
+def _product_ws(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                x, mode: int, splits) -> torch.Tensor:
+    """The epilogue ``mode`` of a [M, K] . b [K, N] on ``ffn_ws_kernel``
+    (and the partials' reduction where the plan splits K)."""
+    (m, k), n = a.shape, b.shape[1]
+    units, grid, splits = _device_plan(m, n, k, splits, a.device.index)
+    out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    partial = (torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
+               if splits > 1 else None)
+    with torch.cuda.device(a.device):
+        cuda_lib.check(cuda_lib.library("ffn_ws").gigaam_ffn_ws_product(
+            a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+            None if x is None else x.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), units.data_ptr(),
+            m, n, k, len(units), grid, splits, mode, _stream(a.device)),
+            "gigaam_ffn_ws_product")
+    return out
+
+
+def _rows_ws(w: FfnFoldWeights, x2: torch.Tensor) -> torch.Tensor:
+    xn = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        cuda_lib.check(cuda_lib.library("ffn_ws").gigaam_ffn_ws_rows(
+            x2.data_ptr(), w.ln_g.data_ptr(), w.ln_b.data_ptr(),
+            xn.data_ptr(), x2.shape[0], _stream(x2.device)),
+            "gigaam_ffn_ws_rows")
+    return xn
+
+
+def ffn_rows_ws(w: FfnFoldWeights, x2: torch.Tensor) -> torch.Tensor:
+    """P4's row pass on the card (``ffn_rows_kernel``): bf16(LN(x2)) for
+    x2 [M, 768] bf16.  Counts no launch."""
+    _check_rows("x", x2, x2.device, D)
+    for name in ("ln_g", "ln_b"):
+        _check_tensor(name, getattr(w, name), x2.device, torch.float32, (D,))
+    return _rows_ws(w, x2)
+
+
+def silu_product_ws(xn: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                    splits: int = None) -> torch.Tensor:
+    """P4's first product on the card: bf16(SiLU(xn w1 + b1)) [M, 3072],
+    in the plan's K splits or ``splits``.  Counts no launch."""
+    _check_rows("xn", xn, xn.device, D)
+    _check_tensor("w1", w1, xn.device, torch.bfloat16, (D, DFF))
+    _check_tensor("b1", b1, xn.device, torch.float32, (DFF,))
+    return _product_ws(xn, w1, b1, None, _SILU_BIAS, splits)
+
+
+def residual_product_ws(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        x2: torch.Tensor, splits: int = None) -> torch.Tensor:
+    """P4's second product on the card: bf16(bf16(0.5 (h w2 + b2)) + x2)
+    [M, 768], in the plan's K splits or ``splits``.  Counts no launch."""
+    m = _check_rows("h", h, h.device, DFF)
+    _check_tensor("w2", w2, h.device, torch.bfloat16, (DFF, D))
+    _check_tensor("b2", b2, h.device, torch.float32, (D,))
+    _check_tensor("x", x2, h.device, torch.bfloat16, (m, D))
+    return _product_ws(h, w2, b2, x2, _RESIDUAL, splits)
+
+
+def ffn_ws(w: FfnFoldWeights, x: torch.Tensor,
+           splits=(None, None)) -> torch.Tensor:
+    """P4 on the card by the redesign: the row pass, then the two products
+    (their K splits the plans' or ``splits``), the arguments checked once.
+    Counts no launch."""
+    _check_ffn_args(w, x)
+    x2 = x.view(-1, D)
+    _require(x2.shape[0] * DFF < 2 ** 31, f"B T = {x2.shape[0]} is too large")
+    h = _product_ws(_rows_ws(w, x2), w.w1, w.b1, None, _SILU_BIAS,
+                    splits[0])
+    return _product_ws(h, w.w2, w.b2, x2, _RESIDUAL, splits[1]).view_as(x)
+
+
 def ffn_fold(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
-    """P4: x + 0.5 FFN(LN(x)) for x [B, T, 768]: one launch of
-    ``ffn_fold_kernel`` on the card (bf16), ``ffn_fold_plain`` on the
-    CPU."""
+    """P4: x + 0.5 FFN(LN(x)) for x [B, T, 768]: on the card (bf16) the
+    redesign, ``ffn_ws`` (a row pass and two products on the
+    warp-specialised core, h [B T, 3072] in between); ``ffn_fold_plain`` on
+    the CPU."""
     if x.device.type == "cpu":
         return ffn_fold_plain(w, x)
+    out = ffn_ws(w, x)
+    ffn_fold.launches += 1
+    return out
+
+
+def ffn_fold_ring(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """P4 on the design the redesign replaced: one launch of
+    ``ffn_fold_kernel`` (64 rows a block, h in shared memory, ``gemm.cuh``'s
+    TMA ring).  Card only; counts no launch: kept for an A/B on the same
+    card."""
     _check_ffn_args(w, x)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -253,7 +420,6 @@ def ffn_fold(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
             w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
             w.b2.data_ptr(), out.data_ptr(), x.shape[0] * x.shape[1],
             _stream(x.device)), "gigaam_ffn_fold")
-    ffn_fold.launches += 1
     return out
 
 

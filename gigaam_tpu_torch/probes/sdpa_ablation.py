@@ -30,7 +30,11 @@ run), as the script does; the two switches add the same labels.
 
 Each variant is a kernel of ``csrc/sdpa_ablation.cu``, on K3's own body
 (``csrc/sdpa_core.cuh``): the full variant in the head-major layout is K3's
-code.  Beside each wrapper is the plain version of its Pallas body, in the
+code.  I and J run the head-group walk's redesign,
+``csrc/sdpa_groups_ws.cu``: a producer warp and two consumer warpgroups,
+one block a run of a cell's heads by ``groups_plan``; the head-group layout
+of ``csrc/sdpa_ablation.cu`` stays reachable as ``allheads_sdpa_serial``
+for an A/B on the same card (it counts no launch).  Beside each wrapper is the plain version of its Pallas body, in the
 body's full-row form: fp32 scores, the masked term ``(mask - 1) * 1e9``,
 ``scale = 1/sqrt(48)``, P cast to bf16 before P.V and the division after.
 The kernels take the softmax online over 64-key tiles, which differs from
@@ -41,6 +45,7 @@ on the CPU; for CUDA tensors it launches its kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -233,22 +238,104 @@ def bf16_softmax_sdpa(q, k, v, madd):
                        q, k, v, madd)
 
 
-def allheads_sdpa(q4, k4, v4, mask, heads_per_block: int = H):
-    """I_allheads_cell / J_4heads_cell (``k_allheads``): q, k, v [B, H, T,
-    48], mask [B, 1, T]; one block per (64-row query tile, group of
-    ``heads_per_block`` heads, batch element), walking its heads in turn."""
-    if q4.device.type == "cpu":
-        return allheads_plain(q4, k4, v4, mask)
+# The plan of the head-group walk's redesign (csrc/sdpa_groups_ws.cu): a
+# unit's fixed cost in key-tile steps (its first Q load, the ring's fill,
+# the epilogue)
+GROUP_UNIT_STEPS = 2
+
+
+def groups_cost(cells: int, parts: int, heads_per_block: int, t: int,
+                slots: int) -> int:
+    """The modelled time, in key-tile steps of one consumer warpgroup, of
+    cutting each of ``cells`` cells of ``heads_per_block`` heads into
+    ``parts`` runs, one block a run and one block an SM of ``slots``: the
+    waves of blocks, each a run's heads split over the two consumers
+    walking T's key tiles, plus ``GROUP_UNIT_STEPS``."""
+    run = heads_per_block // parts
+    waves = -(-cells * parts // slots)
+    return waves * (-(-run // 2) * -(-t // 64) + GROUP_UNIT_STEPS)
+
+
+def groups_plan(batch: int, n_heads: int, t: int, heads_per_block: int,
+                slots: int) -> np.ndarray:
+    """units int32 [U, 4], one block each: (batch element, 64-row query
+    tile, first head, heads).  A cell (query tile, group of
+    ``heads_per_block`` heads, batch element) is cut into runs of equal
+    length, a divisor of the group, of least ``groups_cost`` (the fewest
+    runs on a tie); a unit is one run, so a block walks a contiguous run of
+    one cell's heads.  Units of one batch element and head run are
+    neighbours across the query tiles (they read the same keys)."""
+    q_tiles = -(-t // 64)
+    groups = n_heads // heads_per_block
+    cells = batch * q_tiles * groups
+    divisors = [d for d in range(1, heads_per_block + 1)
+                if heads_per_block % d == 0]
+    parts = min(divisors, key=lambda d: (
+        groups_cost(cells, d, heads_per_block, t, slots), d))
+    run = heads_per_block // parts
+    units = [(b, qt, g * heads_per_block + p * run, run)
+             for b in range(batch) for g in range(groups)
+             for p in range(parts) for qt in range(q_tiles)]
+    return np.asarray(units, dtype=np.int32).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _device_groups_plan(batch: int, n_heads: int, t: int,
+                        heads_per_block: int, index: int) -> torch.Tensor:
+    """``groups_plan`` on card ``index``, made once a shape: the first call
+    of a shape copies it to the card, so it must not be under CUDA-graph
+    capture."""
+    return torch.from_numpy(groups_plan(
+        batch, n_heads, t, heads_per_block, _sm_count(index))).to(
+            f"cuda:{index}")
+
+
+def _check_allheads(q4, k4, v4, mask, heads_per_block: int):
     _require(q4.dim() == 4, f"q must be [B, H, T, {D}], got {tuple(q4.shape)}")
     b, h, t = q4.shape[:3]
     _require(heads_per_block >= 1 and h % heads_per_block == 0,
              f"heads_per_block {heads_per_block} does not divide H = {h}")
     _check_qkv(q4, k4, v4, (b, h, t, D))
     _check_mask(mask, q4.device, False, (b, 1, t))
-    out = _launch(_FULL, _HEAD_GROUPS, q4, k4, v4, mask, b, h, t,
-                  heads_per_block)
+    return b, h, t
+
+
+def allheads_sdpa(q4, k4, v4, mask, heads_per_block: int = H):
+    """I_allheads_cell / J_4heads_cell (``k_allheads``): q, k, v [B, H, T,
+    48], mask [B, 1, T]; on the card ``sdpa_groups_ws_kernel``, one block a
+    run of a cell's heads (``groups_plan``; a cell is a 64-row query tile,
+    a group of ``heads_per_block`` heads and a batch element), its two
+    consumer warpgroups walking the run's heads in turn; ``allheads_plain``
+    on the CPU."""
+    if q4.device.type == "cpu":
+        return allheads_plain(q4, k4, v4, mask)
+    b, h, t = _check_allheads(q4, k4, v4, mask, heads_per_block)
+    units = _device_groups_plan(b, h, t, heads_per_block, q4.device.index)
+    out = torch.empty_like(q4)
+    with torch.cuda.device(q4.device):
+        cuda_lib.check(cuda_lib.library("sdpa_groups_ws")
+                       .gigaam_sdpa_groups_ws(
+                           q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                           mask.data_ptr(), out.data_ptr(), units.data_ptr(),
+                           len(units), b, h, t, SCALE, _stream(q4.device)),
+                       "gigaam_sdpa_groups_ws")
     allheads_sdpa.launches += 1
     return out
+
+
+def allheads_sdpa_serial(q4, k4, v4, mask, heads_per_block: int = H):
+    """``allheads_sdpa`` on the design the redesign replaced: K3's body in
+    the head-group layout of ``csrc/sdpa_ablation.cu``, one warpgroup a
+    (query tile, group, batch element) walking the group's heads in turn.
+    Card only; counts no launch: kept for an A/B on the same card."""
+    b, h, t = _check_allheads(q4, k4, v4, mask, heads_per_block)
+    return _launch(_FULL, _HEAD_GROUPS, q4, k4, v4, mask, b, h, t,
+                   heads_per_block)
 
 
 def identity_maps_sdpa(q, k, v, mask_bh):
