@@ -279,7 +279,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import datetime
 import json
 import math
 import os
@@ -378,13 +377,16 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
-# registers a thread of K3's kernel and of P1/P2's core instances as ptxas
-# (CUDA 12.8) reports them for sm_90a, which the kernels added beside them
-# must leave as they are (no spills is checked for every `wgmma` kernel)
+# registers a thread of K3's kernel, of P1/P2's and P4's core instances and
+# of P9's walk as ptxas (CUDA 12.8) reports them for sm_90a, which the
+# kernels added beside them must leave as they are (no spills is checked
+# for every `wgmma` kernel)
 KEPT_REGISTERS = {"sdpa_kernel": 98, "ws_conv_kernel<256, 2, true>": 168,
                   "ws_conv_kernel<256, 1, true>": 168,
                   "ws_conv_kernel<128, 1, true>": 168,
-                  "ws_conv_kernel<128, 1, false>": 168}
+                  "ws_conv_kernel<128, 1, false>": 168,
+                  "sdpa_groups_ws_kernel": 168, "ffn_ws_kernel<1>": 168,
+                  "ffn_ws_kernel<2>": 168}
 # the inference main path of K3: a clip past the encoder's fold bound
 # (_MAX_FOLD_T = 3000 frames at 25 a second)
 K3_SECONDS, K3_T = 125.0, 3125
@@ -425,38 +427,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def sustained_ms(fn, calls: int = 400):
-    """(ms per call over ``calls`` back-to-back calls of ``fn`` by CUDA
-    events, [(SM clock MHz, power W)] that ``nvidia-smi`` sampled every 20
-    ms within that window): what the clock does under a load that leaves
-    the card no gap."""
-    fn()
-    torch.cuda.synchronize()
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "20"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        time.sleep(1.0)   # nvidia-smi's start
-        t0 = datetime.datetime.now()
-        ms = time_ms(fn, iters=calls, warmup=0)
-        t1 = datetime.datetime.now()
-    finally:
-        smi.terminate()
-        text = smi.communicate(timeout=30)[0]
-    samples = []
-    for line in text.splitlines():
-        try:
-            stamp, clock, power = (v.strip() for v in line.split(","))
-            at = datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
-            sample = (float(clock), float(power))
-        except ValueError:    # a line cut by the termination, or [N/A]
-            continue
-        if t0 <= at <= t1:
-            samples.append(sample)
-    return ms, samples
-
-
 def device_kernels(prof) -> dict:
     """{name: (device us, count)} of a profile's device activities (kernels,
     copies, sets), from the profiler's raw events: ``key_averages`` builds
@@ -474,9 +444,74 @@ def device_kernels(prof) -> dict:
     return out
 
 
-def device_ms(fn, calls: int = 10, attempts: int = 3) -> dict:
-    """Device time per call of ``fn`` by kernel name, from ``calls`` calls
-    under ``torch.profiler`` (after one unprofiled call).  A profile that
+# the profiler has dropped the device activities at the start of a window
+# (the first call's kernels, most of the calls', or all); a window opens
+# with MARK_LEAD long spin kernels that take the loss, and every call is
+# fenced by short ones on the current stream, so that a reading counts
+# whole calls only
+MARK, MARK_LEAD, MARK_LEAD_CYCLES = "spin_kernel", 8, 50_000
+
+
+def window_kernels(prof) -> tuple:
+    """(calls, {name: (device us, count)}) of a marked window: the calls
+    whose fences both came through (marker intervals that hold any device
+    activity, after the first marker recorded), and the device activities
+    in them."""
+    events = sorted(
+        (evt.start_ns(), evt.name(), evt.duration_ns())
+        for evt in prof.profiler.kineto_results.events()
+        if evt.device_type() == torch.autograd.DeviceType.CUDA
+        and not evt.is_user_annotation()
+        and not evt.name().startswith("Optimizer."))
+    marks = [i for i, (_, name, _) in enumerate(events) if MARK in name]
+    calls, out = 0, {}
+    for lo, hi in zip(marks, marks[1:]):
+        calls += hi > lo + 1
+        for _, name, ns in events[lo + 1:hi]:
+            us, n = out.get(name, (0.0, 0))
+            out[name] = (us + ns / 1e3, n + 1)
+    return calls, out
+
+
+def device_ms(fn, calls: int = 10, attempts: int = 4) -> dict:
+    """Device time per call of ``fn`` (whose work runs on the current
+    stream) by kernel name, from ``calls`` calls under ``torch.profiler``
+    (after one unprofiled call), fenced by marker kernels
+    (``window_kernels``), over the calls that the profile kept whole.  A
+    profile that kept fewer than half of the calls, or a kernel a number of
+    times that is no multiple of them, is taken again, up to ``attempts``
+    profiles in all; raises if none was whole, so that no partial profile
+    reaches a reading."""
+    fn()
+    torch.cuda.synchronize()
+    got, odd = 0, {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(MARK_LEAD):
+                torch.cuda._sleep(MARK_LEAD_CYCLES)
+            for _ in range(calls):
+                torch.cuda._sleep(0)
+                fn()
+            torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        got, kernels = window_kernels(prof)
+        odd = {name[:60]: n for name, (_, n) in kernels.items()
+               if got and n % got}
+        if 2 * got >= calls and not odd:
+            return {name: us / 1e3 / got
+                    for name, (us, _) in kernels.items() if us > 0}
+        print(f"  a profile kept {got} of {calls} calls whole"
+              + (f", kernels {odd} times" if odd else "") + ": taken again",
+              flush=True)
+    raise AssertionError(f"no whole profile in {attempts} (the last: {got} "
+                         f"of {calls} calls, {odd})")
+
+
+def window_ms(fn, calls: int = 1, attempts: int = 3) -> dict:
+    """Device time per call of ``fn`` by kernel name, every device activity
+    of a window of ``calls`` calls under ``torch.profiler`` (after one
+    unprofiled call), unfenced: for the model paths' loops, whose graph
+    captures and host reads put work on other streams.  A profile that
     recorded no device activity is taken again, up to ``attempts`` times;
     raises if none did."""
     fn()
@@ -1627,13 +1662,13 @@ SUB_SHAPES = (("P1", 1, 32, False), ("P1", 1, 32, True), ("P1", 1, 64, False),
               ("P2", 16, 500, False), ("P2", 16, 500, True))
 SUB_ROW = (16, 500, True)
 SUB_FAULTS = (1, 64)
-# the redesign's steps are timed at the main path's stage 2 and the
-# script's middle shape; the forced K splits at B 1, T 64 (fp32 partials
-# and a reduction pass), the linear's at B 16, T 500
+# P1's step instances (sp.WS_STEPS) are held to the plain version at the
+# main path's stage 2 and the script's middle shape, the forced K splits
+# (fp32 partials and a reduction pass) at B 1, T 64, the linear's at B 16,
+# T 500: checks only, their one-time timing study is PERF.md's (PR 18)
 SUB_STEP_SHAPES = ((16, 500), (1, 64))
 SUB_SPLITS = (1, 2, 3, 4, 5, 6, 8, 11)
 SUB_LIN_SPLITS = (1, 2, 3, 4)
-SUB_ROUNDS = 3             # interleaved rounds of the steps' timing
 # id -> (wrapper, the `pallas_call` it replaces, what the variant flag means)
 SUB_PROBES = {
     "P1": ("taps_product", "benchmarks/pallas_subsampling_probe.py:78",
@@ -1776,13 +1811,37 @@ def subsampling_calls(sp, pid: str, variant: bool, inputs):
             lambda: sp.im2col_product_ring(*blocks, w2, lin))
 
 
+# a profile whose kernel sum reads under this share of the graph replays'
+# time is taken again (three times at most), then refused: the profiler has
+# returned windows whose every kernel read about half its time (0.47-0.50
+# of the replays), where graph replays and CUDA events did not move; whole
+# profiles have read 0.67-1.06 of the replays (the least at B 1, where the
+# replays' time holds the gaps between short kernels; the power cap alone
+# gives ~0.75 under gapless load)
+PROFILE_FLOOR = 0.6
+
+
+def checked_split(fn, graph_ms: float, attempts: int = 4) -> dict:
+    """``device_ms`` of ``fn`` whose sum reads at least PROFILE_FLOOR of
+    ``graph_ms``, taken up to ``attempts`` times; raises if none did."""
+    for _ in range(attempts):
+        split = device_ms(fn)
+        if sum(split.values()) >= PROFILE_FLOOR * graph_ms:
+            return split
+        print(f"  a profile read {sum(split.values()):.4f} ms against "
+              f"{graph_ms:.4f} by graph replays: taken again", flush=True)
+    raise AssertionError(f"no profile in {attempts} read {PROFILE_FLOOR} of "
+                         f"the graph replays' {graph_ms:.4f} ms")
+
+
 def three_times(fn, out):
     """({ms: CUDA events, sum_ms: the profile's kernel sum, graph_ms:
     graph replays}, the profile's ms by kernel) of ``fn``, whose output is
     shaped like ``out``."""
-    split = device_ms(fn)
+    graph_ms = device_timeit(lambda _: fn(), [out], k=5) * 1e3
+    split = checked_split(fn, graph_ms)
     return dict(ms=time_ms(fn), sum_ms=sum(split.values()),
-                graph_ms=device_timeit(lambda _: fn(), [out], k=5) * 1e3), split
+                graph_ms=graph_ms), split
 
 
 def ab_times(kernel, ring, out):
@@ -1802,121 +1861,39 @@ def times_text(r: dict) -> str:
             f"{r['ms']:.4f} events")
 
 
-def sustained_line(label: str, name: str, fn) -> dict:
-    """Prints and returns 400 gapless calls' ms with the SM clock and power
-    that ``nvidia-smi`` sampled meanwhile."""
-    s_ms, samples = sustained_ms(fn)
-    clocks = sorted(c for c, _ in samples) or [0.0]
-    watts = sorted(w for _, w in samples) or [0.0]
-    print(f"  {label} {name} sustained: {s_ms:.4f} ms a call over 400 calls; "
-          f"{len(samples)} samples, SM clock {clocks[0]:.0f}-{clocks[-1]:.0f} "
-          f"MHz (median {np.median(clocks):.0f}), power median "
-          f"{np.median(watts):.1f} W, max {watts[-1]:.1f} W", flush=True)
-    return dict(ms=s_ms, clock_median=float(np.median(clocks)),
-                clock_max=clocks[-1], watts_median=float(np.median(watts)))
-
-
-def subsampling_steps(sp, label, blocks, w, ref, valid, ring) -> list:
-    """The redesign's steps (``sp.WS_STEPS``) on P1 with copies, each held
-    to the plain version, then timed with the TMA ring in SUB_ROUNDS
-    interleaved rounds (forward, backward, forward): medians of each
-    reading, and each step's share of the ring-to-last-step gain on the
-    card and by graph replays."""
-    taps, calls = sp.TAPS_WITH_COPIES, [("the TMA ring", ring)]
-    errs = {}
-    for step, variant, persistent in sp.WS_STEPS:
-        fn = (lambda variant=variant, persistent=persistent:
-              sp.taps_ws(*blocks, w, taps, variant, persistent))
-        errs[step], _ = check_kernel(f"{label} step {step}", fn(), ref, valid,
-                                     1, ())
-        calls.append((step, fn))
-    samples = defaultdict(list)
-    for rnd in range(SUB_ROUNDS):
-        for name, fn in (calls if rnd % 2 == 0 else calls[::-1]):
-            samples[name].append(three_times(fn, ref)[0])
-    med = {name: {key: float(np.median([r[key] for r in rs]))
-                  for key in ("ms", "sum_ms", "graph_ms")}
-           for name, rs in samples.items()}
-    first, last = med[calls[0][0]], med[calls[-1][0]]
-    rows, prev = [], first
-    for name, _ in calls[1:]:
-        r = dict(med[name], step=name, max_abs_err=errs[name])
-        for key, share in (("sum_ms", "share_card"), ("graph_ms",
-                                                      "share_graph")):
-            gain = first[key] - last[key]
-            r[share] = (prev[key] - r[key]) / gain if gain else None
-        prev = r
-        rows.append(r)
-    fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
-    print(f"  {label} steps, medians of {SUB_ROUNDS} interleaved rounds "
-          f"(card / graph / events ms; share of the ring's gain, card / "
-          f"graph): the TMA ring {times_text(first)}; " + "; ".join(
-              f"{r['step']} {times_text(r)}, share {fmt(r['share_card'])} / "
-              f"{fmt(r['share_graph'])}" for r in rows), flush=True)
-    return [dict(first, step="the TMA ring")] + rows
-
-
-def subsampling_splits(sp, label, blocks, w, ref, valid, b, t) -> list:
-    """P1 with copies at each forced K split (fp32 partials in device
-    memory and a reduction pass), beside the plan's own choice."""
-    taps, rows = sp.TAPS_WITH_COPIES, []
-    plan = sp.taps_plan_splits(b, t, torch.cuda.current_device())
-    for n in SUB_SPLITS:
-        fn = lambda n=n: sp.taps_ws(*blocks, w, taps, splits=n)
-        out = fn()
-        err, _ = check_kernel(f"{label} {n} splits", out, ref, valid, 1, ())
-        r, _ = three_times(fn, out)
-        r.update(splits=n, max_abs_err=err)
-        rows.append(r)
-    print(f"  {label} K splits (the plan's {plan}; card / graph / events "
-          "ms): " + "; ".join(f"{r['splits']}: {times_text(r)}"
-                              for r in rows), flush=True)
-    return rows
-
-
-def clock_reasons(fn, calls: int = 300) -> str:
-    """What ``nvidia-smi`` reads (SM clock, its maximum, power, temperature,
-    the active clock-event reasons) while ``calls`` gapless calls of
-    ``fn`` run."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(calls):
-        fn()
-    fields = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu,{}"
-    text = ""
-    for reasons in ("clocks_event_reasons.active",
-                    "clocks_throttle_reasons.active"):
-        got = subprocess.run(["nvidia-smi", "--query-gpu=" + fields.format(
-            reasons), "--format=csv,noheader"], capture_output=True,
-            text=True)
-        text = (got.stdout or got.stderr).strip()
-        if got.returncode == 0:
-            break
-    torch.cuda.synchronize()
-    return text
-
-
-def subsampling_linear_splits(sp, label, blocks, w, wl, b, t) -> list:
-    """P2's linear alone at each forced K split, on relu(s2) from the
-    redesign, held to its fp32 product."""
-    s2 = torch.relu(sp.taps_ws(*blocks, w, sp.TAPS_WITH_COPIES))
-    a = s2.view(b * t, 16 * D_MODEL)
-    with full_fp32():
-        ref = (a.float() @ wl.float()).to(a.dtype)
-    valid = torch.ones(b * t, 1, dtype=torch.bool, device=a.device)
-    rows = []
-    for n in SUB_LIN_SPLITS:
-        fn = lambda n=n: sp.linear_ws(a, wl, splits=n)
-        out = fn()
-        err, _ = check_kernel(f"{label} linear, {n} splits", out, ref, valid,
-                              1, ())
-        r, _ = three_times(fn, out)
-        r.update(splits=n, max_abs_err=err)
-        rows.append(r)
-    print(f"  {label} the linear alone by K splits (card / graph / events "
-          "ms): " + "; ".join(f"{r['splits']}: {times_text(r)}"
-                              for r in rows), flush=True)
-    return rows
+def subsampling_variant_checks(sp, pid: str, label: str, inputs, ref, valid,
+                               b: int, t: int) -> None:
+    """P1 with copies in each of the redesign's steps (at SUB_STEP_SHAPES)
+    and at each forced K split (at SUB_FAULTS), P2's linear alone at each
+    forced K split (at B 16) on relu(s2), held to its fp32 product: the
+    instances and options that the wrappers do not launch, checked, not
+    timed."""
+    blocks, w, wl = inputs[:4], inputs[4], inputs[5]
+    taps, errs = sp.TAPS_WITH_COPIES, {}
+    if pid == "P1" and (b, t) in SUB_STEP_SHAPES:
+        for step, variant, persistent in sp.WS_STEPS:
+            errs[f"step {step}"], _ = check_kernel(
+                f"{label} step {step}", sp.taps_ws(*blocks, w, taps, variant,
+                                                   persistent),
+                ref, valid, 1, ())
+    if pid == "P1" and (b, t) == SUB_FAULTS:
+        for n in SUB_SPLITS:
+            errs[f"{n} splits"], _ = check_kernel(
+                f"{label} {n} splits", sp.taps_ws(*blocks, w, taps, splits=n),
+                ref, valid, 1, ())
+    if pid == "P2" and b > 1:
+        a = torch.relu(sp.taps_ws(*blocks, w, taps)).view(b * t, 16 * D_MODEL)
+        with full_fp32():
+            lin_ref = (a.float() @ wl.float()).to(a.dtype)
+        rows = torch.ones(b * t, 1, dtype=torch.bool, device=a.device)
+        for n in SUB_LIN_SPLITS:
+            errs[f"linear, {n} splits"], _ = check_kernel(
+                f"{label} linear, {n} splits", sp.linear_ws(a, wl, splits=n),
+                lin_ref, rows, 1, ())
+    if errs:
+        print(f"  {label} held to the plain version (max_abs_err): "
+              + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
 
 
 def no_patch_check(label, kernel, split: dict, b: int, t: int) -> None:
@@ -1946,11 +1923,10 @@ def subsampling_probe_phase(dev):
     at B 16), two calls bit-equal, each timed by CUDA events, by the
     profile's kernel sum and by graph replays beside its bound, its plain
     version, the library call and the TMA ring of the earlier design (held
-    to the plain version too); at SUB_STEP_SHAPES the redesign's steps, at
-    B 1, T 64 the forced K splits, at B 16 the linear's K splits, P2's
-    kernels and peak memory (no patch) and the SM clock under gapless load
-    that separates the card's reading from the graph's; P3's ceiling
-    against the card's opt-in limit, 2 x exact at every granted size; then
+    to the plain version too); the redesign's step instances and forced K
+    splits held to the plain version (``subsampling_variant_checks``); at
+    B 16 P2's kernels and peak memory (no patch); P3's ceiling against the
+    card's opt-in limit, 2 x exact at every granted size; then
     the probe's own ``main``, from zeroed launch counts.  Returns ({id:
     JSON row}, {wrapper: launches in ``main``})."""
     from gigaam_tpu_torch.probes import subsampling_probe as sp
@@ -1975,6 +1951,9 @@ def subsampling_probe_phase(dev):
         ring_err, _ = check_kernel(f"{label} (the TMA ring)", ring_got, ref,
                                    valid, 1, ())
         del ring_got
+        if variant:
+            subsampling_variant_checks(sp, pid, label, inputs, ref, valid, b,
+                                       t)
         times, split, ring_times, ring_split = ab_times(kernel, ring, got)
         ring_times["max_abs_err"] = ring_err
         plain_ms = time_ms(plain, iters=3, warmup=1)
@@ -1988,8 +1967,6 @@ def subsampling_probe_phase(dev):
               f"{times['sum_ms'] / ring_times['sum_ms']:.3f} card, "
               f"{times['graph_ms'] / ring_times['graph_ms']:.3f} graph",
               flush=True)
-        extra = {}
-        blocks, w, wl = inputs[:4], inputs[4], inputs[5]
         if b > 1:
             # where each call's device time goes, by kernel
             for name, sp_times in (
@@ -2006,38 +1983,6 @@ def subsampling_probe_phase(dev):
                       flush=True)
             if pid == "P2":
                 no_patch_check(label, kernel, split, b, t)
-                if variant:
-                    extra["lin_splits"] = subsampling_linear_splits(
-                        sp, label, blocks, w, wl, b, t)
-            else:
-                # the profile leaves gaps between calls, events and graph
-                # replays none: the SM clock and power under gapless load
-                sustained = {name: sustained_line(label, name, fn)
-                             for name, fn in (("kernel", kernel),
-                                              ("ring", ring),
-                                              ("library", lib),
-                                              ("channels_last", lib_cl))
-                             if fn is not None}
-                k = sustained["kernel"]
-                ratio = k["clock_max"] / max(k["clock_median"], 1.0)
-                print(f"  {label} nvidia-smi under gapless calls (SM clock, "
-                      f"its maximum, power, temperature, clock-event "
-                      f"reasons): {clock_reasons(kernel)}", flush=True)
-                print(f"  {label} card to graph: {times['sum_ms']:.4f} -> "
-                      f"{times['graph_ms']:.4f} ms (x "
-                      f"{times['graph_ms'] / times['sum_ms']:.3f}); the "
-                      f"gapless calls' SM clock median "
-                      f"{k['clock_median']:.0f} MHz against the "
-                      f"{k['clock_max']:.0f} MHz of the gapped ones (x "
-                      f"{ratio:.3f}): card x clock ratio {times['sum_ms'] * ratio:.4f} ms",
-                      flush=True)
-                extra["sustained"] = sustained
-        if pid == "P1" and variant and (b, t) in SUB_STEP_SHAPES:
-            extra["steps"] = subsampling_steps(sp, label, blocks, w, ref,
-                                               valid, ring)
-        if pid == "P1" and variant and (b, t) == SUB_FAULTS:
-            extra["splits"] = subsampling_splits(sp, label, blocks, w, ref,
-                                                 valid, b, t)
         cl_text = ("" if lib_cl_ms is None
                    else f", channels_last {lib_cl_ms:.4f} ms")
         print(f"{label}: max_abs_err {err:.3e}, {rel:.4f} x RMS (limit "
@@ -2049,7 +1994,7 @@ def subsampling_probe_phase(dev):
         readings[pid][(b, t, variant)] = dict(
             times, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib_ms, library_cl_ms=lib_cl_ms, max_abs_err=err,
-            shape=shape, ring=ring_times, **extra)
+            shape=shape, ring=ring_times)
         del inputs, kernel, plain, lib, lib_cl, faults, got, ref, ring
         torch.cuda.empty_cache()
 
@@ -2127,8 +2072,7 @@ def subsampling_kernel_rows(rows: dict, launches: dict) -> list:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "sum_ms", "graph_ms", "library_cl_ms",
                 "probe_us", "shape", "also") + tuple(
-                    k for k in ("ring", "steps", "splits", "lin_splits",
-                                "sustained") if k in rows[pid])}}
+                    k for k in ("ring",) if k in rows[pid])}}
         for pid, (wrapper, repl, _) in SUB_PROBES.items()]
 
 
@@ -2150,10 +2094,20 @@ ATTN_FOLD = {
                  "benchmarks/pallas_attn_fold_probe.py:247"),
     "P8": ("fold_lnres", None, "benchmarks/pallas_attn_lnres_probe.py:123"),
 }
-# the probes' stages by kernel name (foldA's Q/K/V GEMM is qkv_head_kernel)
+# the probes' stages by kernel name: P8 and the kept kernels of P6/P7
+# (foldA's Q/K/V GEMM is qkv_head_kernel), and P6/P7's redesign
 ATTN_FOLD_STAGES = (("row pass", "ln_rope_kernel"), ("QKV GEMM", "qkv_"),
-                    ("K3 SDPA", "sdpa_kernel"),
+                    ("SDPA", "sdpa_kernel"),
                     ("output GEMM", "out_proj_kernel"))
+ATTN_FOLD_WS_STAGES = (("row pass", "ln_rope_kernel"),
+                       ("QKV GEMM", "fold_qkv_"),
+                       ("SDPA", "sdpa_packed_ws_kernel"),
+                       ("output GEMM", "fold_out_"))
+# P6 and P7 run on their redesign (csrc/attn_fold_ws.cu), P8 on the kernels
+# of csrc/attn_fold_probe.cu; the redesign against those kept kernels at
+# every shape, and again in turns at these
+ATTN_FOLD_REDESIGNED = ("P6 nb2", "P6 nb4", "P7 foldA", "P7 foldB")
+ATTN_FOLD_AB_SHAPES = ((16, 500), (128, 768))
 # at B 128 the plain version's fp32 scores alone would be 4.8 GB: the
 # kernel runs on the whole batch and its first and last rows are held to
 # the plain version on those rows (rows are independent, so this is exact)
@@ -2180,10 +2134,26 @@ def attn_fold_plain(afp, label: str, w, x, valid):
     return afp.fold_plain(w, x, valid, heads=label == "P7 foldA")
 
 
+def attn_fold_schedule(afp, label: str, nb: int) -> int:
+    """The redesign's schedule that a redesigned variant's wrapper runs."""
+    if label == "P7 foldA":
+        return afp.FOLDA_SCHEDULE
+    return afp.FOLDB_SCHEDULE if label == "P7 foldB" else afp.NB_SCHEDULE[nb]
+
+
+def stage_split(split: dict, stages) -> dict:
+    return {stage: sum(v for k, v in split.items() if name in k)
+            for stage, name in stages}
+
+
 def attn_fold_faults(afp, label: str, w, x, valid, nb: int):
     """The planted faults, each fed through the variant's inputs (P8's
     LayerNorm and residual through what the kernel would return without
-    them: foldB's kernel on x plus x, and on LN(x))."""
+    them: foldB's kernel on x plus x, and on LN(x)); for the redesign two
+    slips of its schedule, through its stages on the card: the packed o
+    handed to the output product one head off, and each 64-row tile stored
+    into its partner's rows (a consumer warpgroup storing into the other's
+    tile; B T must be a multiple of 128)."""
     f = w.fold
     call = lambda ww=w, vv=valid: attn_fold_kernel(afp, label, ww, x, vv, nb)
     fold = lambda **kw: dataclasses.replace(w, fold=dataclasses.replace(f, **kw))
@@ -2200,6 +2170,19 @@ def attn_fold_faults(afp, label: str, w, x, valid, nb: int):
                        lambda: call(dataclasses.replace(
                            w, wq_heads=w.wq_heads.roll(-1, 0).contiguous(),
                            wk_heads=w.wk_heads.roll(-1, 0).contiguous()))))
+    if label in ATTN_FOLD_REDESIGNED:
+        sched = attn_fold_schedule(afp, label, nb)
+
+        def o_one_head_off():
+            xr = fa.ln_rope(x, w.cos, w.sin, N_HEADS)[1]
+            o = afp.sdpa_packed_ws(*afp.qkv_ws(w, xr, x, sched), valid)
+            return afp.out_ws(w, o.roll(D_HEAD, -1).contiguous(), sched)
+
+        faults += [
+            ("the packed o one head off", o_one_head_off),
+            ("each 64-row tile stored into its partner's rows",
+             lambda: call().reshape(-1, 2, 64, D_MODEL).flip(1).reshape(
+                 x.shape))]
     if label == "P8":
         xn = fa.ln_rope_plain(x, w.cos, w.sin, N_HEADS, f.ln_scale,
                               f.ln_bias)[0]
@@ -2214,10 +2197,50 @@ def timed(fn, x) -> dict:
     """ms by CUDA events, by the profile's kernel sum and by
     ``device_timeit``'s graph replays (40 calls a replay), and the profile's
     kernel times by name."""
-    split = device_ms(fn)
+    graph_ms = device_timeit(lambda _: fn(), [x], k=40) * 1e3
+    split = checked_split(fn, graph_ms)
     return dict(ms=time_ms(fn), sum_ms=sum(split.values()),
-                graph_ms=device_timeit(lambda _: fn(), [x], k=40) * 1e3,
-                split=split)
+                graph_ms=graph_ms, split=split)
+
+
+def attn_fold_ring_ab(afp, label: str, w, x, valid, nb: int, rows, ref,
+                      kernel, got, times: dict, b: int, t: int) -> dict:
+    """A redesigned variant against the kernels it replaced
+    (``fold_ring``) at one shape: those held to the plain version too and
+    timed (events, the profile's sum with its four stages, graph replays);
+    at ATTN_FOLD_AB_SHAPES the two timed in turns instead (redesign, kept,
+    kept, redesign; the mean of each pair)."""
+    name = f"{label} B={b} T={t}"
+    ring = lambda: afp.fold_ring(w, x, valid, nb, heads=label == "P7 foldA")
+    err, _ = check_kernel(f"{name} (the kept kernels)", ring()[rows], ref,
+                          valid[rows], 1, ())
+    turns = (b, t) in ATTN_FOLD_AB_SHAPES
+    if turns:
+        k_t, k_split, rt, r_split = ab_times(kernel, ring, got)
+    else:
+        rt = timed(ring, x)
+        r_split = rt["split"]
+    old = dict(max_abs_err=err, ms=rt["ms"], sum_ms=rt["sum_ms"],
+               graph_ms=rt["graph_ms"],
+               stages_ms=stage_split(r_split, ATTN_FOLD_STAGES))
+    new = stage_split(times["split"], ATTN_FOLD_WS_STAGES)
+    print(f"  {name} A/B: the kept kernels {times_text(rt)} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in old["stages_ms"].items())
+          + f"); the redesign {times_text(times)} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in new.items())
+          + f"); redesign / kept {times['sum_ms'] / rt['sum_ms']:.3f} card, "
+          f"{times['graph_ms'] / rt['graph_ms']:.3f} graph, "
+          f"{times['ms'] / rt['ms']:.3f} events", flush=True)
+    if turns:
+        old["in_turns"] = {"redesign": k_t, "kept": rt}
+        print(f"  {name} A/B in turns (the mean of two each): the kept "
+              f"kernels {times_text(rt)}; the redesign {times_text(k_t)}; "
+              f"redesign / kept {k_t['sum_ms'] / rt['sum_ms']:.3f} card, "
+              f"{k_t['graph_ms'] / rt['graph_ms']:.3f} graph, "
+              f"{k_t['ms'] / rt['ms']:.3f} events; the redesign by stage "
+              + json.dumps(stage_split(k_split, ATTN_FOLD_WS_STAGES)),
+              flush=True)
+    return old
 
 
 def attn_fold_probe_phase(dev):
@@ -2226,9 +2249,10 @@ def attn_fold_probe_phase(dev):
     three calls bit-equal, the planted faults at ATTN_FOLD_FAULTS; each
     timed (events, profile sum with its four stages, graph replays) beside
     its bound, its plain version, the script's baseline, K2 (P8: K1) and
-    the lean stock path; P8 against K1 and both against the fp32 module;
-    then the probes' own ``main`` from zeroed launch counts.  Returns ({row
-    name: JSON row}, {wrapper: launches in ``main``})."""
+    the lean stock path; P6/P7's redesign against the kernels it replaced
+    (``attn_fold_ring_ab``); P8 against K1 and both against the fp32
+    module; then the probes' own ``main`` from zeroed launch counts.
+    Returns ({row name: JSON row}, {wrapper: launches in ``main``})."""
     from gigaam_tpu_torch.probes import attn_fold_probes as afp
 
     t_phase = time.perf_counter()
@@ -2296,9 +2320,9 @@ def attn_fold_probe_phase(dev):
                               + json.dumps([[k[:60], round(v, 4)]
                                             for k, v in top]), flush=True)
             times = timed(kernel, x)
-            stages = {stage: sum(v for k, v in times["split"].items()
-                                 if name in k)
-                      for stage, name in ATTN_FOLD_STAGES}
+            redesigned = label in ATTN_FOLD_REDESIGNED
+            stages = stage_split(times["split"], ATTN_FOLD_WS_STAGES
+                                 if redesigned else ATTN_FOLD_STAGES)
             plain_ms = time_ms(lambda: attn_fold_plain(afp, label, w, xs, vs),
                                iters=3, warmup=1)
             bms, by = fold_bound(b, t, lnres)
@@ -2334,6 +2358,10 @@ def attn_fold_probe_phase(dev):
             if lnres:
                 reading["k1_vs_p8"] = p8_against_k1(
                     afp, attn, ln, w, x, valid, got, rows, b, t)
+            if redesigned:
+                reading["kept"] = attn_fold_ring_ab(
+                    afp, label, w, x, valid, nb, rows, ref, kernel, got,
+                    times, b, t)
             readings[label][(b, t)] = reading
             del got, ref, faults, kernel
         del x, weights, stock, stock_ms, w6, w8
@@ -2402,12 +2430,17 @@ def p8_against_k1(afp, attn, ln, w, x, valid, got, rows, b: int, t: int):
 
 
 def attn_fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
-    """The kernels line's rows of P6, P7 (foldA and foldB) and P8."""
+    """The kernels line's rows of P6, P7 (foldA and foldB), redesigned
+    (the kept kernels' readings under ``kept``), and P8."""
     names = {"P6 nb2": "P6", "P7 foldA": "P7 foldA", "P7 foldB": "P7 foldB",
              "P8": "P8"}
     return [{
         "name": f"{names[label]} {ATTN_FOLD[label][0]}", "route": "cuda",
-        "source": "gigaam_tpu_torch/csrc/attn_fold_probe.cu",
+        "source": ("gigaam_tpu_torch/csrc/attn_fold_ws.cu"
+                   if label in ATTN_FOLD_REDESIGNED
+                   else "gigaam_tpu_torch/csrc/attn_fold_probe.cu"),
+        "status": ("redesigned" if label in ATTN_FOLD_REDESIGNED
+                   else "ported"),
         "replaces": ATTN_FOLD[label][2],
         "launches": launches[ATTN_FOLD[label][0]], **rows[label]}
         for label in names]
@@ -2909,7 +2942,7 @@ def loop_share(label: str, model, wavs, call: dict, card: str) -> dict:
         raise AssertionError(f"{label}: {reads} host reads for {iters} "
                              f"iterations at chunk {chunk}")
     args = dict(max_symbols=ms, with_logps=True, chunk=chunk)
-    by_kernel = device_ms(lambda: model.rnnt.decode(model.head, enc, lens,
+    by_kernel = window_ms(lambda: model.rnnt.decode(model.head, enc, lens,
                                                     **args), calls=1)
     graph_ms = sum(by_kernel.values())
     _, eager_reads, _, eager_wall = decode_call(model, enc, lens, chunk,
@@ -3233,7 +3266,7 @@ def texts_of(res) -> list:
 
 def h2d_ms(fn) -> float:
     """Device ms of host-to-device copies in one call of ``fn``."""
-    return sum(ms for name, ms in device_ms(fn, calls=1).items()
+    return sum(ms for name, ms in window_ms(fn, calls=1).items()
                if "HtoD" in name)
 
 
@@ -3279,7 +3312,7 @@ def neural_vad_phase(model, path: str, audio: np.ndarray, root: str,
                              f" argmax differs on {int((~agree[decided]).sum())}"
                              f" frames past the margin")
     minutes = len(audio) / SAMPLE_RATE / 60.0
-    by_kernel = device_ms(lambda: sliding_class_probs(card_net, audio),
+    by_kernel = window_ms(lambda: sliding_class_probs(card_net, audio),
                           calls=1)
     vad_wall = min(wall_ms(lambda: sliding_class_probs(card_net, audio))
                    for _ in range(3))
@@ -3393,7 +3426,7 @@ def align_phase(model, rng, card: str) -> dict:
                 or frames[-1] >= lens_np[i]):
             raise AssertionError(f"DP sample {i}: score {score[i]}, frames "
                                  f"{frames[:8]}...")
-    by_kernel = device_ms(lambda: al.align(*args), calls=3)
+    by_kernel = window_ms(lambda: al.align(*args), calls=3)
     dp_device = sum(by_kernel.values())
     dp_wall = float(np.median([wall_ms(lambda: al.align(*args))
                                for _ in range(5)]))
@@ -3709,7 +3742,7 @@ def beam_loop_row(label: str, model, wavs, call: dict, card: str,
     if reads > math.ceil(steps / rnnt_beam.CHUNK) + 1:
         raise AssertionError(f"{label}: {reads} host reads for {steps} "
                              f"expansions")
-    by_kernel = device_ms(lambda: model.rnnt_beam.decode(
+    by_kernel = window_ms(lambda: model.rnnt_beam.decode(
         model.head, enc, lens, beam_size=BEAM,
         max_symbols=model.cfg.decoding.max_symbols_per_step,
         with_logps=True, **fused), calls=1)
@@ -5767,22 +5800,12 @@ def batch1_wall(rounds: int = 7, calls: int = 20) -> None:
         "walls_ms": walls}), flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    if sys.argv[1:] == ["--batch1-wall"]:
-        batch1_wall()
-        return 0
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}", flush=True)
-    print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-
+def build_kernels() -> dict:
+    """Builds every kernel from csrc/ (all sources at once, always anew),
+    prints each kernel's registers, spills and shared memory, fails if a
+    `wgmma` kernel spills or a kept kernel's registers moved, and prints
+    the dynamic shared memory and blocks per SM of the kernels that size
+    it at launch.  Returns the resources by kernel."""
     logs = []
     build_s = cuda_lib.build(verbose=True, logs=logs, force=True)
     print(f"kernel build: {build_s:.1f} s", flush=True)
@@ -5817,6 +5840,8 @@ def main() -> int:
         "out_proj_kernel<2, 128, 0> (attn_fold_probe)",
         "out_proj_kernel<4, 128, 0>", "out_proj_kernel<1, 128, 2>",
         "out_proj_kernel<2, 128, 2>", "out_proj_kernel<4, 128, 2>")
+    # P6/P7's redesign: its products and the walk's packed instance
+    wgmma_kernels += cuda_lib.ATTN_FOLD_WS_KERNELS
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
@@ -5831,6 +5856,26 @@ def main() -> int:
     # the rel-pos kernels size their shared memory at launch
     print("kernel dynamic resources "
           + json.dumps(cuda_lib.dynamic_resources()), flush=True)
+    return resources
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    if sys.argv[1:] == ["--batch1-wall"]:
+        batch1_wall()
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    build_kernels()
 
     rows = kernel_phase(dev)
     gen = torch.Generator().manual_seed(1)

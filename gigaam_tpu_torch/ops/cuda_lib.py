@@ -56,6 +56,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_sdpa_groups_ws": [_P] * 6 + [_I] * 4 + [_F, _P],
         "gigaam_sdpa_groups_ws_occupancy": [_P],
     },
+    "attn_fold_ws": {
+        "gigaam_fold_ws_qkv": [_P] * 12 + [_I] * 5 + [_P],
+        "gigaam_fold_ws_out": [_P] * 5 + [_I] * 4 + [_P],
+        "gigaam_fold_ws_sdpa": [_P] * 6 + [_I] * 4 + [_F, _P],
+        "gigaam_fold_ws_slots": [_I, _P],
+        "gigaam_attn_fold_ws_occupancy": [_P],
+    },
     "fold_probes": {
         "gigaam_ffn_fold": [_P] * 8 + [_I, _P],
         "gigaam_conv_fold": [_P] * 15 + [_I] * 2 + [_P],
@@ -87,6 +94,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_ws_max_clusters": [_P],
     },
 }
+
+
+# the attention-fold redesign's kernels (csrc/attn_fold_ws.cu: the
+# products of each schedule and the walk's packed instance), in the order of
+# gigaam_attn_fold_ws_occupancy, named as kernel_resources names them
+ATTN_FOLD_WS_KERNELS = (
+    "fold_qkv_pp_kernel<256, 2, false>", "fold_qkv_pp_kernel<192, 1, true>",
+    "fold_qkv_coop_kernel<1>", "fold_qkv_coop_kernel<2>",
+    "fold_out_pp_kernel<256, 2>", "fold_out_pp_kernel<192, 1>",
+    "fold_out_coop_kernel<1>", "fold_out_coop_kernel<2>",
+    "sdpa_packed_ws_kernel")
 
 
 def _nvcc() -> str:
@@ -172,19 +190,24 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
     parts = re.split(r"^\[nvcc (\w+)\]$", log, flags=re.M)
     for library, text in zip([None] + parts[1::2], parts[::2]):
         for mangled, st, ld, regs, smem in entry.findall(text):
-            # ..._<file>_cu_<hash><len><name>[I<template arguments>E]E...:
-            # the kernels' names are lower-case words ending in _kernel;
-            # template arguments are bool (Lb0E, Lb1E) or int (Li<n>E)
-            # literals
-            name = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)E)?E", mangled)
-            key = mangled if not name else name.group(1) + _template_args(
-                name.group(2))
+            key = kernel_name(mangled)
             if key in out:
                 key = f"{key} ({library})"
             out[key] = {
                 "registers": int(regs), "spill_bytes": int(st) + int(ld),
                 "static_smem_bytes": int(smem or 0)}
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """``ws_conv_kernel<128, 1, false>`` ... of a mangled kernel name
+    (``..._<file>_cu_<hash><len><name>[I<template arguments>E]E...``: the
+    kernels' names are lower-case words ending in _kernel; template
+    arguments are bool (Lb0E, Lb1E) or int (Li<n>E) literals); the mangled
+    name where it holds no such word."""
+    name = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)E)?E", mangled)
+    return mangled if not name else name.group(1) + _template_args(
+        name.group(2))
 
 
 def _template_args(args: Optional[str]) -> str:
@@ -205,7 +228,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
     epilogue (the third template argument: 0 no residual, 1 the residual
     added in bf16, 2 in fp32), the fold probes' kernels (and P4's
     redesign: its two products, 1 the SiLU epilogue, 2 the residual one),
-    the head-group walk's redesign (P9), the subsampling
+    the head-group walk's redesign (P9), the attention-fold redesign's
+    kernels (P6, P7), the subsampling
     probes' products (the TMA ring's and the warp-specialised redesign's
     four steps) and the attention-fold probes' GEMMs, named as
     ``kernel_resources`` names them):
@@ -226,6 +250,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
              ("ffn_ws_kernel<1>", "ffn_ws_kernel<2>")),
             ("sdpa_groups_ws", "gigaam_sdpa_groups_ws_occupancy",
              ("sdpa_groups_ws_kernel",)),
+            ("attn_fold_ws", "gigaam_attn_fold_ws_occupancy",
+             ATTN_FOLD_WS_KERNELS),
             ("subsampling_probe", "gigaam_subsampling_probe_occupancy",
              ("taps_kernel", "probe_gemm_kernel")),
             ("subsampling_ws", "gigaam_subsampling_ws_occupancy",

@@ -4,20 +4,39 @@ Counterpart of ``benchmarks/pallas_attn_fold_probe.py`` (P6, P7) and
 ``benchmarks/pallas_attn_lnres_probe.py`` (P8).  Each folds the rotary
 attention module into one Pallas kernel on the TPU; on Hopper each is, like
 K1/K2 (``ops/fused_attention.py``), four launches: the row pass, a Q/K/V
-GEMM, K3's SDPA core and an output GEMM, with the GEMMs as variants of
-K1/K2's (``csrc/attn_fold_probe.cu`` on ``csrc/projection.cuh``):
+product, the SDPA and an output product.  P6 and P7 run on their redesign,
+``csrc/attn_fold_ws.cu``: K1/K2's row pass, the two products on
+``csrc/conv_ws.cuh``'s warp-specialised persistent cores and, between
+them, P9's pipelined head walk with o stored packed (``csrc/sdpa_groups_
+ws.cu``); each probe's question becomes a schedule of the cores:
 
   P7 foldB  folded_attention(..., per_head_weights=False)
-            ``fold_lane_slices``: N-128 column tiles that straddle heads,
-            pinned to 64-row tiles
+            ``fold_lane_slices``: ping-pong (each consumer warpgroup owns
+            whole tiles, one's epilogue under the other's products), 64 x
+            256 tiles that straddle heads, in clusters of two with the
+            weight boxes multicast (128 rows a box)
   P7 foldA  folded_attention(..., per_head_weights=True)
-            ``fold_heads``: one block a head's q or k, N-48 products with
-            the per-head weight blocks (v on the N-128 path)
+            ``fold_heads``: ping-pong, 64 x 192 tiles of four whole heads,
+            Q and K read K-major from the per-head weight blocks
   P6        folded_attention_nb(..., nb)
-            ``fold_nb``: 64 nb-row tiles, nb warpgroups a block
+            ``fold_nb``: more rows a weight box: nb 1 as foldB; nb 2
+            cooperative 128 x 256 tiles (``WsCore``); nb 4 the same in
+            clusters of two with the weight boxes multicast (256 rows a box)
   P8        lnres_folded(ln_params, ..., nb)
             ``fold_lnres``: K1's function (pre-LN x to x + attention(LN(x)))
-            with the residual added to the fp32 accumulator and rounded once
+            with the residual added to the fp32 accumulator and rounded once,
+            on K1/K2's GEMMs at other tiles (``csrc/attn_fold_probe.cu`` on
+            ``csrc/projection.cuh``: ``qkv_kernel<nb, 128>``,
+            ``out_proj_kernel<nb, 128, 2>``) around K3
+
+The kernels P6 and P7 ran on before (``attn_fold_probe.cu``'s N-128 and
+N-48 products around K3) stay reachable as ``fold_ring`` for an A/B on the
+same card; it counts no launch.  The redesign's stages run alone as
+``qkv_ws``, ``sdpa_packed_ws`` and ``out_ws`` (after ``fa.ln_rope``), each
+beside its plain stage (``qkv_plain``, ``sdpa_packed_plain``,
+``out_plain``; ``fold_staged_plain`` composes them and equals
+``fold_plain`` bit for bit); the plans are pure functions
+(``fold_plans``).
 
 P6 and P7 compute K2's function (post-LN x to the module output, ``bo``
 included); nb and the weight layout change the tiles, not the math.  Each
@@ -59,7 +78,9 @@ the plain versions on the card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import json
 import math
 from typing import Mapping, Optional
@@ -72,11 +93,15 @@ from ..ops import cuda_lib
 from ..ops import fused_attention as fa
 from ..ops.attention import rotary_mha
 from ..ops.conformer_ops import layer_norm
+from ..ops.attention import _split_heads
 from ..ops.fused_attention import _check_tensor, _require, _stream
+from ..ops.precision import full_fp32
 from ..ops.rotary import rotary_tables
 from ..profiling import device_timeit
 from ..weights import sub_block_from_jax
 from .fold_probes import tree_to
+from .sdpa_ablation import _device_groups_plan
+from .ws_plan import PP_BM, WS_BK, WS_BM, ws_plan
 
 D, H = 768, 16
 DH = D // H
@@ -246,6 +271,57 @@ def lnres_plain(w: AttnFoldWeights, x: torch.Tensor,
                             fp32_residual=True)
 
 
+def _fold_of(w: AttnFoldWeights, heads: bool) -> fa.FoldedWeights:
+    """The [D, D] weights that the plain versions multiply by: foldA's
+    per-head blocks put back in place of Wq and Wk with ``heads``."""
+    if not heads:
+        return w.fold
+    return dataclasses.replace(w.fold, wq=_heads_to_full(w.wq_heads),
+                               wk=_heads_to_full(w.wk_heads))
+
+
+def qkv_plain(w: AttnFoldWeights, xr: torch.Tensor, x: torch.Tensor,
+              heads: bool = False):
+    """The redesign's Q/K/V stage, plain: (q, k, v) [B, 16, T, 48] =
+    bf16(xr Wq + bq), bf16(xr Wk + bk), bf16(x Wv + bv), products and bias
+    in fp32; ``heads``: Wq and Wk from foldA's per-head blocks."""
+    f = _fold_of(w, heads)
+    dt = x.dtype
+    with full_fp32():
+        def proj(a: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor):
+            return _split_heads((a.float() @ wm.float() + bias).to(dt), H)
+
+        return proj(xr, f.wq, f.bq), proj(xr, f.wk, f.bk), proj(x, f.wv, f.bv)
+
+
+def sdpa_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """The SDPA stage, plain: K3's (scale 1, Wq carries it), o packed [B, T,
+    768], head h at columns 48 h .."""
+    with full_fp32():
+        o = fa._sdpa_plain(q, k, v, valid, 1.0)
+        b, h, t, d = o.shape
+        return o.transpose(1, 2).reshape(b, t, h * d)
+
+
+def out_plain(w: AttnFoldWeights, o: torch.Tensor) -> torch.Tensor:
+    """The output stage, plain: bf16(o Wo + bo), accumulated in fp32."""
+    with full_fp32():
+        return (o.float() @ w.fold.wo.float() + w.fold.bo).to(o.dtype)
+
+
+def fold_staged_plain(w: AttnFoldWeights, x: torch.Tensor,
+                      valid: torch.Tensor, heads: bool = False
+                      ) -> torch.Tensor:
+    """``fold_plain`` as the redesign's stages: the row pass, the Q/K/V
+    stage, the SDPA with o packed, the output stage; the same values bit
+    for bit."""
+    with full_fp32():
+        xr = fa.ln_rope_plain(x, w.cos, w.sin, H)[1]
+        return out_plain(w, sdpa_packed_plain(*qkv_plain(w, xr, x, heads),
+                                              valid))
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -253,9 +329,10 @@ def lnres_plain(w: AttnFoldWeights, x: torch.Tensor,
 def _check_args(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
                 nb: int, heads: bool, lnres: bool) -> None:
     """What the card path takes: x [B, T, 768] bf16 with B T >= 1, nb in
-    NB_TILES dividing B, the [T, 48] fp32 tables, valid [B, T] bool, the
-    weights' shapes and dtypes (foldA: its [16, 48, 768] blocks), every
-    tensor contiguous and 16-byte aligned on x's device."""
+    NB_TILES dividing B, the [T, 48] fp32 tables, valid [B, T] bool (None:
+    a stage that reads no mask), the weights' shapes and dtypes (foldA: its
+    [16, 48, 768] blocks), every tensor contiguous and 16-byte aligned on
+    x's device."""
     _require(x.dim() == 3 and x.shape[-1] == D and x.numel() > 0,
              f"x must be [B, T, {D}], got {tuple(x.shape)}")
     b, t, d = x.shape
@@ -266,7 +343,8 @@ def _check_args(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
     fa._check_row_args(x, w.cos, w.sin, H,
                        *((f.ln_scale, f.ln_bias) if lnres else ()))
     fa._check_fold_weights(f, d, x.device)
-    _check_tensor("valid", valid, x.device, torch.bool, (b, t))
+    if valid is not None:
+        _check_tensor("valid", valid, x.device, torch.bool, (b, t))
     if heads:
         for name in ("wq_heads", "wk_heads"):
             _require(getattr(w, name) is not None,
@@ -278,10 +356,11 @@ def _check_args(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
 def _fold_cuda(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
                nb: int, heads: bool = False, lnres: bool = False
                ) -> torch.Tensor:
-    """Four launches: the row pass, a Q/K/V GEMM of the probe's library,
-    the SDPA core and the probe's output GEMM.  Their scratch (xr, xn for
-    P8, q, k, v and the SDPA output o, each [B*T, D] bf16) is one
-    allocation, as in K1/K2's ``_folded_cuda``."""
+    """Four launches of ``csrc/attn_fold_probe.cu``'s design (P8's, and P6
+    and P7's before their redesign): the row pass, a Q/K/V GEMM of the
+    probe's library, K3's SDPA core and the probe's output GEMM.  Their
+    scratch (xr, xn for P8, q, k, v and the SDPA output o, each [B*T, D]
+    bf16) is one allocation, as in K1/K2's ``_folded_cuda``."""
     _check_args(w, x, valid, nb, heads, lnres)
     b, t, d = x.shape
     dev = x.device
@@ -319,20 +398,213 @@ def _fold_cuda(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
     return out
 
 
+# The redesign (csrc/attn_fold_ws.cu).  Its schedules (the source's
+# Schedule), the wrappers' own, and their output tiles: (rows, columns,
+# cluster).  foldB (and P6 at nb 1) on ping-pong tiles in clusters of two
+# with the weight boxes multicast (128 rows a box), which took its Q/K/V
+# product below the unshared ping-pong's; foldA's K-major per-head blocks
+# ran slower multicast, so foldA's tiles are unshared (PERF.md section 6);
+# P6 at nb 2 and 4 on cooperative 128-row tiles
+LANE_SLICES, HEAD_TILES, COOP, COOP_CLUSTER = 0, 1, 2, 3
+SCHEDULE_TILES = {LANE_SLICES: (PP_BM, 256, 2), HEAD_TILES: (PP_BM, 192, 1),
+                  COOP: (WS_BM, 256, 1), COOP_CLUSTER: (WS_BM, 256, 2)}
+FOLDB_SCHEDULE, FOLDA_SCHEDULE = LANE_SLICES, HEAD_TILES
+NB_SCHEDULE = {1: LANE_SLICES, 2: COOP, 4: COOP_CLUSTER}
+
+
+def fold_plans(m: int, schedule: int, slots: int):
+    """((units, grid) of the Q/K/V product, the same of the output
+    product) for M rows on ``slots`` blocks: xr|x [M, 768] . [768, 2304],
+    then o [M, 768] . Wo [768, 768], in the schedule's tiles: ``ws_plan``
+    with K unsplit (12 items a unit; at the probes' smallest shape, B 1,
+    T 500, the card still holds every unit at once).  On the ping-pong
+    core unit i of a block runs on its consumer warpgroup i % 2."""
+    bm, bn, cluster = SCHEDULE_TILES[schedule]
+    row_tiles = -(-m // bm)
+    return tuple(ws_plan(row_tiles, n // bn, D // WS_BK, slots, m * n, bn,
+                         cluster, splits=1)[:2] for n in (3 * D, D))
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_slots(schedule: int, index: int) -> int:
+    """The schedule's persistent grids' ceiling on card ``index``: blocks
+    (in its clusters) that the card holds at once, at most one an SM."""
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(index):
+        cuda_lib.check(cuda_lib.library("attn_fold_ws").gigaam_fold_ws_slots(
+            schedule, out), "gigaam_fold_ws_slots")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return min(sms, out[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _device_fold_plans(m: int, schedule: int, index: int):
+    """``fold_plans`` on card ``index``, made once a shape: the first call
+    copies the plans to the card, so it must not be under CUDA-graph
+    capture."""
+    return tuple((torch.from_numpy(units).to(f"cuda:{index}"), grid)
+                 for units, grid in fold_plans(m, schedule,
+                                               _fold_slots(schedule, index)))
+
+
+def _launch_qkv_ws(w: AttnFoldWeights, xr: int, x: int, qkv, m: int,
+                   t: int, schedule: int, dev) -> None:
+    f = w.fold
+    (units, grid), _ = _device_fold_plans(m, schedule, dev.index)
+    wq, wk = ((w.wq_heads, w.wk_heads) if schedule == HEAD_TILES
+              else (f.wq, f.wk))
+    cuda_lib.check(cuda_lib.library("attn_fold_ws").gigaam_fold_ws_qkv(
+        xr, x, wq.data_ptr(), wk.data_ptr(), f.wv.data_ptr(),
+        f.bq.data_ptr(), f.bk.data_ptr(), f.bv.data_ptr(), *qkv,
+        units.data_ptr(), len(units), grid, m, t, schedule, _stream(dev)),
+        "gigaam_fold_ws_qkv")
+
+
+def _launch_sdpa_ws(qkv, valid: torch.Tensor, o: int, b: int, t: int,
+                    dev) -> None:
+    units = _device_groups_plan(b, H, t, H, dev.index)
+    cuda_lib.check(cuda_lib.library("attn_fold_ws").gigaam_fold_ws_sdpa(
+        *qkv, valid.data_ptr(), o, units.data_ptr(), len(units), b, H, t,
+        1.0, _stream(dev)), "gigaam_fold_ws_sdpa")
+
+
+def _launch_out_ws(w: AttnFoldWeights, o: int, out: int, m: int,
+                   schedule: int, dev) -> None:
+    _, (units, grid) = _device_fold_plans(m, schedule, dev.index)
+    cuda_lib.check(cuda_lib.library("attn_fold_ws").gigaam_fold_ws_out(
+        o, w.fold.wo.data_ptr(), w.fold.bo.data_ptr(), out, units.data_ptr(),
+        len(units), grid, m, schedule, _stream(dev)), "gigaam_fold_ws_out")
+
+
+def _fold_ws(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
+             schedule: int) -> torch.Tensor:
+    """The redesign's four launches (arguments checked by the caller): the
+    row pass, the Q/K/V product, the packed walk and the output product,
+    their scratch (xr, q, k, v, o, each [B*T, D] bf16) one allocation."""
+    b, t, d = x.shape
+    m, dev = b * t, x.device
+    n = m * d
+    scratch = torch.empty(5 * n, dtype=x.dtype, device=dev)
+    xr, *qkv, o = (scratch.data_ptr() + 2 * n * i for i in range(5))
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        fa._launch_ln_rope(x, w.cos, w.sin, None, None, x.data_ptr(), xr,
+                           _stream(dev))
+        _launch_qkv_ws(w, xr, x.data_ptr(), qkv, m, t, schedule, dev)
+        _launch_sdpa_ws(qkv, valid, o, b, t, dev)
+        _launch_out_ws(w, o, out.data_ptr(), m, schedule, dev)
+    return out
+
+
+def _check_schedule(schedule: int) -> None:
+    _require(schedule in SCHEDULE_TILES,
+             f"schedule must be one of {sorted(SCHEDULE_TILES)}, got "
+             f"{schedule}")
+
+
+def qkv_ws(w: AttnFoldWeights, xr: torch.Tensor, x: torch.Tensor,
+           schedule: int):
+    """The redesign's Q/K/V product alone on the card (``qkv_plain`` on the
+    CPU): xr, x [B, T, 768] bf16 -> (q, k, v) [B, 16, T, 48] in the
+    schedule's tiles (the head schedules read foldA's per-head blocks).
+    Counts no launch."""
+    heads = schedule == HEAD_TILES
+    if x.device.type == "cpu":
+        return qkv_plain(w, xr, x, heads)
+    _check_schedule(schedule)
+    _check_args(w, x, None, 1, heads, False)
+    _check_tensor("xr", xr, x.device, x.dtype, x.shape)
+    b, t, _ = x.shape
+    qkv = [torch.empty(b, H, t, DH, dtype=x.dtype, device=x.device)
+           for _ in range(3)]
+    with torch.cuda.device(x.device):
+        _launch_qkv_ws(w, xr.data_ptr(), x.data_ptr(),
+                       [a.data_ptr() for a in qkv], b * t, t, schedule,
+                       x.device)
+    return tuple(qkv)
+
+
+def sdpa_packed_ws(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """The SDPA stage alone on the card (``sdpa_packed_plain`` on the CPU):
+    q, k, v [B, 16, T, 48] bf16, valid [B, T] -> o [B, T, 768]: P9's walk
+    (``csrc/sdpa_walk.cuh``, 16 heads a cell, ``groups_plan``) storing o
+    packed.  Counts no launch."""
+    if q.device.type == "cpu":
+        return sdpa_packed_plain(q, k, v, valid)
+    _require(q.dim() == 4 and q.shape[1:2] == (H,) and q.shape[3] == DH
+             and q.numel() > 0, f"q must be [B, {H}, T, {DH}], got "
+             f"{tuple(q.shape)}")
+    b, _, t, _ = q.shape
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, a, q.device, torch.bfloat16, (b, H, t, DH))
+    _check_tensor("valid", valid, q.device, torch.bool, (b, t))
+    o = torch.empty(b, t, D, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch_sdpa_ws([a.data_ptr() for a in (q, k, v)], valid,
+                        o.data_ptr(), b, t, q.device)
+    return o
+
+
+def out_ws(w: AttnFoldWeights, o: torch.Tensor, schedule: int
+           ) -> torch.Tensor:
+    """The output product alone on the card (``out_plain`` on the CPU): o
+    [B, T, 768] bf16 packed -> bf16(o Wo + bo) in the schedule's tiles.
+    Counts no launch."""
+    if o.device.type == "cpu":
+        return out_plain(w, o)
+    _check_schedule(schedule)
+    _require(o.dim() == 3 and o.shape[-1] == D and o.numel() > 0,
+             f"o must be [B, T, {D}], got {tuple(o.shape)}")
+    _check_tensor("o", o, o.device, torch.bfloat16, o.shape)
+    fa._check_fold_weights(w.fold, D, o.device)
+    out = torch.empty_like(o)
+    with torch.cuda.device(o.device):
+        _launch_out_ws(w, o.data_ptr(), out.data_ptr(),
+                       o.shape[0] * o.shape[1], schedule, o.device)
+    return out
+
+
+def fold_ws(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
+            schedule: int) -> torch.Tensor:
+    """P6/P7's function on the redesign in any of its schedules (the
+    wrappers each run theirs), arguments checked; ``fold_plain`` on the
+    CPU.  Counts no launch."""
+    heads = schedule == HEAD_TILES
+    if x.device.type == "cpu":
+        return fold_plain(w, x, valid, heads=heads)
+    _check_schedule(schedule)
+    _check_args(w, x, valid, 1, heads, False)
+    return _fold_ws(w, x, valid, schedule)
+
+
+def fold_ring(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
+              nb: int = 1, heads: bool = False) -> torch.Tensor:
+    """P6/P7 on the design the redesign replaced: ``csrc/attn_fold_probe.
+    cu``'s N-128 (``heads``: N-48 per-head) Q/K/V GEMM at 64 nb-row tiles,
+    K3's SDPA and its output GEMM, after the row pass.  Card only; counts no
+    launch: kept for an A/B on the same card."""
+    _require(x.device.type == "cuda", "fold_ring runs on the card only")
+    return _fold_cuda(w, x, valid, nb, heads=heads)
+
+
 def _refuse_grad(name: str, w: AttnFoldWeights, x: torch.Tensor) -> None:
     fa._refuse_grad(name, (x, *fa._weight_tensors(w.fold)))
 
 
 def fold_lane_slices(w: AttnFoldWeights, x: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
-    """P7 foldB: post-LN x [B, T, 768] -> the module output, the Q/K/V GEMM
-    on N-128 tiles that straddle heads, 64-row tiles throughout
-    (``qkv_kernel<1, 128>``, ``out_proj_kernel<1, 128, 0>``); ``fold_plain``
+    """P7 foldB: post-LN x [B, T, 768] -> the module output, the products
+    on 64 x 256 tiles that straddle heads, the store splitting them per
+    head, on the ping-pong schedule in clusters of two with the weight
+    boxes multicast (``fold_qkv_pp_kernel<256, 2, false>``,
+    ``fold_out_pp_kernel<256, 2>``) around the packed walk; ``fold_plain``
     on the CPU."""
     _refuse_grad("fold_lane_slices", w, x)
     if x.device.type == "cpu":
         return fold_plain(w, x, valid)
-    out = _fold_cuda(w, x, valid, 1)
+    _check_args(w, x, valid, 1, False, False)
+    out = _fold_ws(w, x, valid, FOLDB_SCHEDULE)
     fold_lane_slices.launches += 1
     return out
 
@@ -340,23 +612,29 @@ def fold_lane_slices(w: AttnFoldWeights, x: torch.Tensor,
 def fold_heads(w: AttnFoldWeights, x: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     """P7 foldA: as ``fold_lane_slices``, with q and k from the per-head
-    blocks, one N-48 block a head (``qkv_head_kernel``)."""
+    blocks, on 64 x 192 tiles of four whole heads
+    (``fold_qkv_pp_kernel<192, 1, true>``, ``fold_out_pp_kernel<192,
+    1>``)."""
     _refuse_grad("fold_heads", w, x)
     if x.device.type == "cpu":
         return fold_plain(w, x, valid, heads=True)
-    out = _fold_cuda(w, x, valid, 1, heads=True)
+    _check_args(w, x, valid, 1, True, False)
+    out = _fold_ws(w, x, valid, FOLDA_SCHEDULE)
     fold_heads.launches += 1
     return out
 
 
 def fold_nb(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
             nb: int) -> torch.Tensor:
-    """P6: as ``fold_lane_slices`` at 64 nb-row tiles, nb warpgroups a
-    block (``qkv_kernel<nb, 128>``, ``out_proj_kernel<nb, 128, 0>``)."""
+    """P6: as ``fold_lane_slices`` with more rows a weight box: nb 1 on
+    foldB's schedule, nb 2 on cooperative 128 x 256 tiles
+    (``fold_qkv_coop_kernel<1>``, ``fold_out_coop_kernel<1>``), nb 4 the
+    same in clusters of two with the weight boxes multicast (``<2>``)."""
     _refuse_grad("fold_nb", w, x)
     if x.device.type == "cpu":
         return fold_plain(w, x, valid)
-    out = _fold_cuda(w, x, valid, nb)
+    _check_args(w, x, valid, nb, False, False)
+    out = _fold_ws(w, x, valid, NB_SCHEDULE[nb])
     fold_nb.launches += 1
     return out
 

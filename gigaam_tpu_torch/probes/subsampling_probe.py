@@ -335,8 +335,8 @@ def taps_ws(ee, eo, oe, oo, w, taps, variant: str = WS_VARIANT,
             persistent: bool = True, splits: int = None) -> torch.Tensor:
     """P1 on the card by the redesign: ``variant`` (``WS_VARIANTS``) on a
     persistent grid or one block a unit, the plan's K splits or
-    ``splits``.  Counts no launch: ``chip_smoke.py`` times the design's
-    steps and splits with it."""
+    ``splits``.  Counts no launch: ``chip_smoke.py`` holds the design's
+    steps and splits to the plain version with it."""
     _check_blocks(ee, eo, oe, oo, taps)
     _check_tensor("w", w, ee.device, torch.bfloat16, (9, D, D))
     out = torch.empty_like(ee)

@@ -1,9 +1,12 @@
-"""The work plan of the warp-specialised, persistent GEMM core
+"""The work plans of the warp-specialised, persistent GEMM cores
 (``csrc/conv_ws.cuh``): which (row tile, column tile, K range) each block
-of the persistent grid takes, and where K is split.  A pure function of the
-shapes and the card's slots, so that the CPU tests can check it; the
-kernels on the core (``csrc/subsampling_ws.cu``, P1 and P2, and
-``csrc/ffn_ws.cu``, P4) walk the units it returns.
+of the persistent grid takes, and where K is split.  Pure functions of the
+shapes and the card's slots, so that the CPU tests can check them.  The
+kernels on the cooperative core ``WsCore`` (``csrc/subsampling_ws.cu``, P1
+and P2, ``csrc/ffn_ws.cu``, P4, and P6's in ``csrc/attn_fold_ws.cu``) and
+on the ping-pong core ``PingPongCore`` (P7's and P6 nb 1's in
+``csrc/attn_fold_ws.cu``, [64, bn] tiles with K unsplit; unit i of a block
+runs on its consumer warpgroup i % 2) walk the units of ``ws_plan``.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 WS_BM, WS_BK = 128, 64     # rows of an output tile; K columns an item
+PP_BM = 64                 # rows of a ping-pong output tile: a consumer's
 # the model's constants: the card the plan is made for (H100 SXM), and a
 # unit's fixed cost in K items (the ring's fill, the epilogue)
 WS_PEAK_BF16, WS_PEAK_BYTES, WS_MODEL_SMS = 989e12, 3.35e12, 132
@@ -73,3 +77,4 @@ def ws_plan(row_tiles: int, col_tiles: int, k_items: int, slots: int,
     grid = (min(len(units), slots // cluster * cluster) if persistent
             else len(units))
     return units, grid, splits
+

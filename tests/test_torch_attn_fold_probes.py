@@ -706,16 +706,17 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.gpu
 def test_cuda_probe_and_k1_k2_share_the_templates_not_their_launch_state(cuda):
-    """P6 at nb 2 is K2's own pair of GEMM instances at a shape where K2
-    takes 128-row tiles (B 8, T 512), compiled again into the probe's
-    library: the two give the same bits, whichever launches first in the
-    process; P8 at nb 2 is K1 but for where the residual is rounded, at
-    most one bf16 step of the larger of the output and the module term
-    apart."""
+    """P6's kept kernels at nb 2 (``fold_ring``: the design P6 ran on
+    before its redesign) are K2's own pair of GEMM instances at a shape
+    where K2 takes 128-row tiles (B 8, T 512), compiled again into the
+    probe's library: the two give the same bits, whichever launches first
+    in the process; P8 at nb 2 is K1 but for where the residual is
+    rounded, at most one bf16 step of the larger of the output and the
+    module term apart."""
     w, x, valid = card_case(cuda, 8, 512, seed=3, lnres=True)
     k2 = lambda: fa.folded_rotary_attention(w.fold, x, w.cos, w.sin, valid,
                                             afp.H)
-    p6 = lambda: afp.fold_nb(w, x, valid, 2)
+    p6 = lambda: afp.fold_ring(w, x, valid, 2)
     first = k2()
     assert torch.equal(p6(), first) and torch.equal(k2(), first)
     k1 = fa.folded_rotary_attention_lnres(w.fold, x, w.cos, w.sin, valid,

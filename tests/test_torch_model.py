@@ -415,6 +415,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/csrc/conv_ws.cuh",
             "gigaam_tpu_torch/csrc/sdpa_groups_ws.cu",
             "gigaam_tpu_torch/csrc/ffn_ws.cu",
+            "gigaam_tpu_torch/csrc/attn_fold_ws.cu",
+            "gigaam_tpu_torch/csrc/sdpa_walk.cuh",
             "gigaam_tpu_torch/probes/ws_plan.py",
             "gigaam_tpu_torch/csrc/projection.cuh",
             "gigaam_tpu_torch/ops/lstm.py",
@@ -428,6 +430,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/train/pretrain.py",
             "gigaam_tpu_torch/tools/convert_checkpoint.py",
             "gigaam_tpu_torch/tools/convert_vad.py",
+            "gigaam_tpu_torch/tools/sass_compare.py",
             "gigaam_tpu_torch/ops/custom_ops.py",
             "gigaam_tpu_torch/export.py",
             "gigaam_tpu_torch/exported_infer.py",
