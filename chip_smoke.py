@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 2. build the hand-written kernels (``gigaam_tpu_torch/csrc``, one ``nvcc``
    per source, all started together) and print each kernel's registers,
    spills and shared memory (none of the ``wgmma`` kernels may spill, and
-   K3's and P1/P2's core instances keep their registers,
+   K3's, P1/P2's, P4's, P6/P7's and P9's instances keep their registers,
    ``KEPT_REGISTERS``);
 3. hold each kernel (K3, K2, K1, K5) against its plain PyTorch version at
    the main path's shapes in bf16, show that the check fails for a kernel
@@ -83,10 +83,15 @@ Phases, each fatal on failure:
    its bound, its plain version and both stock paths (the in-model
    baseline, and the lean path as the library call); P4 on its redesign
    (``csrc/ffn_ws.cu``: a row pass and two products on the warp-specialised
-   core) against the kept one-launch fold (held to the plain version too)
-   in turns by events, the kernel sum and graph replays, the redesign's
-   sum by kernel; then the probes' own ``main``, from zeroed launch counts,
-   printed as a ``fold_probes`` line in microseconds;
+   core) and P5 on its (``csrc/conv_fold_ws.cu``: P4's row pass, the GLU
+   and pointwise products on the ping-pong core, the depthwise pass between
+   them; each of its four stages held to its plain stage, a slip of W_vg's
+   value/gate interleave planted), each against the kept kernels (held to
+   the plain version too, compared bit for bit; P5's timed by events, the
+   kernel sum and graph replays, in turns at B 16, T 500 and B 128, T 768,
+   P4's no longer timed), the redesign's sum by kernel; then the probes'
+   own ``main``, from zeroed launch counts, printed as a ``fold_probes``
+   line in microseconds;
 10. the conv2d-subsampling probes (P1-P3,
    ``gigaam_tpu_torch/probes/subsampling_probe.py``): the tap products (P1,
    aligned and with copies) and the im2col product (P2, without and with the
@@ -118,12 +123,18 @@ Phases, each fatal on failure:
    the first and last 8 batch rows), three calls bit-equal, with planted
    faults at B 8, T 512 (RoPE sign flipped, key mask ignored, bq left
    unscaled, q zeroed, Wv swapped for Wk; foldA's head h reading head h+1's
-   block; P8's LayerNorm skipped and residual left out), each timed by CUDA
-   events, by the profile's kernel sum (and its four stages) and by graph
-   replays beside its bound, its plain version, the script's baseline, K2
-   (P8: K1) and the lean stock path; P8 against K1 and each against the
-   fp32 module; then the probes' own ``main``, from zeroed launch counts,
-   printed as an ``attn_fold_probes`` line in microseconds;
+   block; P8's LayerNorm skipped and residual left out; for the redesign
+   the packed o one head off and a 64-row tile stored into its partner's
+   rows), each timed by CUDA events, by the profile's kernel sum (and its
+   four stages) and by graph replays beside its bound, its plain version,
+   the script's baseline, K2 (P8: K1) and the lean stock path; every
+   variant on its redesign (``csrc/attn_fold_ws.cu``; P8's output product
+   with the fp32 residual in ``csrc/attn_lnres_ws.cu``, each of its stages
+   and its three output instances held to their plain stages) against the
+   kept kernels (``fold_ring``, ``lnres_ring``), in turns at B 16, T 500
+   and B 128, T 768; P8 against K1 and each against the fp32 module; then
+   the probes' own ``main``, from zeroed launch counts, printed as an
+   ``attn_fold_probes`` line in microseconds;
 12. CTC fine-tuning at full width, bf16 over fp32 master weights, batch 16 of
    10-20 s clips written as WAVs with a TSV manifest to a temporary
    directory: the CLI ``gigaam_tpu_torch.train.train.main`` for v3_ctc
@@ -377,16 +388,17 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
-# registers a thread of K3's kernel, of P1/P2's and P4's core instances and
-# of P9's walk as ptxas (CUDA 12.8) reports them for sm_90a, which the
-# kernels added beside them must leave as they are (no spills is checked
-# for every `wgmma` kernel)
+# registers a thread of K3's kernel, of P1/P2's, P4's and P6/P7's core
+# instances and of P9's walk as ptxas (CUDA 12.8) reports them for sm_90a,
+# which the kernels added beside them must leave as they are (no spills is
+# checked for every `wgmma` kernel)
 KEPT_REGISTERS = {"sdpa_kernel": 98, "ws_conv_kernel<256, 2, true>": 168,
                   "ws_conv_kernel<256, 1, true>": 168,
                   "ws_conv_kernel<128, 1, true>": 168,
                   "ws_conv_kernel<128, 1, false>": 168,
                   "sdpa_groups_ws_kernel": 168, "ffn_ws_kernel<1>": 168,
-                  "ffn_ws_kernel<2>": 168}
+                  "ffn_ws_kernel<2>": 168,
+                  **{k: 168 for k in cuda_lib.ATTN_FOLD_WS_KERNELS}}
 # the inference main path of K3: a clip past the encoder's fold bound
 # (_MAX_FOLD_T = 3000 frames at 25 a second)
 K3_SECONDS, K3_T = 125.0, 3125
@@ -1459,6 +1471,17 @@ FOLD_PROBES = {
     "P4": ("ffn", "ffn_fold", "benchmarks/pallas_ffn_fold_probe.py:69"),
     "P5": ("conv", "conv_fold", "benchmarks/pallas_conv_fold_probe.py:108"),
 }
+FOLD_PROBE_SOURCES = {"P4": "ffn_ws.cu", "P5": "conv_fold_ws.cu"}
+# the redesign against the kept kernels in turns at these shapes, once each
+# at the others; P4's kept fold is no longer timed (PERF.md section 6 holds
+# its readings), only held to the plain version
+FOLD_PROBE_AB_SHAPES = ((128, 768), (16, 500))
+FOLD_PROBE_RING_TIMED = ("P5",)
+# P5's stages by kernel name
+CONV_FOLD_STAGES = (("row pass", "ffn_rows_kernel"),
+                    ("GLU product", "conv_fold_ws_kernel<1>"),
+                    ("depthwise", "conv_dw_kernel"),
+                    ("W2 product", "conv_fold_ws_kernel<2>"))
 
 
 def fold_probe_bound(probe: str, b: int, t: int):
@@ -1525,6 +1548,9 @@ def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
         [torch.zeros_like(w.dw[:1]), w.dw[:-1]]).contiguous())
     no_dw_bias = dataclasses.replace(w, bnb=fp.bn_affine(
         {**p32, "depthwise_conv": {"w": p32["depthwise_conv"]["w"]}})[1])
+    # a slip of the redesign's interleave: each tile's value and gate
+    # blocks in each other's place
+    vg_swapped = dataclasses.replace(w, w_vg=fp.interleave_vg(w.wg, w.wv))
     return (lambda: fp.conv_fold(w, x, valid),
             lambda: fp.conv_fold_plain(w, x, valid),
             lambda: fp.conv_baseline(ln_p, p16, x, valid),
@@ -1534,7 +1560,47 @@ def fold_probe_calls(fp, probe: str, b: int, t: int, dev):
              ("the depthwise window shifted by one tap",
               lambda: fp.conv_fold(shifted, x, valid)),
              ("the depthwise bias left out of the BatchNorm fold",
-              lambda: fp.conv_fold(no_dw_bias, x, valid))), x, valid, None)
+              lambda: fp.conv_fold(no_dw_bias, x, valid)),
+             ("the GLU's value and gate blocks swapped in W_vg",
+              lambda: fp.conv_fold(vg_swapped, x, valid))), x, valid,
+            lambda: fp.conv_fold_ring(w, x, valid))
+
+
+def conv_stage_checks(fp, label: str, x, valid) -> None:
+    """P5's four stages, each on the card stage's input, held to its plain
+    stage (the GLU's output also zero on padded frames), each two calls
+    bit-equal."""
+    from gigaam_tpu_torch.weights import sub_block_from_jax
+
+    ln_np, p_np, _, _ = fp.conv_inputs(1, 1)
+    dev = x.device
+    w = fp.prepare_conv(fp.tree_to(sub_block_from_jax(ln_np), dev),
+                        fp.tree_to(sub_block_from_jax(p_np), dev),
+                        torch.bfloat16)
+    xn = fp.conv_rows_ws(w, x)
+    y = fp.glu_product_ws(w, xn, valid)
+    c = fp.depthwise_ws(w, y)
+    stages = (("row pass", xn, lambda: fp.conv_rows_ws(w, x),
+               fp.conv_rows_plain(w, x), None),
+              ("GLU product", y, lambda: fp.glu_product_ws(w, xn, valid),
+               fp.glu_product_plain(w, xn, valid), None),
+              ("depthwise", c, lambda: fp.depthwise_ws(w, y),
+               fp.depthwise_plain(w, y), None),
+              ("W2 product", fp.conv_residual_product_ws(w, c, x),
+               lambda: fp.conv_residual_product_ws(w, c, x),
+               fp.conv_residual_product_plain(w, c, x), x))
+    errs = {}
+    for name, got, again, ref, residual in stages:
+        errs[name], _ = check_kernel(f"{label} {name} stage", got, ref,
+                                     valid, 1, (), residual=residual)
+        if not torch.equal(again(), got):
+            raise AssertionError(f"{label} {name} stage: two calls differ")
+    if bool(y[~valid].any()):
+        raise AssertionError(f"{label}: the GLU stage left padded frames "
+                             f"nonzero")
+    print(f"  {label} stages against their plain stages, max_abs_err "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+          + "; each two calls bit-equal", flush=True)
 
 
 def fold_probe_phase(dev):
@@ -1542,11 +1608,13 @@ def fold_probe_phase(dev):
     (the planted faults at the first, against the limit on the sub-block's
     term, out - x), two calls bit-equal, each timed by CUDA events and by
     the profile's kernel sum beside its bound, its plain version, the
-    in-model baseline and the lean path; P4's redesign also against the
-    kept one-launch fold, held to the plain version too and timed in turns
-    by events, the kernel sum and graph replays; then the probes' own
-    ``main``, from zeroed launch counts.  Returns ({id: JSON row}, {wrapper:
-    launches in ``main``})."""
+    in-model baseline and the lean path; P5's four stages against their
+    plain stages (``conv_stage_checks``); each redesign against the kernels
+    it replaced (``fold_ring_ab``: held to the plain version too; P5's
+    timed by events, the kernel sum and graph replays, in turns at
+    FOLD_PROBE_AB_SHAPES); then the probes' own ``main``, from zeroed
+    launch counts.  Returns ({id: JSON row}, {wrapper: launches in
+    ``main``})."""
     from gigaam_tpu_torch.probes import fold_probes as fp
 
     readings = defaultdict(dict)
@@ -1584,10 +1652,13 @@ def fold_probe_phase(dev):
                 ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lean_ms, baseline_ms=base_ms,
                 max_abs_err=err)
-            if ring is not None:
-                readings[pid][(b, t)].update(fold_ring_ab(
-                    f"{pid} {wrapper} B={b} T={t}", kernel, ring, got,
-                    plain(), x, valid, bms, lean))
+            if pid == "P5":
+                conv_stage_checks(fp, f"{pid} B={b} T={t}", x, valid)
+            readings[pid][(b, t)].update(fold_ring_ab(
+                f"{pid} {wrapper} B={b} T={t}", kernel, ring, got, plain(),
+                x, valid, bms, lean, (b, t) in FOLD_PROBE_AB_SHAPES,
+                CONV_FOLD_STAGES if pid == "P5" else None,
+                timed=pid in FOLD_PROBE_RING_TIMED))
             del kernel, plain, base, lean, faults, got, x, ring
         torch.cuda.empty_cache()
 
@@ -1610,45 +1681,67 @@ def fold_probe_phase(dev):
 
 
 def fold_ring_ab(label: str, kernel, ring, got, ref, x, valid, bms: float,
-                 lean) -> dict:
-    """P4's redesign against the kept one-launch fold at one shape: the
-    fold held to the plain version, and both timed in turns (redesign,
-    fold, fold, redesign) by CUDA events, the profile's kernel sum and
-    graph replays, the redesign's sum split by kernel (row pass, the two
-    products, a reduction where K is split)."""
-    old_err, _ = check_kernel(f"{label} (the one-launch fold)", ring(), ref,
+                 lean, turns: bool, stages=None, timed: bool = True) -> dict:
+    """A fold's redesign against the kernels it replaced (P4's one-launch
+    fold, P5's two kernels) at one shape: the kept kernels held to the
+    plain version and compared with the redesign bit for bit; with
+    ``timed`` both timed by CUDA events, the profile's kernel sum and graph
+    replays, in turns (redesign, kept, kept, redesign) with ``turns``, else
+    once each; without it the redesign alone, once; the redesign's sum
+    split by kernel (P4: row pass, the two products, a reduction where K is
+    split; P5 also by ``stages``)."""
+    old = ring()
+    old_err, _ = check_kernel(f"{label} (the kept kernels)", old, ref,
                               valid, 1, (), residual=x)
-    times, split, old_times, _ = ab_times(kernel, ring, got)
+    same = torch.equal(old, got)
+    if timed and turns:
+        times, split, old_times, _ = ab_times(kernel, ring, got)
+    elif timed:
+        (times, split), (old_times, _) = (three_times(kernel, got),
+                                          three_times(ring, got))
+    else:
+        (times, split), old_times = three_times(kernel, got), {}
     old_times["max_abs_err"] = old_err
     lean_ms = sum(device_ms(lean).values())
-    print(f"  {label} A/B: the one-launch fold {times_text(old_times)}; the "
-          f"redesign {times_text(times)}; redesign / fold "
-          f"{times['sum_ms'] / old_times['sum_ms']:.3f} card, "
-          f"{times['graph_ms'] / old_times['graph_ms']:.3f} graph; bound "
-          f"{bms:.4f} ms ({bms / times['sum_ms']:.3f} of it on the card), "
-          f"lean {lean_ms:.4f} ms on the card; the redesign by kernel "
+    kept = (f"the kept kernels {times_text(old_times)}; " if timed
+            else "the kept kernels untimed; ")
+    ratio = (f"redesign / kept {times['sum_ms'] / old_times['sum_ms']:.3f} "
+             f"card, {times['graph_ms'] / old_times['graph_ms']:.3f} graph; "
+             if timed else "")
+    print(f"  {label} A/B{' in turns' if timed and turns else ''}: " + kept
+          + f"the redesign {times_text(times)}; " + ratio
+          + f"bit-equal to the kept kernels: {same}; bound {bms:.4f} ms "
+          f"({bms / times['sum_ms']:.3f} of it on the card), lean "
+          f"{lean_ms:.4f} ms on the card; the redesign by kernel "
           + json.dumps([[n[:60], round(v, 4)] for n, v in split.items()]),
           flush=True)
-    return dict(graph_ms=times["graph_ms"], ab=times, ring=old_times,
-                stages={n[:60]: v for n, v in split.items()},
-                library_sum_ms=lean_ms)
+    out = dict(graph_ms=times["graph_ms"], ab=times, ring=old_times,
+               stages={n[:60]: v for n, v in split.items()},
+               library_sum_ms=lean_ms, bit_equal_to_kept=same,
+               in_turns=timed and turns)
+    if stages is not None:
+        out["stages_ms"] = stage_split(split, stages)
+        print(f"  {label} the redesign by stage "
+              + json.dumps({k: round(v, 4)
+                            for k, v in out["stages_ms"].items()}),
+              flush=True)
+    return out
 
 
 def fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
-    """The kernels line's rows of P4 (the redesign, the kept fold under
-    ``ring``) and P5."""
+    """The kernels line's rows of P4 and P5, each redesigned (the kept
+    kernels' readings under ``ring``)."""
     return [{
         "name": f"{pid} {wrapper}", "route": "cuda",
-        "source": "gigaam_tpu_torch/csrc/" + (
-            "ffn_ws.cu" if pid == "P4" else "fold_probes.cu"),
-        "replaces": repl, "launches": launches[wrapper], **{
+        "source": "gigaam_tpu_torch/csrc/" + FOLD_PROBE_SOURCES[pid],
+        "status": "redesigned", "replaces": repl,
+        "launches": launches[wrapper], **{
             key: rows[pid][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "sum_ms", "baseline_ms", "fold_us", "shape",
-                "also")},
-        **({"status": "redesigned", **{key: rows[pid][key] for key in (
-            "graph_ms", "ab", "ring", "stages", "library_sum_ms")}}
-           if pid == "P4" else {})}
+                "also", "graph_ms", "ab", "ring", "stages",
+                "library_sum_ms")},
+        **({"stages_ms": rows[pid]["stages_ms"]} if pid == "P5" else {})}
         for pid, (_, wrapper, repl) in FOLD_PROBES.items()]
 
 
@@ -2103,10 +2196,13 @@ ATTN_FOLD_WS_STAGES = (("row pass", "ln_rope_kernel"),
                        ("QKV GEMM", "fold_qkv_"),
                        ("SDPA", "sdpa_packed_ws_kernel"),
                        ("output GEMM", "fold_out_"))
-# P6 and P7 run on their redesign (csrc/attn_fold_ws.cu), P8 on the kernels
-# of csrc/attn_fold_probe.cu; the redesign against those kept kernels at
-# every shape, and again in turns at these
-ATTN_FOLD_REDESIGNED = ("P6 nb2", "P6 nb4", "P7 foldA", "P7 foldB")
+# P8's: the same with its own output product (csrc/attn_lnres_ws.cu)
+ATTN_LNRES_WS_STAGES = ATTN_FOLD_WS_STAGES[:3] + (("output GEMM",
+                                                   "lnres_out_"),)
+# every variant runs on its redesign (csrc/attn_fold_ws.cu, and for P8
+# csrc/attn_lnres_ws.cu); the redesign against the kept kernels of
+# csrc/attn_fold_probe.cu at every shape, in turns at these
+ATTN_FOLD_REDESIGNED = ("P6 nb2", "P6 nb4", "P7 foldA", "P7 foldB", "P8")
 ATTN_FOLD_AB_SHAPES = ((16, 500), (128, 768))
 # at B 128 the plain version's fp32 scores alone would be 4.8 GB: the
 # kernel runs on the whole batch and its first and last rows are held to
@@ -2139,6 +2235,50 @@ def attn_fold_schedule(afp, label: str, nb: int) -> int:
     if label == "P7 foldA":
         return afp.FOLDA_SCHEDULE
     return afp.FOLDB_SCHEDULE if label == "P7 foldB" else afp.NB_SCHEDULE[nb]
+
+
+def ws_stages(label: str):
+    return ATTN_LNRES_WS_STAGES if label == "P8" else ATTN_FOLD_WS_STAGES
+
+
+def lnres_stage_checks(afp, w, x, valid, rows, b: int, t: int) -> None:
+    """P8's stages, each on the card stage's input, held to its plain
+    stage: the row pass with the LayerNorm (xn, xr), the Q/K/V product of
+    its schedule (V on xn), the packed walk (on the compared rows) and the
+    output product with the fp32 residual at each of P8's schedules (its
+    three template instances), each two calls bit-equal."""
+    f = w.fold
+    label = f"P8 B={b} T={t}"
+    sched = afp.NB_SCHEDULE[ATTN_FOLD_LNRES_NB[(b, t)]]
+    xn, xr = fa.ln_rope(x, w.cos, w.sin, N_HEADS, f.ln_scale, f.ln_bias)
+    xn_p, xr_p = fa.ln_rope_plain(x, w.cos, w.sin, N_HEADS, f.ln_scale,
+                                  f.ln_bias)
+    qkv = afp.qkv_ws(w, xr, xn, sched)
+    o = afp.sdpa_packed_ws(*qkv, valid)
+    checks = [("row pass xn", xn, xn_p, None),
+              ("row pass xr", xr, xr_p, None)]
+    checks += [(f"Q/K/V {n}", a.transpose(1, 2), r.transpose(1, 2), None)
+               for n, a, r in zip("qkv", qkv, afp.qkv_plain(w, xr, xn))]
+    checks.append(("SDPA", o[rows], afp.sdpa_packed_plain(
+        *(a[rows] for a in qkv), valid[rows]), None))
+    again = [afp.qkv_ws(w, xr, xn, sched), afp.sdpa_packed_ws(*qkv, valid)]
+    same = (all(torch.equal(a, g) for a, g in zip(again[0], qkv))
+            and torch.equal(again[1], o))
+    out_ref = afp.out_residual_plain(w, o, x)
+    for sc in afp.LNRES_SCHEDULES:
+        got = afp.out_residual_ws(w, o, x, sc)
+        same = same and torch.equal(afp.out_residual_ws(w, o, x, sc), got)
+        checks.append((f"output, schedule {sc}", got, out_ref, x))
+    errs = {}
+    for name, got, ref, residual in checks:
+        vv = valid[rows] if name == "SDPA" else valid
+        errs[name], _ = check_kernel(f"{label} {name} stage", got, ref, vv, 1,
+                                     (), residual=residual)
+    if not same:
+        raise AssertionError(f"{label}: two calls of a stage differ")
+    print(f"  {label} stages against their plain stages, max_abs_err "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+          + "; each two calls bit-equal", flush=True)
 
 
 def stage_split(split: dict, stages) -> dict:
@@ -2174,6 +2314,12 @@ def attn_fold_faults(afp, label: str, w, x, valid, nb: int):
         sched = attn_fold_schedule(afp, label, nb)
 
         def o_one_head_off():
+            if label == "P8":
+                xn, xr = fa.ln_rope(x, w.cos, w.sin, N_HEADS, f.ln_scale,
+                                    f.ln_bias)
+                o = afp.sdpa_packed_ws(*afp.qkv_ws(w, xr, xn, sched), valid)
+                return afp.out_residual_ws(
+                    w, o.roll(D_HEAD, -1).contiguous(), x, sched)
             xr = fa.ln_rope(x, w.cos, w.sin, N_HEADS)[1]
             o = afp.sdpa_packed_ws(*afp.qkv_ws(w, xr, x, sched), valid)
             return afp.out_ws(w, o.roll(D_HEAD, -1).contiguous(), sched)
@@ -2205,15 +2351,25 @@ def timed(fn, x) -> dict:
 
 def attn_fold_ring_ab(afp, label: str, w, x, valid, nb: int, rows, ref,
                       kernel, got, times: dict, b: int, t: int) -> dict:
-    """A redesigned variant against the kernels it replaced
-    (``fold_ring``) at one shape: those held to the plain version too and
-    timed (events, the profile's sum with its four stages, graph replays);
-    at ATTN_FOLD_AB_SHAPES the two timed in turns instead (redesign, kept,
+    """A redesigned variant against the kernels it replaced (``fold_ring``,
+    P8's ``lnres_ring``) at one shape: those held to the plain version too,
+    compared with the redesign bit for bit and timed (events, the
+    profile's sum with its four stages, graph replays); at
+    ATTN_FOLD_AB_SHAPES the two timed in turns instead (redesign, kept,
     kept, redesign; the mean of each pair)."""
     name = f"{label} B={b} T={t}"
-    ring = lambda: afp.fold_ring(w, x, valid, nb, heads=label == "P7 foldA")
-    err, _ = check_kernel(f"{name} (the kept kernels)", ring()[rows], ref,
-                          valid[rows], 1, ())
+    lnres = label == "P8"
+    if lnres:
+        ring = lambda: afp.lnres_ring(w, x, valid, nb)
+    else:
+        ring = lambda: afp.fold_ring(w, x, valid, nb,
+                                     heads=label == "P7 foldA")
+    old_out = ring()
+    err, _ = check_kernel(f"{name} (the kept kernels)", old_out[rows], ref,
+                          valid[rows], 1, (),
+                          residual=x[rows] if lnres else None)
+    same = torch.equal(old_out, got)
+    del old_out
     turns = (b, t) in ATTN_FOLD_AB_SHAPES
     if turns:
         k_t, k_split, rt, r_split = ab_times(kernel, ring, got)
@@ -2222,9 +2378,11 @@ def attn_fold_ring_ab(afp, label: str, w, x, valid, nb: int, rows, ref,
         r_split = rt["split"]
     old = dict(max_abs_err=err, ms=rt["ms"], sum_ms=rt["sum_ms"],
                graph_ms=rt["graph_ms"],
-               stages_ms=stage_split(r_split, ATTN_FOLD_STAGES))
-    new = stage_split(times["split"], ATTN_FOLD_WS_STAGES)
-    print(f"  {name} A/B: the kept kernels {times_text(rt)} ("
+               stages_ms=stage_split(r_split, ATTN_FOLD_STAGES),
+               bit_equal_to_redesign=same)
+    new = stage_split(times["split"], ws_stages(label))
+    print(f"  {name} A/B (bit-equal: {same}): the kept kernels "
+          f"{times_text(rt)} ("
           + ", ".join(f"{k} {v:.4f}" for k, v in old["stages_ms"].items())
           + f"); the redesign {times_text(times)} ("
           + ", ".join(f"{k} {v:.4f}" for k, v in new.items())
@@ -2238,7 +2396,7 @@ def attn_fold_ring_ab(afp, label: str, w, x, valid, nb: int, rows, ref,
               f"redesign / kept {k_t['sum_ms'] / rt['sum_ms']:.3f} card, "
               f"{k_t['graph_ms'] / rt['graph_ms']:.3f} graph, "
               f"{k_t['ms'] / rt['ms']:.3f} events; the redesign by stage "
-              + json.dumps(stage_split(k_split, ATTN_FOLD_WS_STAGES)),
+              + json.dumps(stage_split(k_split, ws_stages(label))),
               flush=True)
     return old
 
@@ -2249,9 +2407,11 @@ def attn_fold_probe_phase(dev):
     three calls bit-equal, the planted faults at ATTN_FOLD_FAULTS; each
     timed (events, profile sum with its four stages, graph replays) beside
     its bound, its plain version, the script's baseline, K2 (P8: K1) and
-    the lean stock path; P6/P7's redesign against the kernels it replaced
-    (``attn_fold_ring_ab``); P8 against K1 and both against the fp32
-    module; then the probes' own ``main`` from zeroed launch counts.
+    the lean stock path; P8's stages and its three output instances
+    against their plain stages (``lnres_stage_checks``); each redesign
+    against the kernels it replaced (``attn_fold_ring_ab``); P8 against K1
+    and both against the fp32 module; then the probes' own ``main`` from
+    zeroed launch counts.
     Returns ({row name: JSON row}, {wrapper: launches in ``main``})."""
     from gigaam_tpu_torch.probes import attn_fold_probes as afp
 
@@ -2319,9 +2479,11 @@ def attn_fold_probe_phase(dev):
                               f"kernel (sum {st['sum_ms']:.4f} ms): "
                               + json.dumps([[k[:60], round(v, 4)]
                                             for k, v in top]), flush=True)
+            if lnres:
+                lnres_stage_checks(afp, w, x, valid, rows, b, t)
             times = timed(kernel, x)
             redesigned = label in ATTN_FOLD_REDESIGNED
-            stages = stage_split(times["split"], ATTN_FOLD_WS_STAGES
+            stages = stage_split(times["split"], ws_stages(label)
                                  if redesigned else ATTN_FOLD_STAGES)
             plain_ms = time_ms(lambda: attn_fold_plain(afp, label, w, xs, vs),
                                iters=3, warmup=1)
@@ -2430,13 +2592,15 @@ def p8_against_k1(afp, attn, ln, w, x, valid, got, rows, b: int, t: int):
 
 
 def attn_fold_probe_kernel_rows(rows: dict, launches: dict) -> list:
-    """The kernels line's rows of P6, P7 (foldA and foldB), redesigned
-    (the kept kernels' readings under ``kept``), and P8."""
+    """The kernels line's rows of P6, P7 (foldA and foldB) and P8, each
+    redesigned (the kept kernels' readings under ``kept``; P8's source is
+    its output product's, its other stages are P6's)."""
     names = {"P6 nb2": "P6", "P7 foldA": "P7 foldA", "P7 foldB": "P7 foldB",
              "P8": "P8"}
     return [{
         "name": f"{names[label]} {ATTN_FOLD[label][0]}", "route": "cuda",
-        "source": ("gigaam_tpu_torch/csrc/attn_fold_ws.cu"
+        "source": ("gigaam_tpu_torch/csrc/attn_lnres_ws.cu" if label == "P8"
+                   else "gigaam_tpu_torch/csrc/attn_fold_ws.cu"
                    if label in ATTN_FOLD_REDESIGNED
                    else "gigaam_tpu_torch/csrc/attn_fold_probe.cu"),
         "status": ("redesigned" if label in ATTN_FOLD_REDESIGNED
@@ -5840,10 +6004,14 @@ def build_kernels() -> dict:
         "out_proj_kernel<2, 128, 0> (attn_fold_probe)",
         "out_proj_kernel<4, 128, 0>", "out_proj_kernel<1, 128, 2>",
         "out_proj_kernel<2, 128, 2>", "out_proj_kernel<4, 128, 2>")
-    # P6/P7's redesign: its products and the walk's packed instance
-    wgmma_kernels += cuda_lib.ATTN_FOLD_WS_KERNELS
+    # P6/P7's redesign: its products and the walk's packed instance; P8's
+    # output products; P5's redesign's products
+    wgmma_kernels += (cuda_lib.ATTN_FOLD_WS_KERNELS
+                      + cuda_lib.ATTN_LNRES_WS_KERNELS
+                      + cuda_lib.CONV_FOLD_WS_KERNELS[:2])
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
-                                 "ln_rope_kernel<false>"} <= set(resources):
+                                 "ln_rope_kernel<false>",
+                                 "conv_dw_kernel"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
     spilled = [k for k in wgmma_kernels if resources[k]["spill_bytes"]]
     if spilled:

@@ -11,6 +11,9 @@
 //       K1's function with the residual added to the fp32 accumulator.
 // None is on a path of the model: they measure how the projections around
 // the SDPA are best tiled, and what K1's rounding of the residual costs.
+// All three now run on their redesign (attn_fold_ws.cu, and for P8's
+// output product attn_lnres_ws.cu); these kernels are kept for an A/B on
+// the same card.
 //
 // The Pallas bodies keep four 768x768 weights resident in a 100 MB VMEM; an
 // SM has 227 KB, so each probe is, like K1/K2, four launches: the row pass

@@ -59,31 +59,12 @@
 //     attention.cu's bits.  Its instance is here, not beside P9's: a
 //     second kernel in P9's translation unit changed P9's SASS.
 
-#include "conv_ws.cuh"
+#include "attn_fold_ws.cuh"
 #include "sdpa_walk.cuh"
 
 using namespace gigaam;
 
 namespace {
-
-constexpr int kModel = 768;          // the module's width: 16 heads of 48
-constexpr int kHeads = kModel / kD;
-constexpr int kBK = 64;
-
-// the schedules, as the wrappers (probes/attn_fold_probes.py) name them
-enum Schedule {
-  kLaneSlices = 0,     // ping-pong, 64 x 256 tiles in clusters of two, B
-                       // multicast (P7 foldB, P6 nb 1)
-  kHeadTiles = 1,      // ping-pong, 64 x 192 tiles, per-head Q/K blocks (foldA)
-  kCoop = 2,           // WsCore, 128 x 256 tiles (P6 nb 2)
-  kCoopCluster = 3,    // the same in clusters of two, B multicast (P6 nb 4)
-  kSchedules = 4
-};
-
-template <int kBN, int kCluster>
-using PingPong = PingPongCore<kBN, kBN == 256 ? 5 : 6, kCluster>;
-template <int kCluster>
-using Coop = WsCore<256, kCluster, true>;
 
 struct QkvMaps {
   CUtensorMap a[2];    // xr (the q/k columns), x (the v columns): [M, 768]
@@ -91,41 +72,9 @@ struct QkvMaps {
                        // per-head blocks Wq, Wk [768 (16 x 48), 768] read K-major
 };
 
-struct OutMaps {
-  CUtensorMap a;       // o packed [M, 768]
-  CUtensorMap b;       // Wo [768, 768] [in, out]
-};
-
-struct FoldArgs {
-  const int4* units;   // the plan (conv_ws.cuh's units), n_units of them
-  const float* bias[3];   // bq, bk, bv (the output product: bo)
-  bf16* out[3];        // q, k, v [B, 16, T, 48] (the output product: [M, 768])
-  int n_units, m, t;
-};
-
-// This block's share of the MN-major B tile [64 K rows, kBN columns] of
-// weight columns c0 .. at K item `item`: kBN / 64 boxes of [64, 64], or in
-// a cluster the K rows 64 / kCluster rank .. of each box, multicast to the
-// cluster (each part keeps the box's 128-byte swizzle: the parts start on
-// 1024-byte boundaries)
-template <int kBN, int kCluster>
-__device__ __forceinline__ void load_b_mn(uint32_t sb, const CUtensorMap* map,
-                                          int c0, int item, uint32_t bar,
-                                          uint32_t rank) {
-  constexpr int kRows = kBK / kCluster;
-#pragma unroll
-  for (int j = 0; j < kBN / 64; ++j) {
-    if constexpr (kCluster == 1)
-      tma_load_2d(sb + j * kBK * 128, map, c0 + 64 * j, item * kBK, bar);
-    else
-      tma_load_2d_multicast(sb + j * kBK * 128 + rank * kRows * 128, map,
-                            c0 + 64 * j, item * kBK + rank * kRows, bar,
-                            (1 << kCluster) - 1);
-  }
-}
-
-// The same of a K-major B tile [kBN rows of N, 64 K columns] (a weight laid
-// out [N, K]): one box, or in a cluster its rows kBN / kCluster rank ..
+// As conv_ws.cuh's load_b_mn, of a K-major B tile [kBN rows of N, 64 K
+// columns] (a weight laid out [N, K]): one box, or in a cluster its rows
+// kBN / kCluster rank ..
 template <int kBN, int kCluster>
 __device__ __forceinline__ void load_b_k(uint32_t sb, const CUtensorMap* map,
                                          int c0, int item, uint32_t bar,
@@ -137,24 +86,6 @@ __device__ __forceinline__ void load_b_k(uint32_t sb, const CUtensorMap* map,
   else
     tma_load_2d_multicast(sb + rank * kRows * 128, map, item * kBK,
                           c0 + rank * kRows, bar, (1 << kCluster) - 1);
-}
-
-// WsCore's share of B: whole boxes, rank kBoxes / kCluster .. of them
-template <int kCluster>
-__device__ __forceinline__ void load_b_coop(uint32_t sb,
-                                            const CUtensorMap* map, int c0,
-                                            int item, uint32_t bar,
-                                            uint32_t rank) {
-  constexpr int kMine = Coop<kCluster>::kBoxes / kCluster;
-#pragma unroll
-  for (int jj = 0; jj < kMine; ++jj) {
-    const int j = rank * kMine + jj;
-    if constexpr (kCluster == 1)
-      tma_load_2d(sb + j * kBK * 128, map, c0 + 64 * j, item * kBK, bar);
-    else
-      tma_load_2d_multicast(sb + j * kBK * 128, map, c0 + 64 * j, item * kBK,
-                            bar, 3);
-  }
 }
 
 // A warpgroup's [64, kBN] accumulator of rows r0 .. and Q/K/V columns n0 ..
@@ -201,22 +132,6 @@ __device__ __forceinline__ void store_out(const float (&acc)[kBN / 2],
       *reinterpret_cast<uint4*>(out + (size_t)m * kModel + n0 + chunk * 8) =
           val;
   });
-}
-
-// the products of one K item of a ping-pong unit: B MN-major, or K-major
-// (the per-head Q/K blocks)
-template <int kBN, int kCluster, bool kKMajor>
-__device__ __forceinline__ void mma_item(float (&acc)[kBN / 2], uint32_t sa,
-                                         uint32_t sb) {
-  using Core = PingPong<kBN, kCluster>;
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    if constexpr (kKMajor)
-      wgmma_ss_tk<kBN>(acc, Core::a_desc(sa, kk),
-                       swizzled_desc(sb + 32 * kk, 16, 1024, kSwizzle128));
-    else
-      wgmma_ss_tb<kBN>(acc, Core::a_desc(sa, kk), weight_desc<kBK>(sb, kk));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -363,34 +278,6 @@ sdpa_packed_ws_kernel(const __grid_constant__ GroupsMaps maps,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-template <typename Core, int kCluster, auto kKernel, typename Maps>
-cudaError_t launch_ws(int grid, cudaStream_t s, const Maps& maps,
-                      const FoldArgs& a) {
-  cudaError_t err = ws_opt_in<Core, kKernel>();
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = ws_launch_config<Core, kCluster>(grid, s,
-                                                                  &attr);
-  err = cudaLaunchKernelEx(&cfg, kKernel, maps, a);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// the rows of an A box and of a B box (MN-major: K rows; K-major: N rows)
-// of each schedule
-int a_box_rows(int schedule) {
-  return schedule == kCoop || schedule == kCoopCluster ? 128 : 64;
-}
-
-int cluster_of(int schedule) {
-  return schedule == kCoopCluster || schedule == kLaneSlices ? 2 : 1;
-}
-
-int mn_box_rows(int schedule) {
-  // WsCore multicasts whole boxes; the ping-pong cores halves of each
-  const bool coop = schedule == kCoop || schedule == kCoopCluster;
-  return coop ? kBK : kBK / cluster_of(schedule);
-}
 
 template <typename Maps>
 cudaError_t launch_qkv(int schedule, int grid, cudaStream_t s,

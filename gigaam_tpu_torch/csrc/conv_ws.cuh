@@ -700,6 +700,27 @@ struct PingPongCore {
   }
 };
 
+// A ping-pong block's share of the MN-major B tile [64 K rows, kBN columns]
+// of weight columns c0 .. at K item `item`: kBN / 64 boxes of [64, 64], or
+// in a cluster the K rows 64 / kCluster rank .. of each box, multicast to
+// the cluster (each part keeps the box's 128-byte swizzle: the parts start
+// on 1024-byte boundaries)
+template <int kBN, int kCluster>
+__device__ __forceinline__ void load_b_mn(uint32_t sb, const CUtensorMap* map,
+                                          int c0, int item, uint32_t bar,
+                                          uint32_t rank) {
+  constexpr int kBK = 64, kRows = kBK / kCluster;
+#pragma unroll
+  for (int j = 0; j < kBN / 64; ++j) {
+    if constexpr (kCluster == 1)
+      tma_load_2d(sb + j * kBK * 128, map, c0 + 64 * j, item * kBK, bar);
+    else
+      tma_load_2d_multicast(sb + j * kBK * 128 + rank * kRows * 128, map,
+                            c0 + 64 * j, item * kBK + rank * kRows, bar,
+                            (1 << kCluster) - 1);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@
 // _ffn_lnres_kernel) and benchmarks/pallas_conv_fold_probe.py::
 // conv_lnres_folded (P5, the body _conv_lnres_kernel).  Neither is on a path
 // of the model: they measure whether folding a Conformer sub-block beats the
-// stock composition on this card.
+// stock composition on this card.  Both now run on their redesign (ffn_ws.cu,
+// conv_fold_ws.cu); these kernels are kept for an A/B on the same card.
 //
 // What each kernel computes, for the rows m of x [M, 768] bf16 (M = B*T):
 //   ffn_fold_kernel (P4)   xn = bf16(LN(x))                 (fp32, eps 1e-5)

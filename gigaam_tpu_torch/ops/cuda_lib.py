@@ -63,6 +63,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_fold_ws_slots": [_I, _P],
         "gigaam_attn_fold_ws_occupancy": [_P],
     },
+    "attn_lnres_ws": {
+        "gigaam_lnres_ws_out": [_P] * 6 + [_I] * 4 + [_P],
+        "gigaam_attn_lnres_ws_occupancy": [_P],
+    },
+    "conv_fold_ws": {
+        "gigaam_conv_ws_product": [_P] * 8 + [_I] * 4 + [_P],
+        "gigaam_conv_ws_depthwise": [_P] * 5 + [_I] * 2 + [_P],
+        "gigaam_conv_ws_slots": [_P],
+        "gigaam_conv_fold_ws_occupancy": [_P],
+    },
     "fold_probes": {
         "gigaam_ffn_fold": [_P] * 8 + [_I, _P],
         "gigaam_conv_fold": [_P] * 15 + [_I] * 2 + [_P],
@@ -105,6 +115,15 @@ ATTN_FOLD_WS_KERNELS = (
     "fold_out_pp_kernel<256, 2>", "fold_out_pp_kernel<192, 1>",
     "fold_out_coop_kernel<1>", "fold_out_coop_kernel<2>",
     "sdpa_packed_ws_kernel")
+# P8's output product (csrc/attn_lnres_ws.cu: the fp32-residual epilogue on
+# P6's nb 1, 2 and 4 schedules) and P5's redesign (csrc/conv_fold_ws.cu: the
+# GLU and residual products, the depthwise pass), in the order of their
+# occupancy entries
+ATTN_LNRES_WS_KERNELS = ("lnres_out_pp_kernel<256, 2>",
+                         "lnres_out_coop_kernel<1>",
+                         "lnres_out_coop_kernel<2>")
+CONV_FOLD_WS_KERNELS = ("conv_fold_ws_kernel<1>", "conv_fold_ws_kernel<2>",
+                        "conv_dw_kernel")
 
 
 def _nvcc() -> str:
@@ -229,7 +248,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
     added in bf16, 2 in fp32), the fold probes' kernels (and P4's
     redesign: its two products, 1 the SiLU epilogue, 2 the residual one),
     the head-group walk's redesign (P9), the attention-fold redesign's
-    kernels (P6, P7), the subsampling
+    kernels (P6, P7, and P8's output product), P5's redesign, the
+    subsampling
     probes' products (the TMA ring's and the warp-specialised redesign's
     four steps) and the attention-fold probes' GEMMs, named as
     ``kernel_resources`` names them):
@@ -252,6 +272,10 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
              ("sdpa_groups_ws_kernel",)),
             ("attn_fold_ws", "gigaam_attn_fold_ws_occupancy",
              ATTN_FOLD_WS_KERNELS),
+            ("attn_lnres_ws", "gigaam_attn_lnres_ws_occupancy",
+             ATTN_LNRES_WS_KERNELS),
+            ("conv_fold_ws", "gigaam_conv_fold_ws_occupancy",
+             CONV_FOLD_WS_KERNELS),
             ("subsampling_probe", "gigaam_subsampling_probe_occupancy",
              ("taps_kernel", "probe_gemm_kernel")),
             ("subsampling_ws", "gigaam_subsampling_ws_occupancy",

@@ -25,18 +25,20 @@ ws.cu``); each probe's question becomes a schedule of the cores:
   P8        lnres_folded(ln_params, ..., nb)
             ``fold_lnres``: K1's function (pre-LN x to x + attention(LN(x)))
             with the residual added to the fp32 accumulator and rounded once,
-            on K1/K2's GEMMs at other tiles (``csrc/attn_fold_probe.cu`` on
-            ``csrc/projection.cuh``: ``qkv_kernel<nb, 128>``,
-            ``out_proj_kernel<nb, 128, 2>``) around K3
+            on P6's stages at P6's schedule for its nb: K1's row pass with
+            the LayerNorm, the Q/K/V product on xr (Q, K) and xn (V), the
+            packed walk, and an output product with the fp32-residual
+            epilogue (``csrc/attn_lnres_ws.cu``)
 
-The kernels P6 and P7 ran on before (``attn_fold_probe.cu``'s N-128 and
-N-48 products around K3) stay reachable as ``fold_ring`` for an A/B on the
-same card; it counts no launch.  The redesign's stages run alone as
-``qkv_ws``, ``sdpa_packed_ws`` and ``out_ws`` (after ``fa.ln_rope``), each
-beside its plain stage (``qkv_plain``, ``sdpa_packed_plain``,
-``out_plain``; ``fold_staged_plain`` composes them and equals
-``fold_plain`` bit for bit); the plans are pure functions
-(``fold_plans``).
+The kernels P6, P7 and P8 ran on before (``attn_fold_probe.cu``'s N-128 and
+N-48 products around K3) stay reachable as ``fold_ring`` and ``lnres_ring``
+for an A/B on the same card; they count no launch.  The redesign's stages
+run alone as ``qkv_ws``, ``sdpa_packed_ws``, ``out_ws`` and
+``out_residual_ws`` (after ``fa.ln_rope``), each beside its plain stage
+(``qkv_plain``, ``sdpa_packed_plain``, ``out_plain``,
+``out_residual_plain``; ``fold_staged_plain`` and ``lnres_staged_plain``
+compose them and equal ``fold_plain`` and ``lnres_plain`` bit for bit); the
+plans are pure functions (``fold_plans``).
 
 P6 and P7 compute K2's function (post-LN x to the module output, ``bo``
 included); nb and the weight layout change the tiles, not the math.  Each
@@ -310,6 +312,15 @@ def out_plain(w: AttnFoldWeights, o: torch.Tensor) -> torch.Tensor:
         return (o.float() @ w.fold.wo.float() + w.fold.bo).to(o.dtype)
 
 
+def out_residual_plain(w: AttnFoldWeights, o: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """P8's output stage, plain: bf16(o Wo + bo + x), accumulated in fp32
+    and rounded once (x the pre-LN input)."""
+    with full_fp32():
+        return (o.float() @ w.fold.wo.float() + w.fold.bo
+                + x.float()).to(x.dtype)
+
+
 def fold_staged_plain(w: AttnFoldWeights, x: torch.Tensor,
                       valid: torch.Tensor, heads: bool = False
                       ) -> torch.Tensor:
@@ -320,6 +331,19 @@ def fold_staged_plain(w: AttnFoldWeights, x: torch.Tensor,
         xr = fa.ln_rope_plain(x, w.cos, w.sin, H)[1]
         return out_plain(w, sdpa_packed_plain(*qkv_plain(w, xr, x, heads),
                                               valid))
+
+
+def lnres_staged_plain(w: AttnFoldWeights, x: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """``lnres_plain`` as the redesign's stages: the row pass with the
+    LayerNorm (xn, xr), the Q/K/V stage (Q, K on xr, V on xn), the SDPA
+    with o packed, the output stage with the fp32 residual; the same values
+    bit for bit."""
+    f = w.fold
+    with full_fp32():
+        xn, xr = fa.ln_rope_plain(x, w.cos, w.sin, H, f.ln_scale, f.ln_bias)
+        return out_residual_plain(
+            w, sdpa_packed_plain(*qkv_plain(w, xr, xn), valid), x)
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +380,8 @@ def _check_args(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
 def _fold_cuda(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
                nb: int, heads: bool = False, lnres: bool = False
                ) -> torch.Tensor:
-    """Four launches of ``csrc/attn_fold_probe.cu``'s design (P8's, and P6
-    and P7's before their redesign): the row pass, a Q/K/V GEMM of the
+    """Four launches of ``csrc/attn_fold_probe.cu``'s design (P6, P7 and
+    P8's before their redesign): the row pass, a Q/K/V GEMM of the
     probe's library, K3's SDPA core and the probe's output GEMM.  Their
     scratch (xr, xn for P8, q, k, v and the SDPA output o, each [B*T, D]
     bf16) is one allocation, as in K1/K2's ``_folded_cuda``."""
@@ -410,6 +434,8 @@ SCHEDULE_TILES = {LANE_SLICES: (PP_BM, 256, 2), HEAD_TILES: (PP_BM, 192, 1),
                   COOP: (WS_BM, 256, 1), COOP_CLUSTER: (WS_BM, 256, 2)}
 FOLDB_SCHEDULE, FOLDA_SCHEDULE = LANE_SLICES, HEAD_TILES
 NB_SCHEDULE = {1: LANE_SLICES, 2: COOP, 4: COOP_CLUSTER}
+# P8's output product (csrc/attn_lnres_ws.cu) is built for P6's schedules
+LNRES_SCHEDULES = tuple(NB_SCHEDULE.values())
 
 
 def fold_plans(m: int, schedule: int, slots: int):
@@ -474,6 +500,37 @@ def _launch_out_ws(w: AttnFoldWeights, o: int, out: int, m: int,
     cuda_lib.check(cuda_lib.library("attn_fold_ws").gigaam_fold_ws_out(
         o, w.fold.wo.data_ptr(), w.fold.bo.data_ptr(), out, units.data_ptr(),
         len(units), grid, m, schedule, _stream(dev)), "gigaam_fold_ws_out")
+
+
+def _launch_out_residual_ws(w: AttnFoldWeights, o: int, x: int, out: int,
+                            m: int, schedule: int, dev) -> None:
+    _, (units, grid) = _device_fold_plans(m, schedule, dev.index)
+    cuda_lib.check(cuda_lib.library("attn_lnres_ws").gigaam_lnres_ws_out(
+        o, w.fold.wo.data_ptr(), w.fold.bo.data_ptr(), x, out,
+        units.data_ptr(), len(units), grid, m, schedule, _stream(dev)),
+        "gigaam_lnres_ws_out")
+
+
+def _lnres_ws(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
+              schedule: int) -> torch.Tensor:
+    """P8 on the redesign (arguments checked by the caller): the row pass
+    with the LayerNorm, the Q/K/V product (Q, K on xr, V on xn), the packed
+    walk and the output product with the fp32 residual, their scratch (xr,
+    xn, q, k, v, o, each [B*T, D] bf16) one allocation."""
+    b, t, d = x.shape
+    m, dev, f = b * t, x.device, w.fold
+    n = m * d
+    scratch = torch.empty(6 * n, dtype=x.dtype, device=dev)
+    xr, xn, *qkv, o = (scratch.data_ptr() + 2 * n * i for i in range(6))
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        fa._launch_ln_rope(x, w.cos, w.sin, f.ln_scale, f.ln_bias, xn, xr,
+                           _stream(dev))
+        _launch_qkv_ws(w, xr, xn, qkv, m, t, schedule, dev)
+        _launch_sdpa_ws(qkv, valid, o, b, t, dev)
+        _launch_out_residual_ws(w, o, x.data_ptr(), out.data_ptr(), m,
+                                schedule, dev)
+    return out
 
 
 def _fold_ws(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
@@ -565,6 +622,34 @@ def out_ws(w: AttnFoldWeights, o: torch.Tensor, schedule: int
     return out
 
 
+def _check_lnres_schedule(schedule: int) -> None:
+    _require(schedule in LNRES_SCHEDULES,
+             f"P8's schedule must be one of {LNRES_SCHEDULES}, got "
+             f"{schedule}")
+
+
+def out_residual_ws(w: AttnFoldWeights, o: torch.Tensor, x: torch.Tensor,
+                    schedule: int) -> torch.Tensor:
+    """P8's output product alone on the card (``out_residual_plain`` on
+    the CPU): o [B, T, 768] bf16 packed, x the pre-LN input -> bf16(o Wo +
+    bo + x) in the schedule's tiles (``lnres_out_*_kernel``).  Counts no
+    launch."""
+    if o.device.type == "cpu":
+        return out_residual_plain(w, o, x)
+    _check_lnres_schedule(schedule)
+    _require(o.dim() == 3 and o.shape[-1] == D and o.numel() > 0,
+             f"o must be [B, T, {D}], got {tuple(o.shape)}")
+    _check_tensor("o", o, o.device, torch.bfloat16, o.shape)
+    _check_tensor("x", x, o.device, torch.bfloat16, o.shape)
+    fa._check_fold_weights(w.fold, D, o.device)
+    out = torch.empty_like(o)
+    with torch.cuda.device(o.device):
+        _launch_out_residual_ws(w, o.data_ptr(), x.data_ptr(),
+                                out.data_ptr(), o.shape[0] * o.shape[1],
+                                schedule, o.device)
+    return out
+
+
 def fold_ws(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
             schedule: int) -> torch.Tensor:
     """P6/P7's function on the redesign in any of its schedules (the
@@ -586,6 +671,17 @@ def fold_ring(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
     launch: kept for an A/B on the same card."""
     _require(x.device.type == "cuda", "fold_ring runs on the card only")
     return _fold_cuda(w, x, valid, nb, heads=heads)
+
+
+def lnres_ring(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
+               nb: int) -> torch.Tensor:
+    """P8 on the design the redesign replaced: ``csrc/attn_fold_probe.
+    cu``'s row pass with the LayerNorm, ``qkv_kernel<nb, 128>``, K3's SDPA
+    and ``out_proj_kernel<nb, 128, 2>`` (bo and x added to the fp32
+    accumulator).  Card only; counts no launch: kept for an A/B on the same
+    card."""
+    _require(x.device.type == "cuda", "lnres_ring runs on the card only")
+    return _fold_cuda(w, x, valid, nb, lnres=True)
 
 
 def _refuse_grad(name: str, w: AttnFoldWeights, x: torch.Tensor) -> None:
@@ -641,13 +737,17 @@ def fold_nb(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
 
 def fold_lnres(w: AttnFoldWeights, x: torch.Tensor, valid: torch.Tensor,
                nb: int) -> torch.Tensor:
-    """P8: pre-LN x [B, T, 768] -> x + attention(LN(x)) at 64 nb-row tiles,
-    the residual added in fp32 (``out_proj_kernel<nb, 128, 2>``);
-    ``lnres_plain`` on the CPU."""
+    """P8: pre-LN x [B, T, 768] -> x + attention(LN(x)), the residual
+    added to the output product's fp32 accumulator, on P6's schedule for
+    ``nb`` (nb 1: ping-pong 64 x 256 in clusters of two; nb 2: cooperative
+    128 x 256; nb 4: the same in clusters of two; the output product
+    ``lnres_out_pp_kernel<256, 2>``, ``lnres_out_coop_kernel<1>``,
+    ``<2>``); ``lnres_plain`` on the CPU."""
     _refuse_grad("fold_lnres", w, x)
     if x.device.type == "cpu":
         return lnres_plain(w, x, valid)
-    out = _fold_cuda(w, x, valid, nb, lnres=True)
+    _check_args(w, x, valid, nb, False, True)
+    out = _lnres_ws(w, x, valid, NB_SCHEDULE[nb])
     fold_lnres.launches += 1
     return out
 

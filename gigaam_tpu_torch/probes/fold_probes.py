@@ -35,8 +35,8 @@ graph, as the scripts call theirs 40 times a run).  A failure raises; the
 scripts record it and go on.
 
 ``nb`` is the TPU grid's batch rows per cell, a tiling knob of the Pallas
-kernels.  The Hopper kernels tile rows their own way (64 rows a block) and
-ignore it: it stays in the signatures and is recorded in the output.
+kernels.  The Hopper kernels tile rows their own way and ignore it: it
+stays in the signatures and is recorded in the output.
 
 The scripts time the fold inside ``jax.jit`` with the weights as constants,
 so XLA folds the weights' casts and P5's BatchNorm fold away.  Here the fold
@@ -53,6 +53,18 @@ epilogue, the second with the bias, the 0.5 and the residual
 of ``csrc/fold_probes.cu`` stays reachable as ``ffn_fold_ring`` for an A/B
 on the same card (it counts no launch).
 
+P5 runs on its redesign, ``csrc/conv_fold_ws.cu``, in four stages: P4's row
+pass, the GLU product on the ping-pong core (``conv_ws.cuh``'s
+``PingPongCore``: 64 x 256 tiles in clusters of two, W_vg the value and
+gate columns interleaved by ``prepare_conv``), the depthwise pass on the
+CUDA cores, and the pointwise product with the bias and the residual on the
+same core (its stages alone: ``conv_rows_ws``,
+``glu_product_ws``, ``depthwise_ws``, ``conv_residual_product_ws``, each
+beside its plain stage; ``conv_staged_plain`` composes the plain stages and
+equals ``conv_fold_plain`` bit for bit).  ``csrc/fold_probes.cu``'s
+``glu_fold_kernel`` + ``dw_proj_kernel`` stay reachable as
+``conv_fold_ring`` for an A/B on the same card (it counts no launch).
+
 Beside each kernel wrapper is the plain version of its Pallas body
 (``ffn_fold_plain``, ``conv_fold_plain``), rounding where the body rounds.
 A wrapper takes it for tensors on the CPU; for CUDA tensors it launches its
@@ -66,7 +78,8 @@ import ctypes
 import dataclasses
 import functools
 import json
-from typing import Mapping
+import math
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -78,7 +91,7 @@ from ..ops.fused_attention import _check_tensor, _require, _stream
 from ..ops.precision import full_fp32
 from ..profiling import device_timeit
 from ..weights import sub_block_from_jax
-from .ws_plan import WS_BK, WS_BM, ws_plan
+from .ws_plan import PP_BM, WS_BK, WS_BM, ws_plan
 
 D, DFF, K = 768, 3072, 31
 EPS = 1e-5
@@ -116,6 +129,9 @@ class ConvFoldWeights:
     bnb: torch.Tensor    # [D] fp32: its bias, the depthwise bias folded in
     w2: torch.Tensor     # [D, D] compute dtype
     b2: torch.Tensor     # [D] fp32
+    # [D, 2 D]: wv and wg interleaved (``interleave_vg``), the GLU product's
+    # weight on the card
+    w_vg: Optional[torch.Tensor] = None
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -144,20 +160,40 @@ def bn_affine(p: Mapping):
     return bns.contiguous(), bnb.contiguous()
 
 
+def _vg_block(d: int) -> int:
+    """The interleave's block: half a product tile's columns (128), or at
+    a width it does not divide, the largest block that does."""
+    return math.gcd(d, CONV_BN // 2)
+
+
+def interleave_vg(wv: torch.Tensor, wg: torch.Tensor) -> torch.Tensor:
+    """W_vg [D, 2 D] of the GLU's value and gate halves [D, D]: in blocks
+    of ``_vg_block(D)`` (128 at D 768) columns, block i of Wv, then block i
+    of Wg, so that one 256-wide tile of the product holds the value and the
+    gate of the same 128 channels."""
+    d, n = wv.shape
+    blk = _vg_block(n)
+    return torch.stack([wv.reshape(d, n // blk, blk),
+                        wg.reshape(d, n // blk, blk)], dim=2).reshape(
+        d, 2 * n).contiguous()
+
+
 def prepare_conv(ln_p: Mapping, p: Mapping, dtype: torch.dtype
                  ) -> ConvFoldWeights:
     """The port's conv-module parameters (depthwise weight [C, 1, K]) and
-    its LayerNorm's, cast and folded as ``conv_lnres_folded`` does."""
+    its LayerNorm's, cast and folded as ``conv_lnres_folded`` does, with
+    the GLU product's interleaved weight built once."""
     pc1 = p["pointwise_conv1"]
     dw = p["depthwise_conv"]["w"]
     bns, bnb = bn_affine(p)
+    wv, wg = (pc1["w_value"].to(dtype).contiguous(),
+              pc1["w_gate"].to(dtype).contiguous())
     return ConvFoldWeights(
-        _f32(ln_p["scale"]), _f32(ln_p["bias"]),
-        pc1["w_value"].to(dtype).contiguous(), _f32(pc1["b_value"]),
-        pc1["w_gate"].to(dtype).contiguous(), _f32(pc1["b_gate"]),
+        _f32(ln_p["scale"]), _f32(ln_p["bias"]), wv, _f32(pc1["b_value"]),
+        wg, _f32(pc1["b_gate"]),
         _f32(dw.reshape(dw.shape[0], dw.shape[-1]).t()), bns, bnb,
         p["pointwise_conv2"]["w"].to(dtype).contiguous(),
-        _f32(p["pointwise_conv2"]["b"]))
+        _f32(p["pointwise_conv2"]["b"]), interleave_vg(wv, wg))
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +278,41 @@ def conv_fold_plain(w: ConvFoldWeights, x: torch.Tensor,
     return (_product(c, w.w2) + w.b2).to(x.dtype) + x
 
 
+def conv_rows_plain(w: ConvFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """P5's row pass: bf16(LN(x)), fp32 statistics (P4's)."""
+    return _layer_norm(x, w.ln_g, w.ln_b)
+
+
+def glu_product_plain(w: ConvFoldWeights, xn: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """P5's GLU product: y = bf16((xn Wv + bv) sigmoid(xn Wg + bg)) *
+    valid, for xn [B, T, D], valid [B, T]."""
+    v = _product(xn, w.wv) + w.bv
+    g = _product(xn, w.wg) + w.bg
+    return (v * torch.sigmoid(g)).to(xn.dtype) * valid.to(xn.dtype)[..., None]
+
+
+def depthwise_plain(w: ConvFoldWeights, y: torch.Tensor) -> torch.Tensor:
+    """P5's depthwise pass: c = bf16(SiLU(bns taps(y) + bnb)), the taps
+    ``depthwise_taps``' (zero outside each batch element)."""
+    return _silu(depthwise_taps(y, w.dw) * w.bns + w.bnb).to(y.dtype)
+
+
+def conv_residual_product_plain(w: ConvFoldWeights, c: torch.Tensor,
+                                x: torch.Tensor) -> torch.Tensor:
+    """P5's pointwise product: bf16(bf16(c W2 + b2) + x)."""
+    return (_product(c, w.w2) + w.b2).to(x.dtype) + x
+
+
+def conv_staged_plain(w: ConvFoldWeights, x: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """``conv_fold_plain`` as the redesign's four stages compute it: the
+    row pass, the GLU product, the depthwise pass, the pointwise product;
+    the same values bit for bit."""
+    y = glu_product_plain(w, conv_rows_plain(w, x), valid)
+    return conv_residual_product_plain(w, depthwise_plain(w, y), x)
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -260,14 +331,15 @@ def _check_ffn_args(w: FfnFoldWeights, x: torch.Tensor) -> None:
 
 
 def _check_conv_args(w: ConvFoldWeights, x: torch.Tensor,
-                     valid: torch.Tensor) -> None:
+                     valid: Optional[torch.Tensor]) -> None:
     """What the conv fold's kernels take: x [B, T, 768] bf16, valid [B, T]
-    bool, the weights' shapes and dtypes, every tensor contiguous and
-    16-byte aligned on x's device."""
+    bool (None: a stage that reads no mask), the weights' shapes and
+    dtypes, every tensor contiguous and 16-byte aligned on x's device."""
     _require(x.dim() == 3 and x.shape[-1] == D and x.numel() > 0,
              f"x must be [B, T, {D}], got {tuple(x.shape)}")
     _check_tensor("x", x, x.device, torch.bfloat16, x.shape)
-    _check_tensor("valid", valid, x.device, torch.bool, x.shape[:2])
+    if valid is not None:
+        _check_tensor("valid", valid, x.device, torch.bool, x.shape[:2])
     for name in ("ln_g", "ln_b", "bv", "bg", "bns", "bnb", "b2"):
         _check_tensor(name, getattr(w, name), x.device, torch.float32, (D,))
     for name in ("wv", "wg", "w2"):
@@ -342,7 +414,9 @@ def _product_ws(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def _rows_ws(w: FfnFoldWeights, x2: torch.Tensor) -> torch.Tensor:
+def _rows_ws(w, x2: torch.Tensor) -> torch.Tensor:
+    """``ffn_rows_kernel`` on x2 [M, 768]; ``w``: P4's or P5's weights
+    (their LayerNorm's)."""
     xn = torch.empty_like(x2)
     with torch.cuda.device(x2.device):
         cuda_lib.check(cuda_lib.library("ffn_ws").gigaam_ffn_ws_rows(
@@ -352,9 +426,9 @@ def _rows_ws(w: FfnFoldWeights, x2: torch.Tensor) -> torch.Tensor:
     return xn
 
 
-def ffn_rows_ws(w: FfnFoldWeights, x2: torch.Tensor) -> torch.Tensor:
+def ffn_rows_ws(w, x2: torch.Tensor) -> torch.Tensor:
     """P4's row pass on the card (``ffn_rows_kernel``): bf16(LN(x2)) for
-    x2 [M, 768] bf16.  Counts no launch."""
+    x2 [M, 768] bf16, ``w`` P4's or P5's weights.  Counts no launch."""
     _check_rows("x", x2, x2.device, D)
     for name in ("ln_g", "ln_b"):
         _check_tensor(name, getattr(w, name), x2.device, torch.float32, (D,))
@@ -423,14 +497,155 @@ def ffn_fold_ring(w: FfnFoldWeights, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# P5's redesign (csrc/conv_fold_ws.cu): its products' tiles (PingPongCore:
+# PP_BM rows, 256 columns, clusters of two) and epilogues (its Mode)
+CONV_BN, CONV_CLUSTER = 256, 2
+_GLU, _CONV_RESIDUAL = 1, 2
+
+
+def conv_plans(m: int, slots: int):
+    """The plans (``ws_plan``: units, grid) of P5's two products for M rows
+    on ``slots`` blocks, K unsplit: xn [M, 768] . W_vg [768, 1536], then
+    c [M, 768] . W2 [768, 768], in 64-row tiles paired in clusters of two;
+    unit i of a block runs on its consumer warpgroup i % 2."""
+    row_tiles = -(-m // PP_BM)
+    return tuple(ws_plan(row_tiles, n // CONV_BN, D // WS_BK, slots, m * n,
+                         CONV_BN, CONV_CLUSTER, splits=1)[:2]
+                 for n in (2 * D, D))
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_slots(index: int) -> int:
+    """The products' persistent grid's ceiling on card ``index``: blocks of
+    clusters of two that it holds at once, at most one an SM."""
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(index):
+        cuda_lib.check(cuda_lib.library("conv_fold_ws").gigaam_conv_ws_slots(
+            out), "gigaam_conv_ws_slots")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return min(sms, out[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _device_conv_plans(m: int, index: int):
+    """``conv_plans`` on card ``index``, made once a shape: the first call
+    copies the plans to the card, so it must not be under CUDA-graph
+    capture."""
+    return tuple((torch.from_numpy(units).to(f"cuda:{index}"), grid)
+                 for units, grid in conv_plans(m, _conv_slots(index)))
+
+
+def _launch_conv_product(a2: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, gate_bias, valid, x2,
+                         out: torch.Tensor, mode: int) -> None:
+    """One product on ``conv_fold_ws_kernel<mode>`` (arguments checked by
+    the caller): the GLU's (gate bias, valid) or the residual's (x2)."""
+    m, dev = a2.shape[0], a2.device
+    units, grid = _device_conv_plans(m, dev.index)[mode - 1]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    cuda_lib.check(cuda_lib.library("conv_fold_ws").gigaam_conv_ws_product(
+        a2.data_ptr(), weight.data_ptr(), bias.data_ptr(), ptr(gate_bias),
+        ptr(valid), ptr(x2), out.data_ptr(), units.data_ptr(), len(units),
+        grid, m, mode, _stream(dev)), "gigaam_conv_ws_product")
+
+
+def _launch_depthwise(w: ConvFoldWeights, y: torch.Tensor,
+                      c: torch.Tensor) -> None:
+    b, t, _ = y.shape
+    cuda_lib.check(cuda_lib.library("conv_fold_ws").gigaam_conv_ws_depthwise(
+        y.data_ptr(), w.dw.data_ptr(), w.bns.data_ptr(), w.bnb.data_ptr(),
+        c.data_ptr(), b, t, _stream(y.device)), "gigaam_conv_ws_depthwise")
+
+
+def _check_conv_ws_args(w: ConvFoldWeights, x: torch.Tensor,
+                        valid: Optional[torch.Tensor]) -> None:
+    """``_check_conv_args`` and what the redesign takes besides: W_vg
+    [768, 1536] in x's dtype (``prepare_conv``), B < 65536 and B T 768 <
+    2^31."""
+    _check_conv_args(w, x, valid)
+    _require(w.w_vg is not None,
+             "the card path needs w_vg: prepare_conv builds it")
+    _check_tensor("w_vg", w.w_vg, x.device, x.dtype, (D, 2 * D))
+    _require(x.shape[0] < 65536 and x.numel() < 2 ** 31,
+             f"x {tuple(x.shape)} is too large for the card path")
+
+
+def _conv_ws(w: ConvFoldWeights, x: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+    """The redesign's four launches (arguments checked by the caller)."""
+    x2 = x.view(-1, D)
+    y, c, out = (torch.empty_like(x) for _ in range(3))
+    with torch.cuda.device(x.device):
+        xn = _rows_ws(w, x2)
+        _launch_conv_product(xn, w.w_vg, w.bv, w.bg, valid, None, y, _GLU)
+        _launch_depthwise(w, y, c)
+        _launch_conv_product(c.view(-1, D), w.w2, w.b2, None, None, x2, out,
+                             _CONV_RESIDUAL)
+    return out
+
+
+def conv_rows_ws(w: ConvFoldWeights, x: torch.Tensor) -> torch.Tensor:
+    """P5's row pass alone on the card (P4's ``ffn_rows_kernel``):
+    bf16(LN(x)) for x [B, T, 768] bf16.  Counts no launch."""
+    return ffn_rows_ws(w, x.view(-1, D)).view_as(x)
+
+
+def glu_product_ws(w: ConvFoldWeights, xn: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """P5's GLU product alone on the card (``conv_fold_ws_kernel<1>``): y
+    [B, T, 768] for xn [B, T, 768] bf16.  Counts no launch."""
+    _check_conv_ws_args(w, xn, valid)
+    y = torch.empty_like(xn)
+    with torch.cuda.device(xn.device):
+        _launch_conv_product(xn.view(-1, D), w.w_vg, w.bv, w.bg, valid, None,
+                             y, _GLU)
+    return y
+
+
+def depthwise_ws(w: ConvFoldWeights, y: torch.Tensor) -> torch.Tensor:
+    """P5's depthwise pass alone on the card (``conv_dw_kernel``): c
+    [B, T, 768] for y [B, T, 768] bf16.  Counts no launch."""
+    _check_conv_ws_args(w, y, None)
+    c = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        _launch_depthwise(w, y, c)
+    return c
+
+
+def conv_residual_product_ws(w: ConvFoldWeights, c: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """P5's pointwise product alone on the card
+    (``conv_fold_ws_kernel<2>``): bf16(bf16(c W2 + b2) + x) for c, x
+    [B, T, 768] bf16.  Counts no launch."""
+    _check_conv_ws_args(w, x, None)
+    _check_tensor("c", c, x.device, x.dtype, x.shape)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _launch_conv_product(c.view(-1, D), w.w2, w.b2, None, None,
+                             x.view(-1, D), out, _CONV_RESIDUAL)
+    return out
+
+
 def conv_fold(w: ConvFoldWeights, x: torch.Tensor,
               valid: torch.Tensor) -> torch.Tensor:
     """P5: x + ConvModule(LN(x)) for x [B, T, 768], valid [B, T] (True: a
-    real frame): ``glu_fold_kernel`` then ``dw_proj_kernel`` on the card
-    (bf16; y, their [B, T, 768] handover, is scratch), ``conv_fold_plain``
+    real frame): on the card (bf16) the redesign (the row pass, the GLU
+    product, the depthwise pass, the pointwise product); ``conv_fold_plain``
     on the CPU."""
     if x.device.type == "cpu":
         return conv_fold_plain(w, x, valid)
+    _check_conv_ws_args(w, x, valid)
+    out = _conv_ws(w, x, valid)
+    conv_fold.launches += 1
+    return out
+
+
+def conv_fold_ring(w: ConvFoldWeights, x: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """P5 on the design the redesign replaced: ``glu_fold_kernel`` then
+    ``dw_proj_kernel`` (y, their [B, T, 768] handover, is scratch).  Card
+    only; counts no launch: kept for an A/B on the same card."""
+    _require(x.device.type == "cuda", "conv_fold_ring runs on the card only")
     _check_conv_args(w, x, valid)
     y = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -442,7 +657,6 @@ def conv_fold(w: ConvFoldWeights, x: torch.Tensor,
             w.bns.data_ptr(), w.bnb.data_ptr(), w.w2.data_ptr(),
             w.b2.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
             x.shape[1], _stream(x.device)), "gigaam_conv_fold")
-    conv_fold.launches += 1
     return out
 
 
