@@ -65,13 +65,21 @@ Phases, each fatal on failure:
    ring; another batch element's mask row per head; heads permuted in the
    packed q), ``A_full`` bit-equal to K3, each timed by CUDA events and by
    the profile's kernel sum beside its bound, its plain version and the
-   library call; I and J (the head-group walk, P9) on its warp-specialised
-   redesign (``csrc/sdpa_groups_ws.cu``), against the kept head-group
-   kernel of ``csrc/sdpa_ablation.cu`` (held to the plain version too, the
-   two compared bit for bit) in turns by events, the kernel sum and graph
-   replays, with each grid's blocks; then the ablation's own ``main`` with
-   both switches, from zeroed launch counts, printed as an ``ablation``
-   line in microseconds;
+   library call, and the exponential unit's floor at its published rate
+   printed beside the bound; I and J (the head-group walk, P9) on its
+   warp-specialised redesign (``csrc/sdpa_groups_ws.cu``), against the kept head-group kernel of
+   ``csrc/sdpa_ablation.cu`` (held to the plain version too, the two
+   compared bit for bit) in turns by events, the kernel sum and graph
+   replays, with each grid's blocks; P12's six computing bodies and P10 on
+   the per-head walk's redesign (``csrc/sdpa_heads_ws.cu``), with more
+   planted faults (the two query tiles of a unit swapped, the K/V of the
+   previous head, each persistent block skipping its last unit), each
+   against its kept kernel of ``csrc/sdpa_ablation.cu`` (held to the plain
+   version too, compared bit for bit; ``A_full`` and P10 in turns as P9,
+   the other kept bodies by one fenced kernel sum at the first shape); the
+   copy, on its kept kernel, beside ``q4.clone()``'s fenced sum; then the
+   ablation's own ``main`` with both switches, from zeroed launch counts,
+   printed as an ``ablation`` line in microseconds, and the phase's wall;
 9. the FFN and conv-module fold probes (P4, P5,
    ``gigaam_tpu_torch/probes/fold_probes.py``): each fold against its plain
    version at the scripts' B 32, T 512 and B 128, T 768 and at the main
@@ -1226,6 +1234,37 @@ ABLATION = {
 ABLATION_REPLACES = {"P12": 258, "P9": 186, "P10": 212, "P11": 235}
 # P9's labels: heads a cell
 P9_CELLS = {"I_allheads_cell": N_HEADS, "J_4heads_cell": 4}
+# P12's computing bodies and P10, on the per-head walk's redesign (the copy
+# keeps its kernel); the first two timed against their kept kernels in
+# turns, the others' kept kernels by the fenced kernel sum at the first shape
+HEADS_WS_LABELS = ("A_full", "K_identity_maps", "B_two_matmuls",
+                   "D_no_max_pass", "E_prescaled_q", "E2_madd_row",
+                   "G_bf16_softmax")
+HEADS_WS_AB = HEADS_WS_LABELS[:2]
+# the exponential unit's rate on an H100 SXM as FlashAttention-3 (arXiv
+# 2407.08608) states it, about 3.9 T exponentials a second: a published
+# figure, not measured here, so its floor is printed and kept out of the
+# kernels line
+EXP_RATE = 3.9e12
+
+
+def exp_floor(label: str, b: int, t: int) -> float:
+    """The least ms of a variant's exponentials at EXP_RATE: one a score
+    (G's bf16 pairs taken as one an instruction, so half; none for the bare
+    products and the copy)."""
+    scores = b * N_HEADS * t * t
+    share = {"B_two_matmuls": 0, "F_copy_only": 0, "G_bf16_softmax": 0.5}
+    return share.get(label, 1) * scores / EXP_RATE * 1e3
+
+
+def swap_query_tiles(x):
+    """[N, T, 48] with the query tiles 2 p and 2 p + 1 of every row swapped
+    (T padded with zeros to whole pairs): what a unit whose two consumers
+    swap their tiles computes."""
+    n, t, d = x.shape
+    pad = -(-t // 128) * 128
+    y = F.pad(x, (0, 0, 0, pad - t)).view(n, pad // 128, 2, 64, d)
+    return y.flip(2).reshape(n, pad, d)[:, :t].contiguous()
 
 
 def ablation_bound(label: str, b: int, t: int):
@@ -1245,9 +1284,11 @@ def ablation_bound(label: str, b: int, t: int):
                  4 * scores * D_HEAD, per_score.get(label, 4) * scores)
 
 
-def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
-    """label -> (kernel call, plain call, library call or None, planted
-    faults); each call returns [B, H, T, 48] (packed: [B, T, H*48])."""
+def ablation_calls(sa, q, k, v, valid, b: int, t: int):
+    """({label: (kernel call, plain call, library call or None, planted
+    faults)}, {label: the mask argument of its wrapper} of the bodies that
+    take q, k, v [B*H, T, 48]); each call returns [B, H, T, 48] (packed:
+    [B, T, H*48])."""
     h = N_HEADS
     mask = valid[:, None].to(torch.int8).contiguous()
     madd = ((mask.float() - 1.0) * 1e9).contiguous()
@@ -1266,6 +1307,7 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
     valid4 = valid[:, None, None, :]
     madd4 = madd[:, None].to(torch.bfloat16)
     calls = {}
+    masks = {"K_identity_maps": mask_bh}
     for label, plain, m, lib in (
             ("A_full", sa.full_plain, mask, sdpa(valid4)),
             ("F_copy_only", sa.copy_plain, mask, lambda: q4.clone()),
@@ -1276,6 +1318,7 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
             ("E2_madd_row", sa.maddrow_plain, madd, sdpa(madd4, 1.0)),
             ("G_bf16_softmax", sa.bf16_softmax_plain, madd, None)):
         kernel = getattr(sa, ABLATION[label][1])
+        masks[label] = m
         calls[label] = (
             lambda kernel=kernel, m=m: heads(kernel)(q, k, v, m),
             lambda plain=plain, m=m: heads(plain)(
@@ -1305,6 +1348,30 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
         (("the mask row of another head's batch element",
           lambda: heads(sa.identity_maps_sdpa)(
               q, k, v, mask.roll(-1, 0).repeat_interleave(h, dim=0))),))
+    q_swapped = swap_query_tiles(q)
+    k_prev, v_prev3 = k.roll(1, 0), v.roll(1, 0)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    for label in HEADS_WS_LABELS:
+        wrapper = getattr(sa, ABLATION[label][1])
+        variant, layout = sa._HEADS_WS[wrapper.__name__]
+        m = masks[label]
+        batch, n_heads = (1, b * h) if layout == sa._MASK_PER_HEAD else (b, h)
+        # every block skips its last unit: its rows keep the output's zeros
+        short = sa.heads_plan(b * h, t, sms)
+        short[:, 1] -= 1
+        short = torch.from_numpy(short).to(q.device)
+        faults = calls[label][3] + (
+            ("the K/V of the previous head",
+             lambda wrapper=wrapper, m=m: heads(wrapper)(q, k_prev, v_prev3,
+                                                         m)),
+            ("the two query tiles of a unit swapped",
+             lambda wrapper=wrapper, m=m: heads(wrapper)(q_swapped, k, v, m)),
+            ("each persistent block skipping its last unit",
+             lambda variant=variant, layout=layout, m=m, batch=batch,
+             n_heads=n_heads, short=short: sa._walk(
+                 variant, layout, q, k, v, m, batch, n_heads, t, short,
+                 torch.zeros_like(q)).view(b, h, t, D_HEAD)))
+        calls[label] = calls[label][:3] + (faults,)
     q3_permuted = q3.view(b, t, h, D_HEAD).roll(1, 2).reshape(b, t, -1)
 
     def packed_library():
@@ -1320,25 +1387,28 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int) -> dict:
         lambda: sa.full_packed_plain(q3, k3, v3, mask), packed_library,
         (("heads permuted in the packed q",
           lambda: sa.packed_sdpa(q3_permuted, k3, v3, mask)),))
-    return calls
+    return calls, masks
 
 
 def ablation_phase(gen, dev):
     """P9-P12: every variant of the SDPA ablation against its plain version
     at ABLATION_SHAPES (the planted faults at the first), A_full bit-equal
     to K3, each timed by CUDA events and by the profile's kernel sum beside
-    its bound, its plain version and the library call; then the ablation's
-    own ``main`` with both switches, from zeroed launch counts.  Returns
-    ({label: JSON row}, {wrapper name: launches in ``main``})."""
+    its bound (the exponential floor printed beside it), its plain version
+    and the library call, and each redesign (P9, P10, P12) against the
+    kernel it replaced (``kept_ab``); then the ablation's own ``main`` with
+    both switches, from zeroed launch counts.  Returns ({label: JSON row},
+    {wrapper name: launches in ``main``})."""
     from gigaam_tpu_torch.probes import sdpa_ablation as sa
 
+    t_phase = time.perf_counter()
     readings = defaultdict(dict)
     for b, t in ABLATION_SHAPES:
         q, k, v = (torch.randn(b * N_HEADS, t, D_HEAD, generator=gen) * gain
                    for gain in (QK_GAIN, QK_GAIN, 1.0))
         q, k, v = (a.to(dev, torch.bfloat16) for a in (q, k, v))
         valid = ragged_valid(b, t, dev)
-        calls = ablation_calls(sa, q, k, v, valid, b, t)
+        calls, masks = ablation_calls(sa, q, k, v, valid, b, t)
         k3 = fa.fused_mha(*(x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v)),
                           valid)
         if not torch.equal(calls["A_full"][0](), k3):
@@ -1357,18 +1427,26 @@ def ablation_phase(gen, dev):
             plain_ms = time_ms(plain, iters=5)
             lib_ms = None if lib is None else time_ms(lib)
             bms, by = ablation_bound(label, b, t)
+            exp_ms = exp_floor(label, b, t)
             print(f"{label} B={b} T'={t}: max_abs_err {err:.3e}, {rel:.4f} x "
                   f"RMS (limit {KERNEL_REL}); kernel {ms:.4f} ms by events, "
                   f"{sum_ms:.4f} ms on the card; plain {plain_ms:.4f} ms, "
                   f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                  f", bound {bms:.4f} ms ({by})", flush=True)
+                  f", bound {bms:.4f} ms ({by}), exponential floor at the "
+                  f"published rate {exp_ms:.4f} ms", flush=True)
             readings[label][(b, t)] = dict(
                 ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, max_abs_err=err)
-            if label in P9_CELLS:
-                readings[label][(b, t)].update(p9_serial_ab(
-                    sa, label, q, k, v, valid, b, t, kernel, got, plain(),
-                    bms, lib))
+            if label in P9_CELLS or label in HEADS_WS_LABELS:
+                readings[label][(b, t)].update(kept_ab(
+                    sa, label, q, k, v, masks.get(label), valid, b, t,
+                    kernel, got, plain(), lib))
+            if label == "F_copy_only":
+                # the copy against the library's, both fenced
+                clone_ms = sum(device_ms(lib).values())
+                print(f"  F_copy_only B={b} T'={t}: q4.clone() {clone_ms:.4f}"
+                      f" ms on the card", flush=True)
+                readings[label][(b, t)]["library_sum_ms"] = clone_ms
         print(f"A_full B={b} T'={t}: K3's bits", flush=True)
         del calls, q, k, v
     torch.cuda.empty_cache()
@@ -1392,44 +1470,64 @@ def ablation_phase(gen, dev):
     if set(results) != set(ABLATION) or not all(launches.values()):
         raise AssertionError(f"the ablation ran {sorted(results)} with "
                              f"launches {launches}")
+    print(f"ablation phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return ({label: dict(shaped_row(r, ABLATION_SHAPES[0]),
                          ablation_us=results[label])
              for label, r in readings.items()}, launches)
 
 
-def p9_serial_ab(sa, label, q, k, v, valid, b: int, t: int, kernel, got,
-                 ref, bms: float, lib) -> dict:
-    """P9's redesign against the kept head-group kernel of the ablation
-    (held to the plain version too) at one shape: the blocks of each grid,
-    whether the two agree bit for bit, and both timed in turns (redesign,
-    old, old, redesign) by CUDA events, the profile's kernel sum and graph
-    replays."""
-    hc = P9_CELLS[label]
-    q4, k4, v4 = (x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v))
-    mask = valid[:, None].to(torch.int8).contiguous()
-    serial = lambda: sa.allheads_sdpa_serial(q4, k4, v4, mask, hc)
-    old = serial()
-    old_err, _ = check_kernel(f"{label} B={b} T'={t} (the serial walk)", old,
+def kept_ab(sa, label, q, k, v, m, valid, b: int, t: int, kernel, got,
+            ref, lib) -> dict:
+    """A redesigned kernel of the ablation (P9's head-group walk, the
+    per-head walk of P10 and P12's bodies, whose wrapper takes the mask
+    ``m``) against the kernel it replaced (held to the plain version ``ref``
+    too) at one shape: the blocks of each grid, whether the two agree bit
+    for bit, and the times: for P9 and HEADS_WS_AB both in turns (redesign,
+    kept, kept, redesign) by CUDA events, the profile's kernel sum and graph
+    replays, beside SDPA's kernel sum; for the other bodies the kept
+    kernel's fenced kernel sum at the first shape."""
+    sms = torch.cuda.get_device_properties(valid.device).multi_processor_count
+    if label in P9_CELLS:
+        hc = P9_CELLS[label]
+        q4, k4, v4 = (x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v))
+        mask = valid[:, None].to(torch.int8).contiguous()
+        kept = lambda: sa.allheads_sdpa_serial(q4, k4, v4, mask, hc)
+        blocks = len(sa.groups_plan(b, N_HEADS, t, hc, sms))
+        old_blocks = -(-t // 64) * (N_HEADS // hc) * b
+    else:
+        wrapper = getattr(sa, ABLATION[label][1])
+        kept = lambda: sa.heads_sdpa_kept(wrapper, q, k, v, m).view(
+            b, N_HEADS, t, D_HEAD)
+        blocks = len(sa.heads_plan(b * N_HEADS, t, sms))
+        old_blocks = -(-t // 64) * N_HEADS * b
+    old = kept()
+    old_err, _ = check_kernel(f"{label} B={b} T'={t} (the kept kernel)", old,
                               ref, valid, 2, ())
     same = torch.equal(old, got)
-    sms = torch.cuda.get_device_properties(valid.device).multi_processor_count
-    blocks = len(sa.groups_plan(b, N_HEADS, t, hc, sms))
-    old_blocks = -(-t // 64) * (N_HEADS // hc) * b
-    times, split, old_times, _ = ab_times(kernel, serial, got)
-    old_times["max_abs_err"] = old_err
-    lib_ms = sum(device_ms(lib).values())
-    print(f"  {label} B={b} T'={t} A/B: the serial walk ({old_blocks} blocks) "
-          f"{times_text(old_times)}; the redesign ({blocks} blocks) "
-          f"{times_text(times)}; redesign / serial "
-          f"{times['sum_ms'] / old_times['sum_ms']:.3f} card, "
-          f"{times['ms'] / old_times['ms']:.3f} events; bound {bms:.4f} ms, "
-          f"SDPA {lib_ms:.4f} ms on the card; "
-          f"bit-equal to the serial walk: {same}; kernels "
-          + json.dumps([[n[:60], round(v, 4)] for n, v in split.items()]),
-          flush=True)
-    return dict(graph_ms=times["graph_ms"], ab=times, blocks=blocks,
-                serial=dict(old_times, blocks=old_blocks),
-                bit_equal_serial=same, library_sum_ms=lib_ms)
+    out = dict(blocks=blocks, bit_equal_kept=same)
+    text = f"the kept kernel ({old_blocks} blocks) "
+    if label in P9_CELLS or label in HEADS_WS_AB:
+        times, split, old_times, _ = ab_times(kernel, kept, got)
+        lib_ms = sum(device_ms(lib).values())
+        text += (f"{times_text(old_times)}; the redesign ({blocks} blocks) "
+                 f"{times_text(times)}; redesign / kept "
+                 f"{times['sum_ms'] / old_times['sum_ms']:.3f} card, "
+                 f"{times['ms'] / old_times['ms']:.3f} events; SDPA "
+                 f"{lib_ms:.4f} ms on the card; kernels "
+                 + json.dumps([[n[:60], round(v, 4)]
+                               for n, v in split.items()]))
+        out.update(graph_ms=times["graph_ms"], ab=times, library_sum_ms=lib_ms)
+    elif (b, t) == ABLATION_SHAPES[0]:
+        old_times = dict(sum_ms=sum(device_ms(kept).values()))
+        text += f"{old_times['sum_ms']:.4f} card"
+    else:
+        old_times = {}
+        text += "not timed"
+    print(f"  {label} B={b} T'={t} A/B: {text}; bit-equal to the kept "
+          f"kernel: {same}", flush=True)
+    return dict(out, kept=dict(old_times, max_abs_err=old_err,
+                               blocks=old_blocks))
 
 
 def ablation_kernel_rows(rows: dict, launches: dict) -> list:
@@ -1446,20 +1544,22 @@ def ablation_kernel_rows(rows: dict, launches: dict) -> list:
                 dict(a, shape=f"J_4heads_cell, {a['shape']}")
                 for a in [{k: v for k, v in j.items() if k != "also"},
                           *j["also"]]]
-        p9 = label in P9_CELLS
+        p9, walk = label in P9_CELLS, label in HEADS_WS_LABELS
+        redesign = ("graph_ms", "ab", "blocks", "kept", "bit_equal_kept")
         out.append({
             "name": f"{probe} {label} {wrapper}", "route": "cuda",
             "source": "gigaam_tpu_torch/csrc/" + (
-                "sdpa_groups_ws.cu" if p9 else "sdpa_ablation.cu"),
+                "sdpa_groups_ws.cu" if p9 else
+                "sdpa_heads_ws.cu" if walk else "sdpa_ablation.cu"),
             "replaces": f"benchmarks/sdpa_ablation.py:"
                         f"{ABLATION_REPLACES[probe]}",
             "launches": launches[wrapper], **{
                 key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "sum_ms", "ablation_us", "shape", "also")},
-            **({"status": "redesigned", **{key: r[key] for key in (
-                "graph_ms", "ab", "blocks", "serial", "bit_equal_serial",
-                "library_sum_ms")}} if p9 else {})})
+            **({"status": "redesigned"} if p9 or walk else {}),
+            **{key: r[key] for key in redesign + ("library_sum_ms",)
+               if key in r}})
     return out
 
 
@@ -6008,7 +6108,8 @@ def build_kernels() -> dict:
     # output products; P5's redesign's products
     wgmma_kernels += (cuda_lib.ATTN_FOLD_WS_KERNELS
                       + cuda_lib.ATTN_LNRES_WS_KERNELS
-                      + cuda_lib.CONV_FOLD_WS_KERNELS[:2])
+                      + cuda_lib.CONV_FOLD_WS_KERNELS[:2]
+                      + cuda_lib.HEADS_WS_KERNELS)
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>",
                                  "conv_dw_kernel"} <= set(resources):
@@ -6016,6 +6117,13 @@ def build_kernels() -> dict:
     spilled = [k for k in wgmma_kernels if resources[k]["spill_bytes"]]
     if spilled:
         raise AssertionError(f"register spills in {spilled}")
+    # the per-head walk keeps its products in flight (ptxas C7513: a
+    # product's register input redefined in flight, the products serialised)
+    serialised = [line for line in "\n".join(logs).splitlines()
+                  if "C7513" in line and "sdpa_heads_ws" in line]
+    if serialised:
+        raise AssertionError(f"ptxas serialised the per-head walk: "
+                             f"{serialised}")
     moved = {k: resources[k]["registers"] for k in KEPT_REGISTERS
              if resources[k]["registers"] != KEPT_REGISTERS[k]}
     if moved:

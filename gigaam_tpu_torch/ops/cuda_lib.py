@@ -56,6 +56,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_sdpa_groups_ws": [_P] * 6 + [_I] * 4 + [_F, _P],
         "gigaam_sdpa_groups_ws_occupancy": [_P],
     },
+    "sdpa_heads_ws": {
+        "gigaam_sdpa_heads_ws": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "gigaam_sdpa_heads_ws_occupancy": [_P],
+    },
     "attn_fold_ws": {
         "gigaam_fold_ws_qkv": [_P] * 12 + [_I] * 5 + [_P],
         "gigaam_fold_ws_out": [_P] * 5 + [_I] * 4 + [_P],
@@ -124,6 +128,11 @@ ATTN_LNRES_WS_KERNELS = ("lnres_out_pp_kernel<256, 2>",
                          "lnres_out_coop_kernel<2>")
 CONV_FOLD_WS_KERNELS = ("conv_fold_ws_kernel<1>", "conv_fold_ws_kernel<2>",
                         "conv_dw_kernel")
+# the per-head walk's redesign of the SDPA ablation (P12's bodies but the
+# copy, and P10; csrc/sdpa_heads_ws.cu: one instance an SdpaVariant), in the
+# order of gigaam_sdpa_heads_ws_occupancy
+HEADS_WS_KERNELS = tuple(f"sdpa_heads_ws_kernel<{v}>" for v in (0, 2, 3, 4, 5,
+                                                                 6))
 
 
 def _nvcc() -> str:
@@ -247,7 +256,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
     epilogue (the third template argument: 0 no residual, 1 the residual
     added in bf16, 2 in fp32), the fold probes' kernels (and P4's
     redesign: its two products, 1 the SiLU epilogue, 2 the residual one),
-    the head-group walk's redesign (P9), the attention-fold redesign's
+    the head-group walk's redesign (P9), the per-head walk's (P10, P12),
+    the attention-fold redesign's
     kernels (P6, P7, and P8's output product), P5's redesign, the
     subsampling
     probes' products (the TMA ring's and the warp-specialised redesign's
@@ -270,6 +280,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
              ("ffn_ws_kernel<1>", "ffn_ws_kernel<2>")),
             ("sdpa_groups_ws", "gigaam_sdpa_groups_ws_occupancy",
              ("sdpa_groups_ws_kernel",)),
+            ("sdpa_heads_ws", "gigaam_sdpa_heads_ws_occupancy",
+             HEADS_WS_KERNELS),
             ("attn_fold_ws", "gigaam_attn_fold_ws_occupancy",
              ATTN_FOLD_WS_KERNELS),
             ("attn_lnres_ws", "gigaam_attn_lnres_ws_occupancy",

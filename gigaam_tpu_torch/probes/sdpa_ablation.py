@@ -28,13 +28,21 @@ prints a line per label and, last, a JSON object of microseconds per call by
 label (``gigaam_tpu_torch.profiling.device_timeit``, chained, 100 calls a
 run), as the script does; the two switches add the same labels.
 
-Each variant is a kernel of ``csrc/sdpa_ablation.cu``, on K3's own body
-(``csrc/sdpa_core.cuh``): the full variant in the head-major layout is K3's
-code.  I and J run the head-group walk's redesign,
-``csrc/sdpa_groups_ws.cu``: a producer warp and two consumer warpgroups,
-one block a run of a cell's heads by ``groups_plan``; the head-group layout
-of ``csrc/sdpa_ablation.cu`` stays reachable as ``allheads_sdpa_serial``
-for an A/B on the same card (it counts no launch).  Beside each wrapper is the plain version of its Pallas body, in the
+A, B, D, E, E2, G and K run the per-head walk's redesign,
+``csrc/sdpa_heads_ws.cu``: persistent blocks, one an SM, each walking a run
+of ``heads_plan``'s units (a head and a pair of query tiles), a producer
+warp filling one K/V ring that two consumer warpgroups read, one query tile
+each; the kernels it replaced, of ``csrc/sdpa_ablation.cu`` on K3's own
+body (``csrc/sdpa_core.cuh``, whose full variant in the head-major layout
+is K3's code), stay reachable as ``heads_sdpa_kept`` for an A/B on the same
+card (it counts no launch).  F, the copy, stays on its kernel of
+``csrc/sdpa_ablation.cu``, which reads at its byte bound.  I
+and J run the head-group walk's redesign, ``csrc/sdpa_groups_ws.cu``: a
+producer warp and two consumer warpgroups, one block a run of a cell's
+heads by ``groups_plan``; the head-group layout of ``csrc/sdpa_ablation.cu``
+stays reachable as ``allheads_sdpa_serial`` for an A/B on the same card (it
+counts no launch).  H runs the packed layout of ``csrc/sdpa_ablation.cu``.
+Beside each wrapper is the plain version of its Pallas body, in the
 body's full-row form: fp32 scores, the masked term ``(mask - 1) * 1e9``,
 ``scale = 1/sqrt(48)``, P cast to bf16 before P.V and the division after.
 The kernels take the softmax online over 64-key tiles, which differs from
@@ -181,19 +189,72 @@ def _launch(variant: int, layout: int, q, k, v, mask, batch: int,
     return out
 
 
-def _heads_call(wrapper, variant: int, plain, q, k, v, mask):
-    """A ``run`` kernel: q, k, v [B*H, T, 48], mask [B, 1, T]; cell (b, h)
-    reads mask row b (the script's index map ``i // H``)."""
+# The plan of the per-head walk's redesign (csrc/sdpa_heads_ws.cu)
+
+def heads_plan(n_bh: int, t: int, slots: int) -> np.ndarray:
+    """int32 [blocks, 2], one persistent block each: (first unit, units).
+    A unit is (head bh, a pair of 64-row query tiles), numbered ``bh *
+    pairs + pair``, so that the units of a head are neighbours (they read
+    the same keys); the units are cut into ``min(units, slots)`` contiguous
+    runs whose lengths differ by one at most, the longer first."""
+    pairs = -(-(-(-t // 64)) // 2)
+    units = n_bh * pairs
+    blocks = min(units, slots)
+    counts = units // blocks + (np.arange(blocks) < units % blocks)
+    firsts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return np.stack([firsts, counts], axis=1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_heads_plan(n_bh: int, t: int, index: int) -> torch.Tensor:
+    """``heads_plan`` on card ``index``, one block an SM, made once a shape:
+    the first call of a shape copies it to the card, so it must not be under
+    CUDA-graph capture."""
+    return torch.from_numpy(heads_plan(n_bh, t, _sm_count(index))).to(
+        f"cuda:{index}")
+
+
+def _walk(variant: int, layout: int, q, k, v, mask, batch: int,
+          n_heads: int, t: int, plan=None, out=None) -> torch.Tensor:
+    """``sdpa_heads_ws_kernel`` of ``variant`` on q, k, v [B*H, T, 48] into
+    ``out`` (new when None), by ``plan`` (``heads_plan``'s, on the card;
+    the device plan of the shape when None)."""
+    if plan is None:
+        plan = _device_heads_plan(batch * n_heads, t, q.device.index)
+    out = torch.empty_like(q) if out is None else out
+    with torch.cuda.device(q.device):
+        cuda_lib.check(cuda_lib.library("sdpa_heads_ws").gigaam_sdpa_heads_ws(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), plan.data_ptr(), len(plan), variant, layout,
+            batch, n_heads, t, SCALE, _stream(q.device)),
+            "gigaam_sdpa_heads_ws")
+    return out
+
+
+def _check_heads(variant: int, q, k, v, mask):
+    """(B, H, T) of a ``run`` kernel's q, k, v [B*H, T, 48] and mask (or
+    madd) [B, 1, T]."""
     n, t = q.shape[:2]
     b = mask.shape[0]
-    if q.device.type == "cpu":
-        return plain(q, k, v, mask.repeat_interleave(n // b, dim=0))
     _require(q.dim() == 3 and n % b == 0,
              f"q must be [B*H, T, {D}] for a mask [B, 1, T], got "
              f"{tuple(q.shape)} and {tuple(mask.shape)}")
     _check_qkv(q, k, v, (n, t, D))
     _check_mask(mask, q.device, variant in (_MADD_ROW, _BF16_EXP), (b, 1, t))
-    out = _launch(variant, _HEADS, q, k, v, mask, b, n // b, t)
+    return b, n // b, t
+
+
+def _heads_call(wrapper, variant: int, plain, q, k, v, mask):
+    """A ``run`` kernel: q, k, v [B*H, T, 48], mask [B, 1, T]; cell (b, h)
+    reads mask row b (the script's index map ``i // H``).  On the card the
+    per-head walk, but for the copy, which keeps its kernel."""
+    n = q.shape[0]
+    if q.device.type == "cpu":
+        return plain(q, k, v, mask.repeat_interleave(n // mask.shape[0],
+                                                     dim=0))
+    b, h, t = _check_heads(variant, q, k, v, mask)
+    route = _launch if variant == _COPY else _walk
+    out = route(variant, _HEADS, q, k, v, mask, b, h, t)
     wrapper.launches += 1
     return out
 
@@ -338,19 +399,48 @@ def allheads_sdpa_serial(q4, k4, v4, mask, heads_per_block: int = H):
                    heads_per_block)
 
 
-def identity_maps_sdpa(q, k, v, mask_bh):
-    """K_identity_maps (``k_full`` with the mask per cell): q, k, v [B*H, T,
-    48], mask_bh [B*H, 1, T]; cell i reads mask row i."""
-    if q.device.type == "cpu":
-        return full_plain(q, k, v, mask_bh)
+def _check_identity(q, k, v, mask_bh):
     _require(q.dim() == 3, f"q must be [B*H, T, {D}], got {tuple(q.shape)}")
     n, t = q.shape[:2]
     _check_qkv(q, k, v, (n, t, D))
     _check_mask(mask_bh, q.device, False, (n, 1, t))
+    return n, t
+
+
+def identity_maps_sdpa(q, k, v, mask_bh):
+    """K_identity_maps (``k_full`` with the mask per cell): q, k, v [B*H, T,
+    48], mask_bh [B*H, 1, T]; cell i reads mask row i.  On the card the
+    per-head walk."""
+    if q.device.type == "cpu":
+        return full_plain(q, k, v, mask_bh)
+    n, t = _check_identity(q, k, v, mask_bh)
     # one batch element of n heads: mask row b * n_heads + h = h
-    out = _launch(_FULL, _MASK_PER_HEAD, q, k, v, mask_bh, 1, n, t)
+    out = _walk(_FULL, _MASK_PER_HEAD, q, k, v, mask_bh, 1, n, t)
     identity_maps_sdpa.launches += 1
     return out
+
+
+# the wrappers on the per-head walk: (variant, layout) of each
+_HEADS_WS = {"full_sdpa": (_FULL, _HEADS),
+             "scores_only_sdpa": (_TWO_PRODUCTS, _HEADS),
+             "no_max_sdpa": (_NO_MAX, _HEADS),
+             "prescaled_sdpa": (_NO_SCALE, _HEADS),
+             "maddrow_sdpa": (_MADD_ROW, _HEADS),
+             "bf16_softmax_sdpa": (_BF16_EXP, _HEADS),
+             "identity_maps_sdpa": (_FULL, _MASK_PER_HEAD)}
+
+
+def heads_sdpa_kept(wrapper, q, k, v, mask):
+    """``wrapper`` (one of ``_HEADS_WS``: a P12 body or P10) on the design
+    the per-head walk replaced: K3's body in ``csrc/sdpa_ablation.cu``, one
+    warpgroup a (64-row query tile, head, batch element).  Card only;
+    counts no launch: kept for an A/B on the same card."""
+    variant, layout = _HEADS_WS[wrapper.__name__]
+    if layout == _MASK_PER_HEAD:
+        b, (h, t) = 1, _check_identity(q, k, v, mask)
+    else:
+        b, h, t = _check_heads(variant, q, k, v, mask)
+    return _launch(variant, layout, q, k, v, mask, b, h, t)
 
 
 def packed_sdpa(q3, k3, v3, mask):
