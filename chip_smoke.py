@@ -77,7 +77,16 @@ Phases, each fatal on failure:
    against its kept kernel of ``csrc/sdpa_ablation.cu`` (held to the plain
    version too, compared bit for bit; ``A_full`` and P10 in turns as P9,
    the other kept bodies by one fenced kernel sum at the first shape); the
-   copy, on its kept kernel, beside ``q4.clone()``'s fenced sum; then the
+   copy, on its kept kernel, beside ``q4.clone()``'s fenced sum; P11 on
+   the per-head walk's packed instance (``csrc/sdpa_packed_heads_ws.cu``,
+   each head read through a 4-D tensor map), bit-equal to K3's heads moved
+   to the packed layout and to its kept kernel, in turns with it at both
+   shapes, with the per-head walk's planted faults in the packed layout and
+   two slips of its map (a 3-D map over the flat 768 columns at column 48 h,
+   whose box reaches 16 columns into the next head where no product reads,
+   must keep the bits; the same 16 columns over must be caught), beside two
+   library calls (SDPA on contiguous heads with the transposes, and on
+   strided views of the packed tensors); then the
    ablation's own ``main`` with both switches, from zeroed launch counts,
    printed as an ``ablation`` line in microseconds, and the phase's wall;
 9. the FFN and conv-module fold probes (P4, P5,
@@ -121,7 +130,10 @@ Phases, each fatal on failure:
    for P1, the SM clock and power under 400 gapless calls (``nvidia-smi``
    samples), which turns the card's reading into the graph's;
    P3's shared-memory ceiling against the card's opt-in limit, with 2 x
-   exact at every granted size; then the probe's own ``main``, from zeroed
+   exact at every granted size from its bulk-copy redesign
+   (``csrc/smem_probe_ws.cu``) and its kept kernel, the two timed in turns
+   beside an empty kernel on the same grid (the floor of one launch) and
+   ``x * 2``; then the probe's own ``main``, from zeroed
    launch counts, printed as a ``subsampling_probe`` line in microseconds;
 11. the attention-fold probes (P6-P8,
    ``gigaam_tpu_torch/probes/attn_fold_probes.py``): P6 (nb 2 and 4), P7
@@ -279,7 +291,8 @@ Phases, each fatal on failure:
 Before the card's line, an ``rnnt`` line holds phase 14's numbers, a
 ``longform`` line phase 15's, an ``rnnt_beam`` line phase 16's, an
 ``ingest_train`` line phase 17's, ``export`` and ``serve`` lines phase
-18's and a ``parallel`` line phase 19's.  ``python3 chip_smoke.py --batch1-wall`` times batch-1
+18's, a ``parallel`` line phase 19's and a ``phase walls`` line the wall
+seconds of each phase.  ``python3 chip_smoke.py --batch1-wall`` times batch-1
 ``transcribe`` alone (``batch1_wall``).  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
@@ -397,7 +410,8 @@ PEAK_BYTES = 3.35e12
 
 D_MODEL, N_HEADS, D_HEAD = 768, 16, 48
 # registers a thread of K3's kernel, of P1/P2's, P4's and P6/P7's core
-# instances and of P9's walk as ptxas (CUDA 12.8) reports them for sm_90a,
+# instances and of P9's and P10/P12's walks as ptxas (CUDA 12.8) reports
+# them for sm_90a,
 # which the kernels added beside them must leave as they are (no spills is
 # checked for every `wgmma` kernel)
 KEPT_REGISTERS = {"sdpa_kernel": 98, "ws_conv_kernel<256, 2, true>": 168,
@@ -406,7 +420,8 @@ KEPT_REGISTERS = {"sdpa_kernel": 98, "ws_conv_kernel<256, 2, true>": 168,
                   "ws_conv_kernel<128, 1, false>": 168,
                   "sdpa_groups_ws_kernel": 168, "ffn_ws_kernel<1>": 168,
                   "ffn_ws_kernel<2>": 168,
-                  **{k: 168 for k in cuda_lib.ATTN_FOLD_WS_KERNELS}}
+                  **{k: 168 for k in cuda_lib.ATTN_FOLD_WS_KERNELS
+                     + cuda_lib.HEADS_WS_KERNELS}}
 # the inference main path of K3: a clip past the encoder's fold bound
 # (_MAX_FOLD_T = 3000 frames at 25 a second)
 K3_SECONDS, K3_T = 125.0, 3125
@@ -1241,6 +1256,9 @@ HEADS_WS_LABELS = ("A_full", "K_identity_maps", "B_two_matmuls",
                    "D_no_max_pass", "E_prescaled_q", "E2_madd_row",
                    "G_bf16_softmax")
 HEADS_WS_AB = HEADS_WS_LABELS[:2]
+# P11: on the per-head walk's packed instance, timed against its kept kernel
+# in turns at both shapes
+P11_LABEL = "H_packed_lane_slice"
 # the exponential unit's rate on an H100 SXM as FlashAttention-3 (arXiv
 # 2407.08608) states it, about 3.9 T exponentials a second: a published
 # figure, not measured here, so its floor is printed and kept out of the
@@ -1287,8 +1305,9 @@ def ablation_bound(label: str, b: int, t: int):
 def ablation_calls(sa, q, k, v, valid, b: int, t: int):
     """({label: (kernel call, plain call, library call or None, planted
     faults)}, {label: the mask argument of its wrapper} of the bodies that
-    take q, k, v [B*H, T, 48]); each call returns [B, H, T, 48] (packed:
-    [B, T, H*48])."""
+    take q, k, v [B*H, T, 48], {label: {"same_bits": planted slips that
+    must keep the kernel's bits, "library_strided": a second library
+    call}}); each call returns [B, H, T, 48] (packed: [B, T, H*48])."""
     h = N_HEADS
     mask = valid[:, None].to(torch.int8).contiguous()
     madd = ((mask.float() - 1.0) * 1e9).contiguous()
@@ -1373,6 +1392,12 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int):
                  torch.zeros_like(q)).view(b, h, t, D_HEAD)))
         calls[label] = calls[label][:3] + (faults,)
     q3_permuted = q3.view(b, t, h, D_HEAD).roll(1, 2).reshape(b, t, -1)
+    k3_prev, v3_prev = (x.view(b, t, h, D_HEAD).roll(1, 2).reshape(b, t, -1)
+                        for x in (k3, v3))
+    q3_swapped = swap_query_tiles(q3)
+    short = sa.heads_plan(b * h, t, sms)
+    short[:, 1] -= 1
+    short = torch.from_numpy(short).to(q.device)
 
     def packed_library():
         # what the packed layout would remove around K3: the head transposes
@@ -1382,12 +1407,36 @@ def ablation_calls(sa, q, k, v, valid, b: int, t: int):
         out = F.scaled_dot_product_attention(*split, attn_mask=valid4)
         return out.transpose(1, 2).reshape(b, t, h * D_HEAD)
 
+    def packed_library_strided():
+        # the library's SDPA on strided views of the packed tensors (no
+        # input copies), then the output back to the packed layout
+        views = (x.view(b, t, h, D_HEAD).transpose(1, 2) for x in (q3, k3, v3))
+        out = F.scaled_dot_product_attention(*views, attn_mask=valid4)
+        return out.transpose(1, 2).reshape(b, t, h * D_HEAD)
+
     calls["H_packed_lane_slice"] = (
         lambda: sa.packed_sdpa(q3, k3, v3, mask),
         lambda: sa.full_packed_plain(q3, k3, v3, mask), packed_library,
         (("heads permuted in the packed q",
-          lambda: sa.packed_sdpa(q3_permuted, k3, v3, mask)),))
-    return calls, masks
+          lambda: sa.packed_sdpa(q3_permuted, k3, v3, mask)),
+         ("columns 32-47 of each box from the next head (the flat map 16 "
+          "columns over)",
+          lambda: sa._packed_walk(q3, k3, v3, mask, b, t, flat=16)),
+         ("the K/V of the previous head",
+          lambda: sa.packed_sdpa(q3, k3_prev, v3_prev, mask)),
+         ("the two query tiles of a unit swapped",
+          lambda: sa.packed_sdpa(q3_swapped, k3, v3, mask)),
+         ("each persistent block skipping its last unit",
+          lambda: sa._packed_walk(q3, k3, v3, mask, b, t, short,
+                                  torch.zeros_like(q3)))))
+    extras = {"H_packed_lane_slice": dict(
+        # slips that must keep the kernel's bits
+        same_bits=(("the flat map over the 768 columns: columns 48-63 of "
+                    "each box from the next head, which no product reads",
+                    lambda: sa._packed_walk(q3, k3, v3, mask, b, t,
+                                            flat=0)),),
+        library_strided=packed_library_strided)}
+    return calls, masks, extras
 
 
 def ablation_phase(gen, dev):
@@ -1408,13 +1457,17 @@ def ablation_phase(gen, dev):
                    for gain in (QK_GAIN, QK_GAIN, 1.0))
         q, k, v = (a.to(dev, torch.bfloat16) for a in (q, k, v))
         valid = ragged_valid(b, t, dev)
-        calls, masks = ablation_calls(sa, q, k, v, valid, b, t)
+        calls, masks, extras = ablation_calls(sa, q, k, v, valid, b, t)
         k3 = fa.fused_mha(*(x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v)),
                           valid)
         if not torch.equal(calls["A_full"][0](), k3):
             raise AssertionError(f"A_full B={b} T'={t}: not K3's bits")
+        # P11: K3's heads moved to the packed layout
+        if not torch.equal(calls[P11_LABEL][0](), k3.transpose(1, 2).reshape(
+                b, t, N_HEADS * D_HEAD)):
+            raise AssertionError(f"{P11_LABEL} B={b} T'={t}: not K3's bits")
         for label, (kernel, plain, lib, faults) in calls.items():
-            packed = label == "H_packed_lane_slice"
+            packed = label == P11_LABEL
             got = kernel()
             if not torch.equal(kernel(), got):
                 raise AssertionError(f"{label}: two calls differ")
@@ -1422,6 +1475,12 @@ def ablation_phase(gen, dev):
                 f"{label} B={b} T'={t}", got, plain(), valid,
                 1 if packed else 2, faults if (b, t) == ABLATION_SHAPES[0]
                 else ())
+            for what, fn in extras.get(label, {}).get("same_bits", ()):
+                same = torch.equal(fn(), got)
+                print(f"  {label} B={b} T'={t} planted slip, {what}: "
+                      f"bit-equal {same}", flush=True)
+                if not same:
+                    raise AssertionError(f"{label}: {what} moved the bits")
             ms = time_ms(kernel)
             sum_ms = sum(device_ms(kernel).values())
             plain_ms = time_ms(plain, iters=5)
@@ -1437,10 +1496,23 @@ def ablation_phase(gen, dev):
             readings[label][(b, t)] = dict(
                 ms=ms, sum_ms=sum_ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, max_abs_err=err)
-            if label in P9_CELLS or label in HEADS_WS_LABELS:
+            if label in P9_CELLS or label in HEADS_WS_LABELS or packed:
                 readings[label][(b, t)].update(kept_ab(
                     sa, label, q, k, v, masks.get(label), valid, b, t,
                     kernel, got, plain(), lib))
+            if packed:
+                # the library's SDPA on strided views, beside the one on
+                # contiguous heads (``lib``)
+                strided = extras[label]["library_strided"]
+                r = readings[label][(b, t)]
+                r["library_strided_ms"] = time_ms(strided)
+                r["library_strided_sum_ms"] = sum(device_ms(strided).values())
+                print(f"  {label} B={b} T'={t} library: contiguous heads "
+                      f"{r['library_sum_ms']:.4f} ms on the card, "
+                      f"{lib_ms:.4f} ms by events; strided views "
+                      f"{r['library_strided_sum_ms']:.4f} ms on the card, "
+                      f"{r['library_strided_ms']:.4f} ms by events; the walk "
+                      f"{r['ab']['sum_ms']:.4f} ms on the card", flush=True)
             if label == "F_copy_only":
                 # the copy against the library's, both fenced
                 clone_ms = sum(device_ms(lib).values())
@@ -1448,7 +1520,7 @@ def ablation_phase(gen, dev):
                       f" ms on the card", flush=True)
                 readings[label][(b, t)]["library_sum_ms"] = clone_ms
         print(f"A_full B={b} T'={t}: K3's bits", flush=True)
-        del calls, q, k, v
+        del calls, extras, q, k, v
     torch.cuda.empty_cache()
 
     # the ablation's main path: the script's main with both switches
@@ -1481,14 +1553,24 @@ def kept_ab(sa, label, q, k, v, m, valid, b: int, t: int, kernel, got,
             ref, lib) -> dict:
     """A redesigned kernel of the ablation (P9's head-group walk, the
     per-head walk of P10 and P12's bodies, whose wrapper takes the mask
-    ``m``) against the kernel it replaced (held to the plain version ``ref``
-    too) at one shape: the blocks of each grid, whether the two agree bit
-    for bit, and the times: for P9 and HEADS_WS_AB both in turns (redesign,
-    kept, kept, redesign) by CUDA events, the profile's kernel sum and graph
-    replays, beside SDPA's kernel sum; for the other bodies the kept
-    kernel's fenced kernel sum at the first shape."""
+    ``m``, and its packed instance, P11, on q, k, v moved to [B, T, H*48])
+    against the kernel it replaced (held to the plain version ``ref`` too)
+    at one shape: the blocks of each grid, whether the two agree bit for bit
+    (P11 must), and the times: for P9, HEADS_WS_AB and P11 both in turns
+    (redesign, kept, kept, redesign) by CUDA events, the profile's kernel
+    sum and graph replays, beside the library call's kernel sum; for the
+    other bodies the kept kernel's fenced kernel sum at the first shape."""
     sms = torch.cuda.get_device_properties(valid.device).multi_processor_count
-    if label in P9_CELLS:
+    time_dim = 2
+    if label == P11_LABEL:
+        mask = valid[:, None].to(torch.int8).contiguous()
+        q3, k3, v3 = (x.view(b, N_HEADS, t, D_HEAD).transpose(1, 2).reshape(
+            b, t, N_HEADS * D_HEAD) for x in (q, k, v))
+        kept = lambda: sa.packed_sdpa_kept(q3, k3, v3, mask)
+        blocks = len(sa.heads_plan(b * N_HEADS, t, sms))
+        old_blocks = -(-t // 64) * N_HEADS * b
+        time_dim = 1
+    elif label in P9_CELLS:
         hc = P9_CELLS[label]
         q4, k4, v4 = (x.view(b, N_HEADS, t, D_HEAD) for x in (q, k, v))
         mask = valid[:, None].to(torch.int8).contiguous()
@@ -1503,11 +1585,14 @@ def kept_ab(sa, label, q, k, v, m, valid, b: int, t: int, kernel, got,
         old_blocks = -(-t // 64) * N_HEADS * b
     old = kept()
     old_err, _ = check_kernel(f"{label} B={b} T'={t} (the kept kernel)", old,
-                              ref, valid, 2, ())
+                              ref, valid, time_dim, ())
     same = torch.equal(old, got)
+    if label == P11_LABEL and not same:
+        raise AssertionError(f"{label} B={b} T'={t}: not its kept kernel's "
+                             f"bits")
     out = dict(blocks=blocks, bit_equal_kept=same)
     text = f"the kept kernel ({old_blocks} blocks) "
-    if label in P9_CELLS or label in HEADS_WS_AB:
+    if label in P9_CELLS or label in HEADS_WS_AB or label == P11_LABEL:
         times, split, old_times, _ = ab_times(kernel, kept, got)
         lib_ms = sum(device_ms(lib).values())
         text += (f"{times_text(old_times)}; the redesign ({blocks} blocks) "
@@ -1545,21 +1630,24 @@ def ablation_kernel_rows(rows: dict, launches: dict) -> list:
                 for a in [{k: v for k, v in j.items() if k != "also"},
                           *j["also"]]]
         p9, walk = label in P9_CELLS, label in HEADS_WS_LABELS
+        p11 = label == P11_LABEL
         redesign = ("graph_ms", "ab", "blocks", "kept", "bit_equal_kept")
         out.append({
             "name": f"{probe} {label} {wrapper}", "route": "cuda",
             "source": "gigaam_tpu_torch/csrc/" + (
                 "sdpa_groups_ws.cu" if p9 else
-                "sdpa_heads_ws.cu" if walk else "sdpa_ablation.cu"),
+                "sdpa_heads_ws.cu" if walk else
+                "sdpa_packed_heads_ws.cu" if p11 else "sdpa_ablation.cu"),
             "replaces": f"benchmarks/sdpa_ablation.py:"
                         f"{ABLATION_REPLACES[probe]}",
             "launches": launches[wrapper], **{
                 key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "sum_ms", "ablation_us", "shape", "also")},
-            **({"status": "redesigned"} if p9 or walk else {}),
-            **{key: r[key] for key in redesign + ("library_sum_ms",)
-               if key in r}})
+            **({"status": "redesigned"} if p9 or walk or p11 else {}),
+            **{key: r[key] for key in redesign + (
+                "library_sum_ms", "library_strided_ms",
+                "library_strided_sum_ms") if key in r}})
     return out
 
 
@@ -2037,13 +2125,23 @@ def three_times(fn, out):
                 graph_ms=graph_ms), split
 
 
-def ab_times(kernel, ring, out):
-    """``three_times`` of the redesign and the ring in turns (redesign,
-    ring, ring, redesign), each reading the mean of its two: (redesign's,
-    its kernels, ring's, its kernels)."""
+def launch_times(fn, x):
+    """``three_times`` without the profile's floor, for kernels of a few
+    microseconds, where the profile's sum and the graph replays, which hold
+    the gaps between launches, need not agree; ``x``, a CUDA tensor,
+    selects the device and is not chained."""
+    split = device_ms(fn)
+    return dict(ms=time_ms(fn), sum_ms=sum(split.values()),
+                graph_ms=device_timeit(lambda _: fn(), [x], k=20) * 1e3), split
+
+
+def ab_times(kernel, ring, out, measure=three_times):
+    """``measure`` (``three_times``) of the redesign and the ring in turns
+    (redesign, ring, ring, redesign), each reading the mean of its two:
+    (redesign's, its kernels, ring's, its kernels)."""
     got = {}
     for name, fn in (("k", kernel), ("r", ring), ("r", ring), ("k", kernel)):
-        got.setdefault(name, []).append(three_times(fn, out))
+        got.setdefault(name, []).append(measure(fn, out))
     mean = lambda runs: {key: sum(r[key] for r, _ in runs) / len(runs)
                          for key in runs[0][0]}
     return mean(got["k"]), got["k"][0][1], mean(got["r"]), got["r"][0][1]
@@ -2119,7 +2217,9 @@ def subsampling_probe_phase(dev):
     to the plain version too); the redesign's step instances and forced K
     splits held to the plain version (``subsampling_variant_checks``); at
     B 16 P2's kernels and peak memory (no patch); P3's ceiling against the
-    card's opt-in limit, 2 x exact at every granted size; then
+    card's opt-in limit, 2 x exact at every granted size from the bulk copy
+    and the kept kernel, the two timed in turns beside an empty kernel and
+    ``x * 2``; then
     the probe's own ``main``, from zeroed launch counts.  Returns ({id:
     JSON row}, {wrapper: launches in ``main``})."""
     from gigaam_tpu_torch.probes import subsampling_probe as sp
@@ -2192,27 +2292,41 @@ def subsampling_probe_phase(dev):
         torch.cuda.empty_cache()
 
     # P3: the ceiling is the card's opt-in limit; 2 x comes back exactly at
-    # every granted size, and the next size is refused
+    # every granted size, from the bulk-copy redesign and the kept kernel,
+    # and the next size is refused
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     x = torch.randn(8, 1024, device=dev).to(torch.bfloat16)
     sizes = [kb * 1024 for kb in sp.SMEM_LADDER_KB if kb * 1024 <= limit]
+    blocks = {}
     for n_bytes in sizes:
-        if not torch.equal(sp.smem_copy(x, n_bytes)[0], x * 2):
-            raise AssertionError(f"P3 at {n_bytes} bytes: not 2 x")
+        out, blocks[n_bytes] = sp.smem_copy(x, n_bytes)
+        if not (torch.equal(out, x * 2)
+                and torch.equal(sp.smem_copy_kept(x, n_bytes)[0], out)):
+            raise AssertionError(f"P3 at {n_bytes} bytes: not 2 x, or not "
+                                 f"the kept kernel's")
     try:
         sp.smem_copy(x, limit + 1024)
     except sp.SharedMemoryRefused as e:
         print(f"P3 smem_copy: 2 x exact at {len(sizes)} sizes up to {limit} "
-              f"bytes; {limit + 1024} refused ({e})", flush=True)
+              f"bytes (the kept kernel too), blocks an SM {blocks}; "
+              f"{limit + 1024} refused ({e})", flush=True)
     else:
         raise AssertionError(f"P3: {limit + 1024} bytes were granted")
     kernel = lambda: sp.smem_copy(x, limit)[0]
-    p3 = dict(ms=time_ms(kernel), sum_ms=sum(device_ms(kernel).values()),
-              graph_ms=None, plain_ms=time_ms(lambda: sp.vmem_plain(x, limit)),
-              library_ms=time_ms(lambda: x * 2), library_cl_ms=None,
+    kept = lambda: sp.smem_copy_kept(x, limit)[0]
+    times, _, kept_times, _ = ab_times(kernel, kept, x, launch_times)
+    floor = launch_times(lambda: sp.empty_launch(dev), x)[0]
+    lib = launch_times(lambda: x * 2, x)[0]
+    p3 = dict(times, plain_ms=time_ms(lambda: sp.vmem_plain(x, limit)),
+              library_ms=lib["ms"], library_sum_ms=lib["sum_ms"],
+              library_graph_ms=lib["graph_ms"], library_cl_ms=None,
+              floor=floor, kept=kept_times, blocks_per_sm=blocks[limit],
               max_abs_err=0.0,
               shape=f"x [8, 1024] through {limit} bytes of shared memory")
     p3["bound_ms"], p3["bound_by"] = bound(4 * x.numel(), 0, 0)
+    print(f"P3 smem_copy A/B: the kept kernel {times_text(kept_times)}; the "
+          f"bulk copy {times_text(times)}; an empty kernel on its grid "
+          f"{times_text(floor)}; x * 2 {times_text(lib)}", flush=True)
     print(f"P3 smem_copy: {json.dumps(p3)}", flush=True)
 
     # the probe's main path: the script's main at its shapes
@@ -2254,18 +2368,22 @@ def subsampling_probe_phase(dev):
 
 def subsampling_kernel_rows(rows: dict, launches: dict) -> list:
     """The kernels line's rows of P1-P3: P1 and P2 the redesign
-    (``csrc/subsampling_ws.cu``), with the ring's readings under
-    ``ring``."""
+    (``csrc/subsampling_ws.cu``), with the ring's readings under ``ring``;
+    P3 the bulk copy (``csrc/smem_probe_ws.cu``), with the kept kernel's
+    readings under ``kept`` and an empty kernel's under ``floor``."""
     return [{
         "name": f"{pid} {wrapper}", "route": "cuda",
-        "source": ("gigaam_tpu_torch/csrc/subsampling_probe.cu" if pid == "P3"
+        "source": ("gigaam_tpu_torch/csrc/smem_probe_ws.cu" if pid == "P3"
                    else "gigaam_tpu_torch/csrc/subsampling_ws.cu"),
-        "replaces": repl, "launches": launches[wrapper], **{
+        "replaces": repl, "launches": launches[wrapper], "status":
+        "redesigned", **{
             key: rows[pid][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "sum_ms", "graph_ms", "library_cl_ms",
                 "probe_us", "shape", "also") + tuple(
-                    k for k in ("ring",) if k in rows[pid])}}
+                    k for k in ("ring", "kept", "floor", "library_sum_ms",
+                                "library_graph_ms", "blocks_per_sm")
+                    if k in rows[pid])}}
         for pid, (wrapper, repl, _) in SUB_PROBES.items()]
 
 
@@ -6109,18 +6227,21 @@ def build_kernels() -> dict:
     wgmma_kernels += (cuda_lib.ATTN_FOLD_WS_KERNELS
                       + cuda_lib.ATTN_LNRES_WS_KERNELS
                       + cuda_lib.CONV_FOLD_WS_KERNELS[:2]
-                      + cuda_lib.HEADS_WS_KERNELS)
+                      + cuda_lib.HEADS_WS_KERNELS
+                      + (cuda_lib.PACKED_HEADS_WS_KERNEL,))
     if not set(wgmma_kernels) | {"ln_rope_kernel<true>",
                                  "ln_rope_kernel<false>",
-                                 "conv_dw_kernel"} <= set(resources):
+                                 "conv_dw_kernel", "smem_bulk_kernel",
+                                 "smem_probe_kernel"} <= set(resources):
         raise AssertionError(f"the build reported {sorted(resources)}")
     spilled = [k for k in wgmma_kernels if resources[k]["spill_bytes"]]
     if spilled:
         raise AssertionError(f"register spills in {spilled}")
-    # the per-head walk keeps its products in flight (ptxas C7513: a
-    # product's register input redefined in flight, the products serialised)
+    # the per-head walk and its packed instance keep their products in
+    # flight (ptxas C7513: a product's register input redefined in flight,
+    # the products serialised)
     serialised = [line for line in "\n".join(logs).splitlines()
-                  if "C7513" in line and "sdpa_heads_ws" in line]
+                  if "C7513" in line and "heads_ws" in line]
     if serialised:
         raise AssertionError(f"ptxas serialised the per-head walk: "
                              f"{serialised}")
@@ -6151,19 +6272,33 @@ def main() -> int:
     print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
+    # the wall seconds of each phase, printed before the card's line
+    walls, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = round(now - last[0], 1)
+        last[0] = now
+
     build_kernels()
+    lap("kernel build")
 
     rows = kernel_phase(dev)
     gen = torch.Generator().manual_seed(1)
     rows["K4"] = bwd_kernel_phase(gen, dev, relpos=False)
     rows["K6"] = bwd_kernel_phase(gen, dev, relpos=True)
+    lap("kernels K1-K6")
     ablation_rows, ablation_launches = ablation_phase(gen, dev)
+    lap("ablation P9-P12")
     fold_rows, fold_launches = fold_probe_phase(dev)
     torch.cuda.empty_cache()
+    lap("fold probes P4/P5")
     sub_rows, sub_launches = subsampling_probe_phase(dev)
     torch.cuda.empty_cache()
+    lap("subsampling probes P1-P3")
     attn_fold_rows, attn_fold_launches = attn_fold_probe_phase(dev)
     torch.cuda.empty_cache()
+    lap("attention-fold probes P6-P8")
     rng = np.random.default_rng(0)
     model = gt.load_model("v3_ctc", init="random", seed=0)
     launches = main_path(model, rng, card)
@@ -6177,6 +6312,7 @@ def main() -> int:
     del emo
     reference_phase(asr, v2_ctc(device="cpu"), rng, ("K5",) * 3)
     torch.cuda.empty_cache()
+    lap("inference paths")
 
     with tempfile.TemporaryDirectory() as root:
         manifest = write_train_set(root, rng, 32, 10.0, 20.0)
@@ -6189,22 +6325,29 @@ def main() -> int:
         for name in ("v3_ctc", "v2_ctc"):
             training_reference_phase(name, manifest)
     launches["K4"], launches["K6"] = train_launches["K4"], train_launches["K6"]
+    lap("training")
     rnnt = rnnt_path(card)
+    lap("rnnt")
     for key in ("K1", "K2"):
         launches[key] += rnnt["launches"][key]
     longform = longform_path(card)
+    lap("longform")
     for key in ("K1", "K2", "K5"):
         launches[key] += longform["launches"][key]
     beam = beam_path(card)
+    lap("beam")
     for key in ("K1", "K2"):
         launches[key] += beam["launches"][key]
     ingest_train = ingest_train_path(card)
+    lap("ingest and train")
     for key, n in ingest_train["launches"].items():
         launches[key] += n
     export_serve = export_serve_path(card)
+    lap("export and serve")
     for key, n in export_serve["launches"].items():
         launches[key] += n
     parallel = parallel_path(card)
+    lap("parallel")
     for key, n in parallel["launches"].items():
         launches[key] += n
 
@@ -6248,6 +6391,7 @@ def main() -> int:
                                      export_serve["seconds_by_step"],
                                      seconds=export_serve["seconds"])))
     print("parallel " + json.dumps(parallel))
+    print("phase walls " + json.dumps(walls), flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_sdpa_heads_ws": [_P] * 6 + [_I] * 6 + [_F, _P],
         "gigaam_sdpa_heads_ws_occupancy": [_P],
     },
+    "sdpa_packed_heads_ws": {
+        "gigaam_sdpa_packed_heads_ws": [_P] * 6 + [_I] * 5 + [_F, _P],
+        "gigaam_sdpa_packed_heads_ws_occupancy": [_P],
+    },
     "attn_fold_ws": {
         "gigaam_fold_ws_qkv": [_P] * 12 + [_I] * 5 + [_P],
         "gigaam_fold_ws_out": [_P] * 5 + [_I] * 4 + [_P],
@@ -94,6 +98,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gigaam_probe_gemm": [_P] * 4 + [_I] * 5 + [_P],
         "gigaam_smem_probe": [_P, _P, _I, _P, _P],
         "gigaam_subsampling_probe_occupancy": [_P],
+    },
+    "smem_probe_ws": {
+        "gigaam_smem_probe_ws": [_P, _P, _I, _P, _P],
+        "gigaam_smem_probe_ws_empty": [_P],
     },
     "ffn_ws": {
         "gigaam_ffn_ws_rows": [_P] * 4 + [_I, _P],
@@ -133,6 +141,9 @@ CONV_FOLD_WS_KERNELS = ("conv_fold_ws_kernel<1>", "conv_fold_ws_kernel<2>",
 # order of gigaam_sdpa_heads_ws_occupancy
 HEADS_WS_KERNELS = tuple(f"sdpa_heads_ws_kernel<{v}>" for v in (0, 2, 3, 4, 5,
                                                                  6))
+# P11's redesign: the per-head walk's packed instance
+# (csrc/sdpa_packed_heads_ws.cu)
+PACKED_HEADS_WS_KERNEL = "sdpa_packed_heads_ws_kernel"
 
 
 def _nvcc() -> str:
@@ -256,7 +267,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
     epilogue (the third template argument: 0 no residual, 1 the residual
     added in bf16, 2 in fp32), the fold probes' kernels (and P4's
     redesign: its two products, 1 the SiLU epilogue, 2 the residual one),
-    the head-group walk's redesign (P9), the per-head walk's (P10, P12),
+    the head-group walk's redesign (P9), the per-head walk's (P10, P12)
+    and its packed instance (P11),
     the attention-fold redesign's
     kernels (P6, P7, and P8's output product), P5's redesign, the
     subsampling
@@ -282,6 +294,8 @@ def dynamic_resources() -> Dict[str, Dict[str, int]]:
              ("sdpa_groups_ws_kernel",)),
             ("sdpa_heads_ws", "gigaam_sdpa_heads_ws_occupancy",
              HEADS_WS_KERNELS),
+            ("sdpa_packed_heads_ws", "gigaam_sdpa_packed_heads_ws_occupancy",
+             (PACKED_HEADS_WS_KERNEL,)),
             ("attn_fold_ws", "gigaam_attn_fold_ws_occupancy",
              ATTN_FOLD_WS_KERNELS),
             ("attn_lnres_ws", "gigaam_attn_lnres_ws_occupancy",

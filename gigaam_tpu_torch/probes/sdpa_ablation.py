@@ -41,7 +41,12 @@ and J run the head-group walk's redesign, ``csrc/sdpa_groups_ws.cu``: a
 producer warp and two consumer warpgroups, one block a run of a cell's
 heads by ``groups_plan``; the head-group layout of ``csrc/sdpa_ablation.cu``
 stays reachable as ``allheads_sdpa_serial`` for an A/B on the same card (it
-counts no launch).  H runs the packed layout of ``csrc/sdpa_ablation.cu``.
+counts no launch).  H runs the walk's packed instance,
+``csrc/sdpa_packed_heads_ws.cu`` (the same device code,
+``csrc/sdpa_heads_walk.cuh``, each head's tiles read through a 4-D tensor
+map of [B, T, H, 48] and o stored packed); K3's body in the packed layout of
+``csrc/sdpa_ablation.cu`` stays reachable as ``packed_sdpa_kept`` (no launch
+counted).
 Beside each wrapper is the plain version of its Pallas body, in the
 body's full-row form: fp32 scores, the masked term ``(mask - 1) * 1e9``,
 ``scale = 1/sqrt(48)``, P cast to bf16 before P.V and the division after.
@@ -443,19 +448,59 @@ def heads_sdpa_kept(wrapper, q, k, v, mask):
     return _launch(variant, layout, q, k, v, mask, b, h, t)
 
 
-def packed_sdpa(q3, k3, v3, mask):
-    """H_packed_lane_slice (``k_full_packed``): q, k, v [B, T, H*48] ->
-    [B, T, H*48], head h the columns 48 h .. 48 h + 47; mask [B, 1, T]."""
-    if q3.device.type == "cpu":
-        return full_packed_plain(q3, k3, v3, mask)
+def _check_packed(q3, k3, v3, mask):
+    """(B, H, T) of q, k, v [B, T, H*48] and mask [B, 1, T]."""
     _require(q3.dim() == 3 and q3.shape[-1] % D == 0,
              f"q must be [B, T, H*{D}], got {tuple(q3.shape)}")
     b, t, hd = q3.shape
     _check_qkv(q3, k3, v3, (b, t, hd))
     _check_mask(mask, q3.device, False, (b, 1, t))
-    out = _launch(_FULL, _PACKED, q3, k3, v3, mask, b, hd // D, t)
+    return b, hd // D, t
+
+
+def _packed_walk(q3, k3, v3, mask, b: int, t: int, plan=None, out=None,
+                 flat: int = -1) -> torch.Tensor:
+    """``sdpa_packed_heads_ws_kernel`` on q, k, v [B, T, 16*48] into ``out``
+    (new when None), by ``plan`` (``heads_plan``'s over the B*16 heads, on
+    the card; the device plan of the shape when None).  ``flat`` >= 0 reads
+    each tile through a 3-D map over the flat columns at column 48 h +
+    ``flat``: a slip that ``chip_smoke.py`` plants."""
+    if plan is None:
+        plan = _device_heads_plan(b * H, t, q3.device.index)
+    out = torch.empty_like(q3) if out is None else out
+    with torch.cuda.device(q3.device):
+        cuda_lib.check(cuda_lib.library("sdpa_packed_heads_ws")
+                       .gigaam_sdpa_packed_heads_ws(
+                           q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                           mask.data_ptr(), out.data_ptr(), plan.data_ptr(),
+                           len(plan), b, H, t, flat, SCALE,
+                           _stream(q3.device)),
+                       "gigaam_sdpa_packed_heads_ws")
+    return out
+
+
+def packed_sdpa(q3, k3, v3, mask):
+    """H_packed_lane_slice (``k_full_packed``): q, k, v [B, T, H*48] ->
+    [B, T, H*48], head h the columns 48 h .. 48 h + 47; mask [B, 1, T].  On
+    the card the per-head walk's packed instance
+    (``csrc/sdpa_packed_heads_ws.cu``, H = 16 only), each head's tiles read
+    through a 4-D tensor map of [B, T, H, 48]."""
+    if q3.device.type == "cpu":
+        return full_packed_plain(q3, k3, v3, mask)
+    b, h, t = _check_packed(q3, k3, v3, mask)
+    _require(h == H, f"packed_sdpa takes {H} heads on the card, got {h}")
+    out = _packed_walk(q3, k3, v3, mask, b, t)
     packed_sdpa.launches += 1
     return out
+
+
+def packed_sdpa_kept(q3, k3, v3, mask):
+    """``packed_sdpa`` on the design the walk replaced: K3's body in the
+    packed layout of ``csrc/sdpa_ablation.cu``, one warpgroup a (64-row
+    query tile, head, batch element).  Card only; counts no launch: kept for
+    an A/B on the same card."""
+    b, h, t = _check_packed(q3, k3, v3, mask)
+    return _launch(_FULL, _PACKED, q3, k3, v3, mask, b, h, t)
 
 
 KERNELS = (full_sdpa, copy_sdpa, scores_only_sdpa, no_max_sdpa,

@@ -15,8 +15,8 @@ Hopper kernel:
       [M, 6912] patch of the nine taps: bf16(patch . w) at frequency row 0
       of each step, or with wl bf16(bf16(relu(patch . w)) viewed [T, 12288]
       . wl)
-  P3  smem_copy(x, n_bytes)                   2 x through the last 16 KB of
-      a dynamic shared-memory buffer of n_bytes, and the blocks an SM holds
+  P3  smem_copy(x, n_bytes)                   2 x through the top of a
+      dynamic shared-memory buffer of n_bytes, and the blocks an SM holds
 
 P1 and P2 run on ``csrc/subsampling_ws.cu``: a warp-specialised, persistent
 implicit GEMM (``csrc/conv_ws.cuh``) whose A tiles are 4-D TMA boxes of the
@@ -29,8 +29,12 @@ shares the weights by multicast.  The earlier design, ``gemm.cuh``'s TMA
 ring (``csrc/subsampling_probe.cu``: ``taps_kernel``, ``patch_kernel`` +
 ``probe_gemm_kernel``), stays callable as ``taps_product_ring`` and
 ``im2col_product_ring`` for an A/B on the same card; ``taps_ws`` runs the
-redesign's steps one by one (``WS_STEPS``).  P3 is
-``csrc/subsampling_probe.cu``'s ``smem_probe_kernel``.
+redesign's steps one by one (``WS_STEPS``).  P3 runs on
+``csrc/smem_probe_ws.cu``: eight blocks, one row of x each, every block
+claiming the whole buffer and moving its row into the buffer's top with one
+bulk copy on an mbarrier; the earlier single block,
+``csrc/subsampling_probe.cu``'s ``smem_probe_kernel``, stays callable as
+``smem_copy_kept`` for an A/B on the same card.
 
 Each block takes a leading batch dimension (ee [B, T, 16, 768] ...); the
 script's calls are B 1, and the same kernels run the main path's stage 2 at
@@ -483,26 +487,52 @@ def im2col_product_ring(ee, eo, oe, oo, w, wl=None) -> torch.Tensor:
     return out
 
 
+def _smem_probe(entry: str, x: torch.Tensor, n_bytes: int):
+    """(2 x, blocks an SM holds) of the P3 kernel behind C entry ``entry``
+    (``library:function``)."""
+    _check_tensor("x", x, x.device, torch.bfloat16, (PROBE_ROWS, PROBE_COLS))
+    _require(n_bytes % 16 == 0 and n_bytes >= 2 * x.numel(),
+             f"n_bytes {n_bytes} must be a multiple of 16 and hold x")
+    name, fn = entry.split(":")
+    out = torch.empty_like(x)
+    result = (ctypes.c_int * 2)()
+    with torch.cuda.device(x.device):
+        rc = getattr(cuda_lib.library(name), fn)(
+            x.data_ptr(), out.data_ptr(), n_bytes, result, _stream(x.device))
+    if result[1]:
+        raise SharedMemoryRefused(n_bytes, rc)
+    cuda_lib.check(rc, fn)
+    return out, result[0]
+
+
 def smem_copy(x: torch.Tensor, n_bytes: int):
     """P3: (2 x, blocks of the kernel an SM holds) for x [8, 1024] bf16
     copied through a dynamic shared-memory buffer of ``n_bytes``; raises
     ``SharedMemoryRefused`` for a size the card refuses (nothing is
-    launched then).  ``vmem_plain`` on the CPU, with no block count."""
+    launched then).  ``vmem_plain`` on the CPU, with no block count.  On
+    the card ``csrc/smem_probe_ws.cu``: eight blocks, each claiming the
+    whole buffer and bringing one row into its top with one bulk copy."""
     if x.device.type == "cpu":
         return vmem_plain(x, n_bytes), None
-    _check_tensor("x", x, x.device, torch.bfloat16, (PROBE_ROWS, PROBE_COLS))
-    _require(n_bytes % 16 == 0 and n_bytes >= 2 * x.numel(),
-             f"n_bytes {n_bytes} must be a multiple of 16 and hold x")
-    out = torch.empty_like(x)
-    result = (ctypes.c_int * 2)()
-    with torch.cuda.device(x.device):
-        rc = cuda_lib.library("subsampling_probe").gigaam_smem_probe(
-            x.data_ptr(), out.data_ptr(), n_bytes, result, _stream(x.device))
-    if result[1]:
-        raise SharedMemoryRefused(n_bytes, rc)
-    cuda_lib.check(rc, "gigaam_smem_probe")
+    got = _smem_probe("smem_probe_ws:gigaam_smem_probe_ws", x, n_bytes)
     smem_copy.launches += 1
-    return out, result[0]
+    return got
+
+
+def smem_copy_kept(x: torch.Tensor, n_bytes: int):
+    """``smem_copy`` on the design the bulk copy replaced: one block of
+    ``csrc/subsampling_probe.cu`` copying all of x through its buffer.
+    Card only; counts no launch: kept for an A/B on the same card."""
+    return _smem_probe("subsampling_probe:gigaam_smem_probe", x, n_bytes)
+
+
+def empty_launch(device) -> None:
+    """An empty kernel on P3's grid: the floor one launch reaches.  Card
+    only; counts no launch."""
+    with torch.cuda.device(device):
+        cuda_lib.check(cuda_lib.library("smem_probe_ws")
+                       .gigaam_smem_probe_ws_empty(_stream(device)),
+                       "gigaam_smem_probe_ws_empty")
 
 
 KERNELS = (taps_product, im2col_product, smem_copy)

@@ -15,8 +15,10 @@ SOURCE: the ``csrc`` stems to compare; by default those of the kernels
 whose registers ``chip_smoke.py`` keeps (``attention``, ``subsampling_ws``,
 ``ffn_ws``, ``sdpa_groups_ws``), the attention-fold redesign's
 (``attn_fold_ws``: P6's and P7's kernels and the packed walk), P5's and
-P8's (``conv_fold_ws``, ``attn_lnres_ws``) and the SDPA ablation's kept
-kernels (``sdpa_ablation``).  Prints a line per kernel and, last, one
+P8's (``conv_fold_ws``, ``attn_lnres_ws``), the SDPA ablation's kept
+kernels (``sdpa_ablation``), the per-head walk's instances of P12 and P10
+(``sdpa_heads_ws``) and the subsampling probes' kept kernels, P3's among
+them (``subsampling_probe``).  Prints a line per kernel and, last, one
 JSON object ``{source: {kernel: {"identical": bool, "old_instructions": n,
 "new_instructions": n}}}``; exits 1 if a kernel of OLD differs here or is
 missing here.
@@ -36,7 +38,8 @@ from typing import Dict, List
 from ..ops import cuda_lib
 
 SOURCES = ("attention", "subsampling_ws", "ffn_ws", "sdpa_groups_ws",
-           "attn_fold_ws", "conv_fold_ws", "attn_lnres_ws", "sdpa_ablation")
+           "attn_fold_ws", "conv_fold_ws", "attn_lnres_ws", "sdpa_ablation",
+           "sdpa_heads_ws", "subsampling_probe")
 # the build's flags for device code, to a cubin instead of a library
 CUBIN_FLAGS = [f for f in cuda_lib.NVCC_FLAGS
                if f not in ("-shared", "-Xcompiler", "-fPIC")] + ["-cubin"]

@@ -421,6 +421,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             "gigaam_tpu_torch/csrc/conv_fold_ws.cu",
             "gigaam_tpu_torch/csrc/sdpa_walk.cuh",
             "gigaam_tpu_torch/csrc/sdpa_heads_ws.cu",
+            "gigaam_tpu_torch/csrc/sdpa_heads_walk.cuh",
+            "gigaam_tpu_torch/csrc/sdpa_packed_heads_ws.cu",
+            "gigaam_tpu_torch/csrc/smem_probe_ws.cu",
             "gigaam_tpu_torch/probes/ws_plan.py",
             "gigaam_tpu_torch/csrc/projection.cuh",
             "gigaam_tpu_torch/ops/lstm.py",
