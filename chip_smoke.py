@@ -209,12 +209,11 @@ Phases, each fatal on failure:
    batch, asserted: at phase 14's bias the beam emits nothing) at beam 4
    through ``transcribe`` on 20 s (K2) and ``_decode_batch`` on 16 clips
    of 10-20 s with the trigram (its dense table on the card) (K1), launch
-   counts asserted, each
-   profiled, each with its beam alone on the call's encoded output
-   (expansions, host reads at most ceil(expansions / chunk) + 1, graph
-   replays, device and wall us per expansion, the loop's share of the
-   call's busy time; for the batch the CUDA graphs bit-equal to the eager
-   loop); on the
+   counts asserted, each timed once unprofiled, each with its beam alone on
+   the call's encoded output, profiled (expansions, host reads at most
+   ceil(expansions / chunk) + 1, graph replays, device and wall us per
+   expansion; for the batch the CUDA graphs bit-equal to the eager loop);
+   on the
    batch: equal to the port's CPU fp32 beam of the same tensor on every
    row whose decisions all lie more than BEAM_TIE_GAP from a tie (rows
    and gaps printed), ``lm_weight`` 0 equal to no LM, K 1 equal to the
@@ -247,19 +246,20 @@ Phases, each fatal on failure:
    ``encode_batch`` of 16 in bf16 (K1) against the CPU fp32 model, and in
    fp32 (composed attention), whose greedy ids must equal the CPU's on
    every frame with a margin of ``CONV1D_MARGIN``;
-18. export, serving, streaming and the client: full-width v3_ctc (bf16
-   weights) exported with ``to_exported`` at batch 1 and 8 x 20 s, a
-   2-layer full-width v3_ssl at 125 s (T' 3125) and a 2-layer emo, into a
-   temporary directory, reloaded by a fresh process that imports
-   ``exported_infer`` (and the launch counters): K1 16 times in the batch-8
-   graph, K2 16 in the batch-1 graph, K3 and K5 twice, counted there; the
+18. export, serving, streaming and the client: a 2-layer full-width
+   v3_ctc (bf16 weights) exported with ``to_exported`` at batch 1 and 8 x
+   20 s, a 2-layer full-width v3_ssl at 125 s (T' 3125)
+   and a 2-layer emo, into a temporary directory, reloaded by a fresh
+   process that imports ``exported_infer`` (and the launch counters): K1
+   twice in the batch-8 graph, K2 twice in the batch-1 graph, K3 and K5
+   twice, counted there; the
    log-probs bit-equal to the live model's at the same shapes (greedy ids
    and texts equal), within ENCODER_RTOL of the composed attention; the
    exported and the live batch-8 call timed and profiled; v3_rnnt's
    encoder, ``decoder`` and ``joint`` at batch 8 (blank bias
    RNNT_BLANK_BIAS), the exported label loop's tokens equal to the live
    greedy decoder's up to any first difference, which must lie within
-   RNNT_EXPORT_MARGIN of a tie; then a v3_ctc and a v3_rnnt
+   RNNT_EXPORT_MARGIN of a tie; then a full-depth v3_ctc and a v3_rnnt
    ``BatchingASRServer`` (max_batch 8, window 15 ms, ``warmup(seconds=[5])``
    only) at once under 32 posts of 3-20 s from 8 client threads, a 120 s
    ``/transcribe_longform`` and a 30 s ``/transcribe_stream`` in 0.5 s
@@ -278,22 +278,59 @@ Phases, each fatal on failure:
    aligned (on every row), the log-probs within PAR_LOGP_ATOL of one
    process's, the greedy ids equal on every frame past twice that, texts
    and alignments equal on every row whose ids are; v3_ctc (K3+K4)
-   and v2_ctc (K5+K6) ``FineTuner`` at data 2 x model 1 and data 1 x
-   model 2, two steps on a batch of 16 (T' 500): loss, norm, the gathered
+   and v2_ctc (K5+K6) cut to PAR_TRAIN_LAYERS (4) ``FineTuner`` at data 2
+   x model 1 and data 1 x model 2, two steps on a batch of 16 (T' 500):
+   loss, norm, the gathered
    gradients by group, the sync-BN moments, the gathered leaves after the
    first real update, K3-K6 launches and heads a rank; the position
    group's run-to-run spread of one process; planted faults that must be
    caught (a reduce dropped, the bias added twice, per-rank BN statistics,
    a rank's rows swapped, ``pos_bias_u`` from the other model rank); then
    the v3_ctc step in a one-rank
-   ``nccl`` group, bit-equal to the step with no group.
+   ``nccl`` group, bit-equal to the step with no group;
+20. the rel-pos RNNT family (``relpos_rnnt_path``): full-width v2_rnnt
+   (pos biases drawn apart) against the CPU fp32 model first (encoded
+   lengths, the encoder within ENCODER_RTOL, each layer's attention module
+   within KERNEL_REL x RMS; ``pos_bias_u``/``pos_bias_v`` swapped on the
+   card must land outside), then at RELPOS_RNNT_SHAPE's blank bias
+   ``transcribe`` 20 s and ``_decode_batch`` 16 (K5 in every layer), each
+   profiled with its label loop alone, the graph decode bit-equal to the
+   eager loop and equal to the CPU fp32 decode of the same encoded tensor,
+   then the K-4 beam at its own bias (and a char trigram at its token
+   bonus) through both calls without and with the trigram (each timed
+   once, K5 counted, the batch's rates held to BEAM_RATE, the fused
+   batch's beam profiled and bit-equal to its eager loop); then v1_rnnt
+   through ``load_model`` with a synthetic 512-piece SentencePiece model
+   in its ``download_root``: the same greedy calls and checks,
+   ``_decode_batch``'s texts equal to the CPU decode's ids read by a
+   tokenizer of its own (piece ids read one off must be caught), and
+   ``_decode_batch`` 16 at beam 4 with an SP trigram (sparse table);
+21. v2_rnnt fine-tuning (``relpos_rnnt_train_path``): the train CLI for 3
+   steps and 2 validation batches, ``FineTuner.train_step`` x 3 without
+   remat and under "full" and "dots" (K5 and K6 counted a step), "dots"
+   against "full", the RNNT loss alone, a fenced step (``device_ms``), K6
+   on one step's own inputs against its plain version
+   (``k6_step_check``), then one step at 2 layers, batch 4, against the
+   CPU's fp32 loss and gradients, with K6 on that step's inputs (dq
+   scaled by 1.01 must be caught);
+22. v2_ssl BEST-RQ (``ssl_phase`` with ``name="v2_ssl"``):
+   ``SSLPretrainer.train_step`` x 3 at batch 16 (K5 and K6 counted), the
+   quantizer frozen, ``eval_step`` (K5), the pretrain CLI for 2 steps and
+   a resume for a third;
+23. RNNT longform (``rnnt_longform_path``): full-width v3_rnnt
+   ``transcribe_longform`` on phase 15's 6-minute WAV, greedy and at beam
+   4 (K1 in every layer of every chunk batch), each chunk's text equal to
+   ``_decode_batch`` of its batch, two batches in flight against one (row
+   0's encoded length halved in every batch must be caught).
 
 Before the card's line, an ``rnnt`` line holds phase 14's numbers, a
 ``longform`` line phase 15's, an ``rnnt_beam`` line phase 16's, an
 ``ingest_train`` line phase 17's, ``export`` and ``serve`` lines phase
-18's, a ``parallel`` line phase 19's and a ``phase walls`` line the wall
-seconds of each phase.  ``python3 chip_smoke.py --batch1-wall`` times batch-1
-``transcribe`` alone (``batch1_wall``).  The
+18's, a ``parallel`` line phase 19's, ``relpos_rnnt``,
+``relpos_rnnt_train``, ``relpos_ssl`` and ``rnnt_longform`` lines phases
+20-23's and a ``phase walls`` line the wall seconds of each phase.
+``python3 chip_smoke.py --batch1-wall`` times batch-1 ``transcribe`` alone
+(``batch1_wall``).  The
 last two lines of output are a JSON object with every kernel's numbers
 (``shape`` names the shape of a row's numbers, ``also`` holds the same
 numbers at the kernel's other shapes; the probes' rows add ``sum_ms``,
@@ -361,7 +398,7 @@ from gigaam_tpu_torch.models.heads import (
 )
 from gigaam_tpu_torch.ops import cuda_lib
 from gigaam_tpu_torch.ops import fused_attention as fa
-from gigaam_tpu_torch.ops.attention import rotary_mha
+from gigaam_tpu_torch.ops.attention import relpos_mha, rotary_mha
 from gigaam_tpu_torch.ops.conformer_ops import layer_norm
 from gigaam_tpu_torch.ops.precision import full_fp32
 from gigaam_tpu_torch.ops.rnnt_loss import rnnt_loss
@@ -953,6 +990,12 @@ def relpos_kernel_phase(gen, dev) -> dict:
               f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
         k5[(b, t)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                           library_ms=None, max_abs_err=err)
+        if (b, t) == (16, 501):
+            # the three readings: fenced card sum, graph replays, events
+            three, _ = three_times(lambda: fa.fused_relpos_mha(*args), got)
+            print(f"  K5 B={b} T'={t}: {times_text(three)}", flush=True)
+            k5[(b, t)].update(sum_ms=three["sum_ms"],
+                              graph_ms=three["graph_ms"])
     return shaped_row(k5, (16, 501))
 
 
@@ -1221,6 +1264,12 @@ def bwd_kernel_phase(gen, dev, relpos: bool) -> dict:
         readings[(b, t)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                 bound_by=by, library_ms=lib_ms,
                                 max_abs_err=err)
+        if relpos and b == 16:
+            # the three readings: fenced card sum, graph replays, events
+            three, _ = three_times(lambda: kernel(*args, *pair), got[0])
+            print(f"  {key} B={b} T'={t}: {times_text(three)}", flush=True)
+            readings[(b, t)].update(sum_ms=three["sum_ms"],
+                                    graph_ms=three["graph_ms"])
     return shaped_row(readings, (16, t_train))
 
 
@@ -2837,21 +2886,29 @@ def counts() -> dict:
             "K6": fa.relpos_mha_bwd.launches}
 
 
+def by_group(ms_by_kernel: dict) -> dict:
+    """Device ms by PROFILE_GROUPS group of {kernel name: ms}."""
+    groups = defaultdict(float)
+    for name, ms in ms_by_kernel.items():
+        group = next(g for g, pattern in PROFILE_GROUPS
+                     if re.search(pattern, name, re.IGNORECASE))
+        groups[group] += ms
+    return groups
+
+
 def profile_calls(label: str, fn, calls: int, wall_ms: float) -> dict:
     """Print (and return) device busy time, idle share, launches and device
     time by group per call of ``fn``, from ``calls`` calls under
-    ``torch.profiler``."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ``torch.profiler``, and the host seconds the profile took, its calls
+    included (``profile_s``)."""
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     kernels = {name: (us / 1e3 / calls, n // calls)
                for name, (us, n) in device_kernels(prof).items() if us > 0}
-    groups = defaultdict(float)
-    for name, (ms, _) in kernels.items():
-        group = next(g for g, pattern in PROFILE_GROUPS
-                     if re.search(pattern, name, re.IGNORECASE))
-        groups[group] += ms
+    groups = by_group({name: ms for name, (ms, _) in kernels.items()})
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     record = {
@@ -2859,17 +2916,19 @@ def profile_calls(label: str, fn, calls: int, wall_ms: float) -> dict:
         "idle_share": 1.0 - busy / wall_ms,
         "launches": sum(n for _, n in kernels.values()),
         "groups_ms": groups,
-        "top_kernels": [[k[:90], ms, n] for k, (ms, n) in top]}
+        "top_kernels": [[k[:90], ms, n] for k, (ms, n) in top],
+        "profile_s": time.perf_counter() - t0}
     print("  profile " + json.dumps(record), flush=True)
     return record
 
 
-def run_path(label: str, fn, kernel: str, n_layers: int, calls: int = 3):
+def run_path(label: str, fn, kernel: str, n_layers: int, calls: int = 3,
+             profiled: bool = True):
     """Warm ``fn`` once, then run it ``calls`` times from zeroed counts and
     assert that only ``kernel``'s wrapper ran, once per layer per call; then
-    profile ``calls`` more calls.  The wall time per call comes from the
-    unprofiled calls.  Returns (the last output, the kernel's launches, the
-    profile's record)."""
+    (``profiled``) profile ``calls`` more calls.  The wall time per call
+    comes from the unprofiled calls.  Returns (the last output, the kernel's
+    launches, the profile's record, or only the wall without a profile)."""
     fn()
     torch.cuda.synchronize()
     fa.reset_launch_counts()
@@ -2884,6 +2943,8 @@ def run_path(label: str, fn, kernel: str, n_layers: int, calls: int = 3):
           f"warm-up), launches {got}", flush=True)
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
+    if not profiled:
+        return out, got[kernel], {"call": label, "wall_ms": wall_ms}
     return out, got[kernel], profile_calls(label, fn, calls, wall_ms)
 
 
@@ -3207,17 +3268,22 @@ GRAD_GROUPS = (
 )
 
 
-def training_reference_phase(name: str, manifest: str) -> None:
+def training_reference_phase(name: str, manifest: str) -> dict:
     """One train step at full width, 2 layers, batch 4: the card's bf16 loss
-    and gradients against the CPU's fp32 ones on the same weights."""
+    and gradients against the CPU's fp32 ones on the same weights; on a
+    rel-pos encoder (its pos biases drawn apart), K6 on the card step's own
+    inputs against its plain version (``k6_step_check``).  Returns the
+    readings."""
     cfg = make_preset(name)
     cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
         cfg.encoder, n_layers=2))
+    relpos = cfg.encoder.self_attention_model == "rel_pos"
     grads, losses = {}, {}
     batch = None
+    k6 = None
     for device, precision in (("cuda", "bf16"), ("cpu", "fp32")):
         model = gt.GigaAMASR(cfg, device=device, seed=0)
-        if name == "v2_ctc":
+        if relpos:
             nonzero_pos_biases(model, seed=1)
         if batch is None:
             batch = first_batch(manifest, model.tokenizer, 4)
@@ -3225,7 +3291,12 @@ def training_reference_phase(name: str, manifest: str) -> None:
         # .grad as the backward left them
         ft = FineTuner(model, TrainConfig(total_steps=4, precision=precision,
                                           grad_clip=1e30))
-        losses[device] = float(ft.train_step(batch)["loss"])
+        if device == "cuda" and relpos:
+            with K6Recorder() as rec:
+                losses[device] = float(ft.train_step(batch)["loss"])
+            k6 = k6_step_check(f"{name} 2 layers, batch 4", rec.calls)
+        else:
+            losses[device] = float(ft.train_step(batch)["loss"])
         grads[device] = {n: p.grad.float().cpu()
                          for n, p in model.named_parameters()
                          if p.grad is not None}
@@ -3247,6 +3318,8 @@ def training_reference_phase(name: str, manifest: str) -> None:
         raise AssertionError(f"{name}: loss relative error {loss_rel}")
     if not all(r <= TRAIN_GRAD_RTOL for r in rels.values()):
         raise AssertionError(f"{name}: gradient error {rels}")
+    return {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+            "loss_rel": loss_rel, "grad_rel_by_group": rels, "k6": k6}
 
 # ---------------------------------------------------------------------------
 # RNNT transcription and the SentencePiece tokenizer
@@ -3309,11 +3382,12 @@ def decode_call(model, enc, lens, chunk: int, eager: bool = False):
             dec.replays - replays, wall)
 
 
-def loop_share(label: str, model, wavs, call: dict, card: str) -> dict:
+def loop_share(label: str, model, wavs, call: dict, card: str,
+               eager: bool = True) -> dict:
     """The decode loop of one main-path call, alone on that call's encoded
     output: graph replays, host reads, iterations, device ms (profile sum)
-    and wall, and the eager loop's wall; its share of the call's device
-    busy time."""
+    and wall, and with ``eager`` the eager loop's wall; its share of the
+    call's device busy time."""
     enc, lens = model.encode_batch(wavs)
     ms = model.cfg.decoding.max_symbols_per_step
     chunk = rnnt_greedy.CHUNK
@@ -3327,8 +3401,10 @@ def loop_share(label: str, model, wavs, call: dict, card: str) -> dict:
     by_kernel = window_ms(lambda: model.rnnt.decode(model.head, enc, lens,
                                                     **args), calls=1)
     graph_ms = sum(by_kernel.values())
-    _, eager_reads, _, eager_wall = decode_call(model, enc, lens, chunk,
-                                                eager=True)
+    eager_reads, eager_wall = 0, math.nan
+    if eager:
+        _, eager_reads, _, eager_wall = decode_call(model, enc, lens, chunk,
+                                                    eager=True)
     row = {"call": label, "iterations": iters, "host_reads": reads,
            "graph_replays": replays, "tokens": int(out[2].sum()),
            "frames": int(lens.sum()),
@@ -3383,18 +3459,21 @@ def decision_margins(head, enc, lens, out, max_symbols: int) -> float:
     return smallest
 
 
-def decode_checks(model, base: float, wavs, card: str) -> dict:
-    """On the encoded batch of ``wavs``, under each blank bias: the graph
-    decode bit-equal to the eager loop on the card, and equal to the port's
-    CPU fp32 decode of the same encoded tensor (log-probs within
-    RNNT_LOGP_ATOL), the host reads bounded, and the chunk A/B."""
+def decode_checks(model, base: float, wavs, card: str,
+                  bias_moderate: float = RNNT_BLANK_BIAS,
+                  chunks=RNNT_CHUNKS) -> dict:
+    """On the encoded batch of ``wavs``, under each blank bias (all blank,
+    and ``bias_moderate``): the graph decode bit-equal to the eager loop on
+    the card, and equal to the port's CPU fp32 decode of the same encoded
+    tensor (log-probs within RNNT_LOGP_ATOL), the host reads bounded, and
+    the A/B of ``chunks``."""
     enc, lens = model.encode_batch(wavs)
     enc_cpu, lens_cpu = enc.float().cpu(), lens.cpu()
     cpu_head = copy.deepcopy(model.head).cpu()
     ms = model.cfg.decoding.max_symbols_per_step
     rows = {}
     for name, bias in (("blank_all", BLANK_ALL),
-                       ("blank_moderate", RNNT_BLANK_BIAS)):
+                       ("blank_moderate", bias_moderate)):
         set_blank_bias(model, base, bias)
         with torch.no_grad():
             cpu_head["joint"]["out"]["b"][model.blank_id] = base + bias
@@ -3423,7 +3502,7 @@ def decode_checks(model, base: float, wavs, card: str) -> dict:
                                  f"{int(graph[2].sum())} tokens")
         margin = decision_margins(cpu_head, enc_cpu, lens_cpu, ref, ms)
         ab = {}
-        for chunk in RNNT_CHUNKS + RNNT_CHUNKS[::-1]:
+        for chunk in tuple(chunks) + tuple(chunks)[::-1]:
             decode_call(model, enc, lens, chunk)          # capture, warm
             walls = [decode_call(model, enc, lens, chunk)[3]
                      for _ in range(2)]
@@ -3442,10 +3521,10 @@ def decode_checks(model, base: float, wavs, card: str) -> dict:
               f"by chunk (median of 4) {ab_ms}; card {card}", flush=True)
     lo, hi = RNNT_RATE
     if not lo <= rows["blank_moderate"]["tokens_per_frame"] <= hi:
-        raise AssertionError(f"blank bias {RNNT_BLANK_BIAS}: "
+        raise AssertionError(f"blank bias {bias_moderate}: "
                              f"{rows['blank_moderate']['tokens_per_frame']} "
                              f"tokens a frame, outside {RNNT_RATE}")
-    set_blank_bias(model, base, RNNT_BLANK_BIAS)
+    set_blank_bias(model, base, bias_moderate)
     return rows
 
 
@@ -3604,17 +3683,18 @@ def check_longform(label: str, res, duration: float) -> None:
         prev_end = s.end
 
 
-def longform_serial(model, path: str, batch: int):
+def longform_serial(model, path: str, batch: int, **kw):
     """``transcribe_longform`` with one chunk batch in flight: each batch is
-    finalized before the next is submitted.  Returns (result, [wall ms of
-    each batch call])."""
+    finalized before the next is submitted (``kw``: ``_decode_batch``'s
+    beam and LM keywords).  Returns (result, [wall ms of each batch
+    call])."""
     segments, bounds = gt_vad.segment_audio_file(path, SAMPLE_RATE,
                                                   device=model.device)
     out, walls = [], []
     for i in range(0, len(segments), batch):
         t0 = time.perf_counter()
         res = model._decode_batch(segments[i:i + batch], True,
-                                  pad_rows_to=batch)
+                                  pad_rows_to=batch, **kw)
         walls.append((time.perf_counter() - t0) * 1e3)
         out += [Segment(text=text, start=s, end=e,
                         words=[w.shifted(s) for w in words or []])
@@ -4103,14 +4183,13 @@ def shape_beam(name: str, model, enc, lens, lm_spec) -> dict:
                 token_bonus=bonus)}
 
 
-def beam_loop_row(label: str, model, wavs, call: dict, card: str,
-                  eager: bool = True, **fused) -> dict:
+def beam_loop_row(label: str, model, wavs, card: str, eager: bool = True,
+                  **fused) -> dict:
     """The beam of one main-path call, alone on that call's encoded output:
     expansions, host reads (at most ceil(expansions / chunk) + 1), graph
     replays, device ms (the profile's sum) and wall, with ``eager`` the
-    eager loop's wall and the graph bit-equal to it, and the loop's share
-    of the call's device busy time.  Returns (row, encoded, lengths, the
-    graph's outputs)."""
+    eager loop's wall and the graph bit-equal to it.  Returns (row,
+    encoded, lengths, the graph's outputs)."""
     enc, lens = model.encode_batch(wavs)
     graph, reads, replays, steps, wall = beam_call(model, enc, lens,
                                                    beam_size=BEAM, **fused)
@@ -4136,11 +4215,6 @@ def beam_loop_row(label: str, model, wavs, call: dict, card: str,
            "device_us_per_expansion": 1e3 * loop_ms / max(steps, 1),
            "wall_us_per_expansion": 1e3 * wall / max(steps, 1),
            "eager_wall_ms": eager_wall,
-           "loop_share_of_call_busy": loop_ms / call["device_busy_ms"],
-           "call_wall_ms": call["wall_ms"],
-           "call_device_busy_ms": call["device_busy_ms"],
-           "call_idle_share": call["idle_share"],
-           "call_launches": call["launches"],
            "top_kernels_ms": [[k[:60], v] for k, v in sorted(
                by_kernel.items(), key=lambda kv: -kv[1])[:8]]}
     print(f"  beam loop of {label}: {steps} expansions (T' "
@@ -4149,7 +4223,6 @@ def beam_loop_row(label: str, model, wavs, call: dict, card: str,
           f"({row['device_us_per_expansion']:.1f} us an expansion), "
           f"{wall:.3f} ms wall ({row['wall_us_per_expansion']:.1f} us); "
           f"eager {eager_wall} ms{'; graph == eager' if eager else ''}; "
-          f"{row['loop_share_of_call_busy']:.3f} of the call's busy time; "
           f"card {card}", flush=True)
     return row, enc, lens, graph
 
@@ -4201,7 +4274,9 @@ def beam_path(card: str) -> dict:
     encoder, fp32 head; blank bias and token bonus from BEAM_SHAPE) at
     beam 4: ``transcribe`` 20 s (K2) and ``_decode_batch`` 16 x 10-20 s
     with a char trigram from ``train_lm_from_texts`` (dense table) (K1),
-    each profiled with its beam alone (``beam_loop_row``), then
+    each timed once unprofiled (a profile of a call's 10^5-10^6 kernels
+    costs tens of seconds of host time), with its beam alone profiled
+    (``beam_loop_row``), then
     ``beam_checks`` on the batch; v3_e2e_rnnt with the synthetic 512-piece
     SentencePiece model (shaped the same way) and a SentencePiece trigram
     (sparse table) through ``_decode_batch`` (K1), and a bigram whose dense
@@ -4236,17 +4311,18 @@ def beam_path(card: str) -> dict:
     res, n, prof = run_path(
         f"v3_rnnt transcribe 20 s, beam {BEAM} (K2)",
         lambda: model.transcribe(wav20, word_timestamps=True,
-                                 beam_size=BEAM), "K2", n_layers, calls=1)
+                                 beam_size=BEAM), "K2", n_layers, calls=1,
+        profiled=False)
     launches["K2"] += n
-    report["transcribe"] = beam_loop_row(
-        "v3_rnnt transcribe 20 s", model, [wav20], prof, card,
-        eager=False)[0]
+    report["transcribe"] = dict(beam_loop_row(
+        "v3_rnnt transcribe 20 s", model, [wav20], card, eager=False)[0],
+        call_wall_ms=prof["wall_ms"])
     lap("transcribe")
     outs, n, prof = run_path(
         f"v3_rnnt _decode_batch 16 x 10-20 s, beam {BEAM}, char trigram (K1)",
         lambda: model._decode_batch(wavs16, True, beam_size=BEAM, lm=char_lm,
                                     lm_weight=LM_WEIGHT, token_bonus=bonus),
-        "K1", n_layers, calls=1)
+        "K1", n_layers, calls=1, profiled=False)
     launches["K1"] += n
     if len(outs) != 16 or not all(isinstance(t, str) for t, _ in outs):
         raise AssertionError("_decode_batch returned a malformed batch")
@@ -4254,9 +4330,9 @@ def beam_path(card: str) -> dict:
           f"text lengths {[len(t) for t, _ in outs]}; card {card}",
           flush=True)
     row, enc, lens, graph = beam_loop_row(
-        "v3_rnnt _decode_batch 16, char trigram", model, wavs16, prof, card,
+        "v3_rnnt _decode_batch 16, char trigram", model, wavs16, card,
         lm=spec, lm_weight=LM_WEIGHT, token_bonus=bonus)
-    report["decode_batch"] = row
+    report["decode_batch"] = dict(row, call_wall_ms=prof["wall_ms"])
     lap("_decode_batch")
     report["checks"] = beam_checks(model, char_lm, bonus, enc, lens, graph,
                                    card)
@@ -4289,9 +4365,6 @@ def beam_path(card: str) -> dict:
         sp_wall = wall_ms(sp_call)
         launches["K1"] += assert_launches("v3_e2e_rnnt beam",
                                           {"K1": n_layers})["K1"]
-        sp_prof = profile_calls(
-            f"v3_e2e_rnnt _decode_batch 16, beam {BEAM}, SP trigram (K1)",
-            sp_call, 1, sp_wall)
         bigram = gt.train_lm_from_texts(texts, model.tokenizer, order=2)
         dense_sparse = [beam_call(model, enc, lens, beam_size=BEAM,
                                   lm=rnnt_beam.lm_device_table(
@@ -4304,9 +4377,6 @@ def beam_path(card: str) -> dict:
                                  "other tokens")
         report["v3_e2e_rnnt"] = {
             "shape": shape, "wall_ms": sp_wall,
-            "device_busy_ms": sp_prof["device_busy_ms"],
-            "idle_share": sp_prof["idle_share"],
-            "launches": sp_prof["launches"],
             "bigram_expansions": dense_sparse[0][3],
             "bigram_tokens": int(dense_sparse[0][0][2].sum()),
             "bigram_wall_ms_dense_sparse": [d[4] for d in dense_sparse],
@@ -4314,8 +4384,7 @@ def beam_path(card: str) -> dict:
                                       spec[0]["levels"]]}
         print(f"  v3_e2e_rnnt beam {BEAM}, SP trigram (sparse, levels "
               f"{report['v3_e2e_rnnt']['trigram_sparse_levels']}): "
-              f"{sp_wall:.1f} ms wall, {sp_prof['device_busy_ms']:.1f} ms "
-              f"busy; SP bigram: dense == sparse tokens "
+              f"{sp_wall:.1f} ms wall; SP bigram: dense == sparse tokens "
               f"({report['v3_e2e_rnnt']['bigram_tokens']} tokens, "
               f"{dense_sparse[0][3]} expansions, "
               f"{dense_sparse[0][4]:.1f} / {dense_sparse[1][4]:.1f} ms); "
@@ -4606,31 +4675,47 @@ def grad_group_errors(got: dict, ref: dict) -> dict:
             if den > 0}
 
 
-def rnnt_training_phase(manifest: str, card: str) -> dict:
-    """v3_rnnt at batch 16 of 10-20 s, bf16 over fp32 masters: the CLI for
-    3 steps, then ``FineTuner.train_step`` x 3 without activation
-    checkpointing and under ``remat_policy`` "full" and "dots"; "dots"
-    against "full" on one step's gradients; the loss alone."""
+def attention_kernels(name: str) -> tuple:
+    """(forward in training, its backward, inference at batch 16) of the
+    attention of preset ``name``: K3, K4, K1 (rotary) or K5, K6, K5."""
+    if make_preset(name).encoder.self_attention_model == "rel_pos":
+        return "K5", "K6", "K5"
+    return "K3", "K4", "K1"
+
+
+def rnnt_training_phase(manifest: str, card: str,
+                        name: str = "v3_rnnt") -> dict:
+    """``name`` (v3_rnnt or v2_rnnt) at batch 16 of 10-20 s, bf16 over fp32
+    masters: the CLI for 3 steps, then ``FineTuner.train_step`` x 3 without
+    activation checkpointing and under ``remat_policy`` "full" and "dots";
+    "dots" against "full" on one step's gradients; the loss alone.  A
+    rel-pos model's pos biases are drawn apart, and a step without remat is
+    taken fenced (``device_ms``) and once more with K6's launches recorded
+    and held to its plain version (``k6_step_check``)."""
     report = {}
-    n_layers = make_preset("v3_rnnt").encoder.n_layers
-    save_dir = os.path.join(os.path.dirname(manifest), "exp_rnnt")
+    n_layers = make_preset(name).encoder.n_layers
+    fwd, bwd, infer = attention_kernels(name)
+    save_dir = os.path.join(os.path.dirname(manifest), f"exp_{name}")
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     train_cli.main([
-        "--model_name", "v3_rnnt", "--init", "random", "--seed", "0",
+        "--model_name", name, "--init", "random", "--seed", "0",
         "--train_manifest", manifest, "--val_manifest", manifest,
         "--batch_size", "16", "--precision", "bf16", "--max_steps", "3",
         "--val_first_batches", "1", "--save_top_k", "0",
         "--log_every_n_steps", "1", "--save_dir", save_dir])
     torch.cuda.synchronize()
     got = counts()
-    # 3 steps (K3 forward, K4 backward), a validation batch at the end of
-    # the first epoch (2 steps) and one at the end (K1)
-    want = {"K3": 3 * n_layers, "K4": 3 * n_layers, "K1": 2 * n_layers}
+    # 3 steps (K3 or K5 forward, K4 or K6 backward), a validation batch at
+    # the end of the first epoch (2 steps) and one at the end (K1 or K5)
+    want = defaultdict(int)
+    want[fwd] += 3 * n_layers
+    want[bwd] += 3 * n_layers
+    want[infer] += 2 * n_layers
     with open(os.path.join(save_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     train_recs = [r for r in recs if r["kind"] == "train"]
-    print(f"main path train CLI v3_rnnt, 3 steps + 2 validation batches: "
+    print(f"main path train CLI {name}, 3 steps + 2 validation batches: "
           f"{time.perf_counter() - t0:.1f} s, launches {got}; losses "
           + ", ".join(f"{r['loss']:.4f}" for r in train_recs) + "; card "
           + card, flush=True)
@@ -4640,20 +4725,26 @@ def rnnt_training_phase(manifest: str, card: str) -> dict:
             math.isfinite(r["loss"]) and r["loss"] > 0 for r in train_recs):
         raise AssertionError(f"rnnt train CLI: metrics {train_recs}")
     launches = defaultdict(int, got)
+    report["cli"] = {"losses": [r["loss"] for r in train_recs],
+                     "val_losses": [r["loss"] for r in recs
+                                    if r["kind"] == "val"],
+                     "seconds": time.perf_counter() - t0}
     shutil.rmtree(save_dir)
 
-    model = gt.load_model("rnnt", init="random", seed=0)
+    model = gt.load_model(name, init="random", seed=0)
+    if fwd == "K5":
+        nonzero_pos_biases(model, seed=3)
     batch = first_batch(manifest, model.tokenizer, 16, stride=2)
-    for policy, want in ((None, {"K3": n_layers, "K4": n_layers}),
-                         ("full", {"K3": 2 * n_layers, "K4": n_layers}),
-                         ("dots", {"K3": 2 * n_layers, "K4": n_layers})):
-        label = f"v3_rnnt, remat {policy}" if policy else "v3_rnnt"
+    for policy, want in ((None, {fwd: n_layers, bwd: n_layers}),
+                         ("full", {fwd: 2 * n_layers, bwd: n_layers}),
+                         ("dots", {fwd: 2 * n_layers, bwd: n_layers})):
+        label = f"{name}, remat {policy}" if policy else name
         if policy == "full":
             before = snapshot(model)
             g_full = remat_gradients(model, batch, "full", before)
             g_dots = remat_gradients(model, batch, "dots", before)
             rels = grad_group_errors(g_dots, g_full)
-            print("rnnt dots vs full, one step from the same weights: "
+            print(f"{name} dots vs full, one step from the same weights: "
                   "gradient relative Frobenius error by group (tol "
                   f"{TRAIN_GRAD_RTOL}): " + ", ".join(
                       f"{g} {r:.2e}" for g, r in rels.items()), flush=True)
@@ -4674,6 +4765,16 @@ def rnnt_training_phase(manifest: str, card: str) -> dict:
             launches[k] += n
         if policy is None:
             report["loss"] = rnnt_loss_timing(ft, batch, card)
+        if policy is None and fwd == "K5":
+            fa.reset_launch_counts()
+            report["fenced_step"] = fenced_step(f"{name} train_step", ft,
+                                                batch, card)
+            with K6Recorder() as rec:
+                ft.train_step(batch)
+            torch.cuda.synchronize()
+            for k, n in counts().items():
+                launches[k] += n
+            report["k6_step"] = k6_step_check(f"{name} batch 16", rec.calls)
         del ft, before
         torch.cuda.empty_cache()
     del model
@@ -4682,12 +4783,17 @@ def rnnt_training_phase(manifest: str, card: str) -> dict:
     return report
 
 
-def ssl_phase(manifest: str, small_manifest: str, card: str) -> dict:
-    """v3_ssl at batch 16 of 10-20 s: ``SSLPretrainer.train_step`` x 3, then
-    the pretrain CLI for 2 steps and a resume for a third."""
-    n_layers = make_preset("v3_ssl").encoder.n_layers
+def ssl_phase(manifest: str, small_manifest: str, card: str,
+              name: str = "v3_ssl") -> dict:
+    """``name`` (v3_ssl, or v2_ssl with its pos biases drawn apart) at batch
+    16 of 10-20 s: ``SSLPretrainer.train_step`` x 3, then the pretrain CLI
+    for 2 steps and a resume for a third."""
+    n_layers = make_preset(name).encoder.n_layers
+    fwd, bwd, infer = attention_kernels(name)
     report = {}
-    model = gt.load_model("ssl", init="random", seed=0)
+    model = gt.load_model(name, init="random", seed=0)
+    if fwd == "K5":
+        nonzero_pos_biases(model, seed=5)
     batch = first_batch(manifest, gt_tokenizer(), 16, stride=2)[:2]
     pt = gt_pretrain.SSLPretrainer(model, gt_pretrain.PretrainConfig(
         total_steps=4, precision="bf16"))
@@ -4696,9 +4802,9 @@ def ssl_phase(manifest: str, small_manifest: str, card: str) -> dict:
     before = snapshot(model)
     records = []
     launches = defaultdict(int, drive_train_steps(
-        "v3_ssl BEST-RQ", pt, batch, 3, {"K3": n_layers, "K4": n_layers},
+        f"{name} BEST-RQ", pt, batch, 3, {fwd: n_layers, bwd: n_layers},
         card, records))
-    assert_training_moved("v3_ssl BEST-RQ", pt, before)
+    assert_training_moved(f"{name} BEST-RQ", pt, before)
     if torch.equal(pt.ssl_head["w"].detach(), head0) or not all(
             torch.equal(v, q0[k]) for k, v in pt.quantizer.items()):
         raise AssertionError("ssl: the head did not move or the quantizer "
@@ -4706,17 +4812,19 @@ def ssl_phase(manifest: str, small_manifest: str, card: str) -> dict:
     fa.reset_launch_counts()
     loss, acc = pt.eval_step(batch)
     got = counts()
-    print(f"v3_ssl eval_step: masked loss {loss:.4f}, accuracy {acc:.4f}, "
+    print(f"{name} eval_step: masked loss {loss:.4f}, accuracy {acc:.4f}, "
           f"launches {got}", flush=True)
-    if got["K1"] != n_layers or not math.isfinite(loss):
+    if got != {k: (n_layers if k == infer else 0) for k in got} or not (
+            math.isfinite(loss)):
         raise AssertionError(f"ssl eval_step: launches {got}, loss {loss}")
-    launches["K1"] += got["K1"]
+    launches[infer] += got[infer]
     report["steps"] = step_summary(records)
+    report["eval"] = {"loss": loss, "accuracy": acc}
     del pt, model, before
     torch.cuda.empty_cache()
 
-    save_dir = os.path.join(os.path.dirname(manifest), "exp_ssl")
-    args = ["--model_name", "ssl", "--init", "random", "--train_manifest",
+    save_dir = os.path.join(os.path.dirname(manifest), f"exp_{name}")
+    args = ["--model_name", name, "--init", "random", "--train_manifest",
             manifest, "--val_manifest", small_manifest, "--batch_size", "16",
             "--save_dir", save_dir, "--log_every_n_steps", "1",
             "--save_top_k", "1"]
@@ -4732,8 +4840,11 @@ def ssl_phase(manifest: str, small_manifest: str, card: str) -> dict:
         recs = [json.loads(line) for line in f]
     steps = [r["step"] for r in recs if r["kind"] == "train"]
     # 3 steps in all, one validation batch after each run
-    want = {"K3": 3 * n_layers, "K4": 3 * n_layers, "K1": 2 * n_layers}
-    print(f"main path pretrain CLI v3_ssl, 2 steps, then a resume for 1: "
+    want = defaultdict(int)
+    want[fwd] += 3 * n_layers
+    want[bwd] += 3 * n_layers
+    want[infer] += 2 * n_layers
+    print(f"main path pretrain CLI {name}, 2 steps, then a resume for 1: "
           f"{time.perf_counter() - t0:.1f} s, steps {steps}, launches {got}; "
           f"card {card}", flush=True)
     if got != {k: want.get(k, 0) for k in got} or steps != [1, 2, 3]:
@@ -4742,6 +4853,7 @@ def ssl_phase(manifest: str, small_manifest: str, card: str) -> dict:
         raise AssertionError("pretrain CLI wrote no final.npz")
     for k, n in got.items():
         launches[k] += n
+    report["cli"] = {"steps": steps, "seconds": time.perf_counter() - t0}
     shutil.rmtree(save_dir)
     report["launches"] = dict(launches)
     return report
@@ -5383,9 +5495,12 @@ def export_timings(model, art: str, wavs8, card: str) -> dict:
 
 
 def export_serve_path(card: str) -> dict:
-    """Phase 18: export (v3_ctc at batch 1 and 8 x 20 s, reloaded in a
-    fresh process; 2-layer SSL at 125 s and emo; v3_rnnt's three graphs),
-    then two servers under load and the overload check."""
+    """Phase 18: export (2-layer v3_ctc at batch 1 and 8 x 20 s, reloaded
+    in a fresh process; 2-layer SSL at 125 s and emo; v3_rnnt's three
+    graphs), then two servers under load and the overload check.  Tracing,
+    saving and loading a graph take seconds a layer, and each layer is the
+    same program; v3_rnnt keeps its 16 layers, at which RNNT_BLANK_BIAS
+    makes its random joint emit."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(18)
     report = {"seconds_by_step": {}}
@@ -5396,6 +5511,7 @@ def export_serve_path(card: str) -> dict:
             report["seconds_by_step"].values())
 
     ctc = gt.load_model("v3_ctc", init="random", seed=0, bf16_encoder=True)
+    ctc_x = two_layer("v3_ctc", 0)
     ssl, emo = two_layer("v3_ssl", 1), two_layer("emo", 2)
     nonzero_pos_biases(emo, seed=3)
     clips = {f"w8_{i}": synth_wav(s, rng) for i, s in
@@ -5406,7 +5522,7 @@ def export_serve_path(card: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         exports = {}
         for name, model, batches, seconds in (
-                ("v3_ctc", ctc, EXPORT_BATCHES, EXPORT_SECONDS),
+                ("v3_ctc", ctc_x, EXPORT_BATCHES, EXPORT_SECONDS),
                 ("ssl", ssl, (1,), SSL_SECONDS), ("emo", emo, (1,), EMO_SECONDS)):
             s0 = time.perf_counter()
             art = os.path.join(root, name)
@@ -5433,16 +5549,17 @@ def export_serve_path(card: str) -> dict:
             for k, n in got[part]["launches"].items():
                 launches[k] += n
         lap("fresh process")
-        exports["v3_ctc"]["checks"] = export_ctc_checks(ctc, root, clips, got,
-                                                        card)
+        exports["v3_ctc"]["checks"] = export_ctc_checks(ctc_x, root, clips,
+                                                        got, card)
         exports.update(export_classifier_checks({"ssl": ssl, "emo": emo},
                                                 root, clips, got, card))
         del ssl, emo
         lap("export checks")
         exports["v3_ctc"]["timings"] = export_timings(
-            ctc, os.path.join(root, "v3_ctc"),
+            ctc_x, os.path.join(root, "v3_ctc"),
             [clips[f"w8_{i}"] for i in range(8)], card)
-        launches["K1"] += 2 * 3 * ctc.cfg.encoder.n_layers
+        launches["K1"] += 2 * 3 * ctc_x.cfg.encoder.n_layers
+        del ctc_x
         lap("export timings")
         rnnt = gt.load_model("rnnt", init="random", seed=0, bf16_encoder=True)
         set_blank_bias(rnnt, float(rnnt.head["joint"]["out"]["b"][
@@ -5469,6 +5586,9 @@ def export_serve_path(card: str) -> dict:
 
 PAR_CLIPS = 16
 PAR_LONGFORM_SECONDS = 360.0
+# the training layouts' depth (full width): a step's collectives and its
+# gloo transfers grow with the layers, and each layer is the same program
+PAR_TRAIN_LAYERS = 4
 # DP x TP against one process, both bf16 on the card.  The ranks run the same
 # kernels on other row counts (cuBLAS may take another algorithm), and a
 # row-parallel product's partial sums meet in fp32 after each has been
@@ -5481,9 +5601,10 @@ PAR_LONGFORM_SECONDS = 360.0
 # the bf16 rounding of every pair, which a split over ranks changes: on the
 # CPU in bf16 a 2-way split moved it 0.003 (data) and 0.015 (model) where
 # fp32 moved nothing above 1e-7 (tests/test_torch_parallel.py).  On the
-# H100 (NVIDIA H100 80GB HBM3, 700 W) the split read 0.026 (data 2) and
-# 0.046 (model 2), two one-process runs 4.4e-5 apart (K6's fp32 atomics:
-# not the cause), and pos_bias_u taken from the other model rank 0.33.
+# H100 (NVIDIA H100 80GB HBM3, 700 W) at 16 layers the split read 0.026
+# (data 2) and 0.046 (model 2), two one-process runs 4.4e-5 apart (K6's
+# fp32 atomics: not the cause), and pos_bias_u taken from the other model
+# rank 0.33; at PAR_TRAIN_LAYERS 0.008, 0.023, 2.3e-5 and 0.22.
 # PAR_POS_GRAD_RTOL sits between the split and the fault, which must land
 # PAR_FAULT_GAIN above it; all three are read in every run.
 PAR_LOSS_RTOL = 0.002
@@ -5653,14 +5774,15 @@ def par_step_record(ft, m, names, arrays: bool) -> dict:
 
 def par_training(name: str, manifest: str, mesh=None, steps: int = 2,
                  fault: str = None) -> dict:
-    """``steps`` ``FineTuner`` steps (bf16) of ``par_model(name)`` on the
-    first batch of 16: each step's record (the last with its arrays), the
-    launches and the heads a rank's K3/K5 ran on.  ``fault``
+    """``steps`` ``FineTuner`` steps (bf16) of ``par_model(name,
+    PAR_TRAIN_LAYERS)`` on the first batch of 16: each step's record (the
+    last with its arrays), the launches and the heads a rank's K3/K5 ran
+    on.  ``fault``
     "pos_bias_u from the other rank" gives each "model" rank of a rel-pos
     model the other rank's heads' ``pos_bias_u``."""
     from gigaam_tpu_torch.parallel import mesh as pmesh
 
-    model = par_model(name)
+    model = par_model(name, PAR_TRAIN_LAYERS)
     batch = first_batch(manifest, model.tokenizer, PAR_CLIPS)
     full = [layer["self_attn"]["pos_bias_u"].detach().clone()
             for layer in model.encoder.layers] if fault else None
@@ -6056,8 +6178,9 @@ def parallel_path(card: str) -> dict:
     report["training"] = {}
     for label, got in ranks[0]["training"].items():
         name = label.split()[0]
-        want = ({"K3": 2 * n_layers, "K4": 2 * n_layers} if name == "v3_ctc"
-                else {"K5": 2 * n_layers, "K6": 2 * n_layers})
+        two_steps = 2 * PAR_TRAIN_LAYERS
+        want = dict.fromkeys(("K3", "K4") if name == "v3_ctc"
+                             else ("K5", "K6"), two_steps)
         heads = enc_cfg.n_heads // (2 if "model 2" in label else 1)
         for r in ranks:
             g = r["training"][label]
@@ -6130,6 +6253,683 @@ def parallel_path(card: str) -> dict:
     if failures:
         print("parallel " + json.dumps(report, default=str), flush=True)
         raise AssertionError(f"phase 19: {failures}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# The rel-pos RNNT family, its fine-tuning, rel-pos BEST-RQ and RNNT
+# longform (phases 20-23)
+# ---------------------------------------------------------------------------
+
+# The joint's blank bias (added to the drawn one) of each rel-pos RNNT
+# model, and (blank bias, token bonus) of its K-4 beam with the phase's
+# trigram (char for v2_rnnt, SentencePiece for v1_rnnt).  Each was read off
+# a bisection on an H100 on the phase's batch of 16 clips: the first knob
+# whose emission rate lay in RNNT_RATE (greedy) or BEAM_RATE (the plain and
+# the fused beam).  The rate is a steep step
+# in the bias (v2_rnnt greedy: +0.375 1.45 tokens a frame, +0.4141 0.55,
+# +0.4531 0.12), and each model's step lies elsewhere (v3_rnnt's at 0.85,
+# phase 14).  The phase asserts the rates again.
+RELPOS_RNNT_SHAPE = {"v2_rnnt": (0.4140625, 0.2421875, 1.25),
+                     "v1_rnnt": (0.4140625, 0.2890625, 1.34375)}
+# K6 on a train step's own inputs against its plain version.  Both round
+# dS to bf16 before dq = dS K (and dq_v = d_raw P), apart by the order of
+# their fp32 sums, so some entries round one ulp apart.  A row of dS sums to
+# zero in exact arithmetic, so what K and the table have in common (their
+# mean over the keys a row reads) cancels from the true dq; the rounding
+# slips do not cancel, and put an error along that mean that grows with it.
+# Drawn inputs have zero-mean keys and do not show it (bwd_kernel_phase,
+# KERNEL_REL x RMS); a model's keys have a mean several times their spread,
+# and there the max-based reading of dq runs to several RMS.  So dq_u and
+# dq_v are held with that common direction taken out of both
+# (``k6_common_free``), every gradient by its relative Frobenius error
+# within K6_FROB_RTOL (four bf16 steps of 2^-7) and by its least-squares
+# gain over the plain one, <got, ref> / <ref, ref>, within K6_GAIN_TOL of 1:
+# roundings to nearest move the gain by about their size over the root of
+# the gradient's 10^5-10^7 entries, while a gradient scaled by
+# K6_FAULT_SCALE moves it by 1e-2.  The max-based readings are printed.
+K6_FROB_RTOL = 2.0 ** -5
+K6_GAIN_TOL = 2e-3
+K6_NAMES = ("dq_u", "dk", "dv", "dq_v", "dp")
+K6_FAULT_SCALE = 1.01
+
+
+def swap_pos_biases(model) -> None:
+    """``pos_bias_u`` and ``pos_bias_v`` of every layer swapped in place
+    (a planted fault; a second call undoes it)."""
+    with torch.no_grad():
+        for layer in model.encoder.layers:
+            attn = layer["self_attn"]
+            u = attn["pos_bias_u"].clone()
+            attn["pos_bias_u"].copy_(attn["pos_bias_v"])
+            attn["pos_bias_v"].copy_(u)
+
+
+def encoder_error(model, cpu, wavs) -> tuple:
+    """(lengths equal and output finite, relative Frobenius error on the
+    valid frames) of the card's encoding of ``wavs`` against the CPU
+    model's."""
+    with torch.inference_mode():
+        enc_g, len_g = model.encode_batch(wavs)
+        enc_c, len_c = cpu.encode_batch(wavs)
+    enc_g, len_g = enc_g.float().cpu(), len_g.cpu()
+    ok = (torch.equal(len_g, len_c) and enc_g.shape == enc_c.shape
+          and bool(torch.isfinite(enc_g).all()))
+    if not ok:
+        return False, math.inf
+    rows = torch.arange(enc_c.shape[1])[None, :] < len_c[:, None]
+    diff, ref = (enc_g - enc_c)[rows], enc_c[rows]
+    return True, float(diff.norm() / ref.norm())
+
+
+def relpos_reference(name: str, model, cpu, rng, card: str) -> dict:
+    """v2's centred frames and the rel-pos encoder first: the card's
+    encoded lengths equal to the port's CPU fp32 ones and its output within
+    ENCODER_RTOL, on 4 s at batch 1 and 16 clips of 1-2 s.  Then each
+    layer's attention module on the model's own weights, the card's (bf16,
+    K5) against the CPU's fp32 composed one on the same LayerNorm'd input
+    (B 4, T' 251, ragged), within KERNEL_REL x RMS (``distance``); the
+    planted fault, ``pos_bias_u``/``pos_bias_v`` swapped on the card, must
+    land outside it in every layer.  (The swap moves a whole encoding by
+    about 1%, inside ENCODER_RTOL, and one module's output by about 8%.)"""
+    cases = (("4 s, batch 1", [synth_wav(4.0, rng)]),
+             ("16 x 1-2 s", [synth_wav(s, rng)
+                             for s in np.linspace(1.0, 2.0, 16)]))
+    rels = {}
+    for label, wavs in cases:
+        ok, rel = encoder_error(model, cpu, wavs)
+        print(f"reference {name} {label}: lengths equal {ok}; CUDA bf16 vs "
+              f"CPU fp32 encoder relative {rel:.4f} (tol {ENCODER_RTOL}); "
+              f"card {card}", flush=True)
+        if not (ok and rel <= ENCODER_RTOL):
+            raise AssertionError(f"{name} {label}: lengths differ or the "
+                                 f"encoder is off by {rel}")
+        rels[label] = rel
+
+    gen = torch.Generator().manual_seed(20)
+    b, t = 4, 251
+    d = model.cfg.encoder.d_model
+    # a per-channel mean and a per-row scale, as ``attention_input`` draws
+    x = (0.5 * torch.randn(d, generator=gen)
+         + (0.5 + 1.5 * torch.rand(b, t, 1, generator=gen))
+         * torch.randn(b, t, d, generator=gen))
+    valid = ragged_valid(b, t, "cpu")
+    n_heads = model.cfg.encoder.n_heads
+    pos_g = model.pos_tables.relpos(t, model.device)
+    pos_c = cpu.pos_tables.relpos(t, torch.device("cpu"))
+
+    def module_errors():
+        out = []
+        for lg, lc in zip(model.encoder.layers, cpu.encoder.layers):
+            with torch.inference_mode():
+                y = layer_norm(lc["norm_self_att"], x)
+                ref = relpos_mha(lc["self_attn"], y, pos_c, valid, n_heads)
+                got = relpos_mha(lg["self_attn"],
+                                 y.to(model.device, torch.bfloat16), pos_g,
+                                 valid.to(model.device), n_heads,
+                                 use_fused=True)
+            out.append(distance(got.float().cpu(), ref, valid, 1)[1])
+        return out
+
+    errors = module_errors()
+    swap_pos_biases(model)
+    try:
+        swapped = module_errors()
+    finally:
+        swap_pos_biases(model)
+    print(f"  {name} attention modules, card bf16 (K5) vs CPU fp32 on the "
+          f"model's weights: worst {max(errors):.4f} x RMS (limit "
+          f"{KERNEL_REL}); planted fault, pos_bias_u/pos_bias_v swapped: "
+          f"least {min(swapped):.4f} x RMS over the {len(swapped)} layers",
+          flush=True)
+    if not max(errors) <= KERNEL_REL:
+        raise AssertionError(f"{name}: attention modules off by {errors}")
+    if not min(swapped) > KERNEL_REL:
+        raise AssertionError(f"{name}: the module check misses a u/v swap "
+                             f"({swapped})")
+    return {"encoder_rel": rels, "module_worst": max(errors),
+            "uv_swap_least": min(swapped)}
+
+
+class OffByOne:
+    """A tokenizer that decodes piece i as piece i + 1 (a planted fault)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def decode(self, ids):
+        return self.inner.decode([(i + 1) % len(self.inner) for i in ids])
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def sp_texts_agree(label: str, model, wavs, want: list) -> None:
+    got = [t for t, _ in model._decode_batch(wavs, False)]
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{label}: texts of rows {bad} differ from the "
+                             f"CPU decode's")
+
+
+def sp_text_checks(model, sp_path: str, wavs, card: str) -> dict:
+    """``_decode_batch``'s texts equal the port's CPU fp32 greedy decode of
+    the card's encoded batch, its ids read by a tokenizer of its own on the
+    SentencePiece model; then the planted fault, each piece id read one
+    off, must change a text."""
+    from gigaam_tpu_torch.decode.tokenizer import Tokenizer
+
+    enc, lens = model.encode_batch(wavs)
+    ref = RNNTGreedyDecoder().decode(
+        copy.deepcopy(model.head).cpu(), enc.float().cpu(), lens.cpu(),
+        max_symbols=model.cfg.decoding.max_symbols_per_step)
+    tok = Tokenizer([], sp_path)
+    want = [tok.decode(ref[0][i, :int(ref[2][i])].tolist())
+            for i in range(len(wavs))]
+    sp_texts_agree("v1_rnnt", model, wavs, want)
+    inner = model.tokenizer
+    model.tokenizer = OffByOne(inner)
+    try:
+        sp_texts_agree("v1_rnnt, piece ids one off", model, wavs, want)
+    except AssertionError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("v1_rnnt: the text check misses piece ids one "
+                             "off")
+    finally:
+        model.tokenizer = inner
+    chars = sum(len(t) for t in want)
+    print(f"v1_rnnt texts: _decode_batch == the CPU fp32 decode read by its "
+          f"own SentencePiece tokenizer on all {len(want)} rows ({chars} "
+          f"chars); planted fault, piece ids one off: caught ({caught}); "
+          f"card {card}", flush=True)
+    return {"rows": len(want), "chars": chars, "off_by_one_caught": True}
+
+
+def relpos_beam_calls(name: str, model, wav20, wavs16, lm, spec, bonus: float,
+                      card: str, n_layers: int, sp: bool = False) -> tuple:
+    """The K-4 beam through ``transcribe`` 20 s and ``_decode_batch`` 16,
+    each without and with the LM ``lm`` (its device table ``spec``); with
+    ``sp`` (a SentencePiece model) ``_decode_batch`` 16 with the LM only.
+    Each call timed once from zeroed counts (``run_path``, K5 in every
+    layer), unprofiled: a call runs 10^5-10^6 kernels, whose profile costs
+    tens of seconds of host time; the batch's beams alone on its encoded
+    output, each rate held to BEAM_RATE; the fused batch's beam profiled
+    (``beam_loop_row``: device us an expansion) and, without ``sp``,
+    bit-equal to the eager loop.  Returns ({label: row}, K5 launches)."""
+    fused = dict(lm_weight=LM_WEIGHT, token_bonus=bonus)
+    cases = [("_decode_batch 16, trigram", wavs16, lm)]
+    if not sp:
+        cases = [("transcribe 20 s", [wav20], None),
+                 ("transcribe 20 s, trigram", [wav20], lm),
+                 ("_decode_batch 16", wavs16, None)] + cases
+    enc, lens = model.encode_batch(wavs16)
+    rows, n_k5 = {}, 0
+    for label, wavs, with_lm in cases:
+        kw = {} if with_lm is None else dict(lm=with_lm, **fused)
+        loop_kw = {} if with_lm is None else dict(lm=spec, **fused)
+        if len(wavs) == 1:
+            call = (lambda kw=kw: model.transcribe(
+                wav20, word_timestamps=True, beam_size=BEAM, **kw))
+        else:
+            call = (lambda kw=kw: model._decode_batch(
+                wavs16, True, beam_size=BEAM, **kw))
+        _, n, prof = run_path(f"{name} {label}, beam {BEAM} (K5)", call,
+                              "K5", n_layers, calls=1, profiled=False)
+        n_k5 += n
+        row = {"call": label, "call_wall_ms": prof["wall_ms"],
+               "expansions": model.rnnt_beam.last_expansions()}
+        if len(wavs) > 1:
+            out, reads, replays, steps, loop_wall = beam_call(
+                model, enc, lens, beam_size=BEAM, **loop_kw)
+            rate = float(out[2].sum()) / float(lens.sum())
+            row.update(tokens=int(out[2].sum()), tokens_per_frame=rate,
+                       loop_wall_ms=loop_wall, host_reads=reads,
+                       graph_replays=replays)
+            print(f"  {name} {label}: {rate:.3f} tokens a frame (band "
+                  f"{BEAM_RATE}), {steps} expansions, loop {loop_wall:.1f} "
+                  f"ms wall", flush=True)
+            if not BEAM_RATE[0] <= rate <= BEAM_RATE[1]:
+                raise AssertionError(f"{name} {label}: {rate} tokens a "
+                                     f"frame, outside {BEAM_RATE}")
+            if with_lm is not None:
+                row["loop"] = beam_loop_row(f"{name} {label}", model, wavs,
+                                            card, eager=not sp,
+                                            **loop_kw)[0]
+        rows[label] = row
+    return rows, n_k5
+
+
+def relpos_rnnt_path(card: str) -> dict:
+    """Phase 20: full-width v2_rnnt (random weights from seed 0, its pos
+    biases drawn apart, bf16 encoder, fp32 head, TF32 off): the encoder
+    against the CPU fp32 model (lengths, output, each attention module, the
+    planted u/v swap); at RELPOS_RNNT_SHAPE's greedy blank bias
+    ``transcribe`` 20 s and ``_decode_batch`` 16 x 10-20 s (K5 in every
+    layer), each profiled once with its loop alone; the decode checks
+    (graph == eager bit for bit, == the CPU fp32 decode of the same encoded
+    tensor); the K-4 beam at its bias (and with a char trigram at its token
+    bonus) through both calls without and with the trigram
+    (``relpos_beam_calls``).  Then full-width v1_rnnt through ``load_model``
+    with a synthetic 512-piece SentencePiece model in its
+    ``download_root``: the same greedy calls and checks,
+    ``_decode_batch``'s texts against the CPU decode's (and the planted
+    piece-id slip), and ``_decode_batch`` 16 at beam 4 with a SentencePiece
+    trigram (sparse table)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    texts = lm_texts(rng)
+    report = {"seconds_by_step": {}}
+    launches = {"K5": 0}
+
+    def lap(step: str) -> None:
+        report["seconds_by_step"][step] = time.perf_counter() - t0 - sum(
+            report["seconds_by_step"].values())
+        print(f"  [{step}: {report['seconds_by_step'][step]:.1f} s]",
+              flush=True)
+
+    wav20 = synth_wav(20.0, rng)
+    wavs16 = [synth_wav(sec, rng) for sec in np.linspace(10.0, 20.0, 16)]
+
+    def shaped(name: str, model) -> tuple:
+        bias, beam_bias, bonus = RELPOS_RNNT_SHAPE[name]
+        base = float(model.head["joint"]["out"]["b"][model.blank_id])
+        set_blank_bias(model, base, bias)
+        print(f"{name}: greedy blank bias +{bias}, beam {BEAM} blank bias "
+              f"+{beam_bias} and token bonus {bonus} (RELPOS_RNNT_SHAPE)",
+              flush=True)
+        return base, bias, beam_bias, bonus
+
+    def greedy_calls(name: str, model, profile_transcribe: bool) -> None:
+        res, n, prof = run_path(
+            f"{name} transcribe 20 s, batch 1 (K5)",
+            lambda: model.transcribe(wav20, word_timestamps=True), "K5",
+            n_layers, calls=1)
+        if not (isinstance(res.text, str) and isinstance(res.words, list)):
+            raise AssertionError(f"transcribe returned {res!r}")
+        launches["K5"] += n
+        if profile_transcribe:
+            report[f"{name} transcribe"] = loop_share(
+                f"{name} transcribe 20 s", model, [wav20], prof, card)
+        outs, n, prof = run_path(
+            f"{name} _decode_batch 16 x 10-20 s (K5)",
+            lambda: model._decode_batch(wavs16, word_timestamps=True), "K5",
+            n_layers, calls=1)
+        if len(outs) != 16 or not all(isinstance(t, str) for t, _ in outs):
+            raise AssertionError(f"{name}: _decode_batch returned a "
+                                 f"malformed batch")
+        launches["K5"] += n
+        print(f"  {name}: transcribe {len(res.text)} chars; _decode_batch "
+              f"text lengths {[len(t) for t, _ in outs]}; card {card}",
+              flush=True)
+        report[f"{name} decode_batch"] = loop_share(
+            f"{name} _decode_batch 16", model, wavs16, prof, card,
+            eager=profile_transcribe)
+
+    model = gt.load_model("v2_rnnt", init="random", seed=0)
+    nonzero_pos_biases(model, seed=3)
+    cpu = gt.load_model("v2_rnnt", init="random", seed=0, device="cpu")
+    nonzero_pos_biases(cpu, seed=3)
+    n_layers = model.cfg.encoder.n_layers
+    report["reference"] = relpos_reference("v2_rnnt", model, cpu, rng, card)
+    del cpu
+    lap("v2_rnnt load, encoder reference")
+    base, bias, beam_bias, bonus = shaped("v2_rnnt", model)
+    greedy_calls("v2_rnnt", model, True)
+    report["v2_rnnt checks"] = decode_checks(model, base, wavs16, card,
+                                             bias_moderate=bias, chunks=())
+    lap("v2_rnnt greedy")
+    set_blank_bias(model, base, beam_bias)
+    char_lm = gt.train_lm_from_texts(texts, model.tokenizer, order=3)
+    spec = model._resolve_lm(char_lm)[1]
+    report["v2_rnnt beam"], n = relpos_beam_calls(
+        "v2_rnnt", model, wav20, wavs16, char_lm, spec, bonus, card,
+        n_layers)
+    launches["K5"] += n
+    report["captures"] = {"greedy": model.rnnt.captures,
+                          "beam": model.rnnt_beam.captures}
+    del model
+    torch.cuda.empty_cache()
+    lap("v2_rnnt beam")
+
+    with tempfile.TemporaryDirectory() as root:
+        sp = os.path.join(root, "v1_rnnt_tokenizer.model")
+        write_sp_model(sp, sp_model_pieces(SP_PIECES))
+        model = gt.load_model("v1_rnnt", init="random", seed=0,
+                              download_root=root)
+        joint = model.head["joint"]["out"]["b"].shape[0]
+        if (len(model.tokenizer) != SP_PIECES or model.blank_id != SP_PIECES
+                or joint != SP_PIECES + 1
+                or model.cfg.encoder.self_attention_model != "rel_pos"):
+            raise AssertionError(f"v1_rnnt: {len(model.tokenizer)} pieces, "
+                                 f"blank {model.blank_id}, joint {joint}")
+        nonzero_pos_biases(model, seed=4)
+        base, bias, beam_bias, bonus = shaped("v1_rnnt", model)
+        greedy_calls("v1_rnnt", model, False)
+        report["v1_rnnt checks"] = decode_checks(
+            model, base, wavs16, card, bias_moderate=bias, chunks=())
+        report["v1_rnnt texts"] = sp_text_checks(model, sp, wavs16, card)
+        lap("v1_rnnt greedy")
+        set_blank_bias(model, base, beam_bias)
+        sp_lm = gt.train_lm_from_texts(texts, model.tokenizer, order=3)
+        spec = model._resolve_lm(sp_lm)[1]
+        if not isinstance(spec[0], dict):
+            raise AssertionError("the SP trigram did not get a sparse table")
+        report["v1_rnnt beam"], n = relpos_beam_calls(
+            "v1_rnnt", model, wav20, wavs16, sp_lm, spec, bonus, card,
+            n_layers, sp=True)
+        launches["K5"] += n
+        report["v1_rnnt trigram_sparse_levels"] = [
+            int(ids.shape[0]) for ids, _ in spec[0]["levels"]]
+        del model
+        torch.cuda.empty_cache()
+        lap("v1_rnnt beam")
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    print(f"relpos_rnnt phase: {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+class K6Recorder:
+    """While active, each K6 launch's inputs and outputs are kept in
+    ``calls``: the wrapper is swapped in ``fa``'s namespace, where the
+    rel-pos autograd Function looks it up, and its launch count carries
+    over."""
+
+    def __enter__(self):
+        self.calls = []
+        inner = self.inner = fa.relpos_mha_bwd
+
+        def recording(*args):
+            out = inner(*args)
+            self.calls.append((args, out))
+            return out
+
+        recording.launches = inner.launches
+        fa.relpos_mha_bwd = recording
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.inner.launches = fa.relpos_mha_bwd.launches
+        fa.relpos_mha_bwd = self.inner
+        return False
+
+
+def k6_common_free(grads, k, p_heads, valid) -> list:
+    """K6's five gradients with dq_u's component along the mean of K over
+    the valid keys (per row and head) and dq_v's along the mean of the
+    table rows its valid keys read (per query row) taken out; dk, dv and dp
+    as they are.  ``valid`` is a prefix mask, as the model's lengths make
+    it."""
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-30)
+
+    def project(g, u):
+        g = g.float()
+        return g - (g * u).sum(-1, keepdim=True) * u
+
+    b, h, t, _ = k.shape
+    lens = valid.sum(1).clamp(min=1)                               # [B]
+    mask = valid[:, None, :, None].float()
+    k_mean = (k.float() * mask).sum(2, keepdim=True) / lens[:, None, None,
+                                                            None]
+    # row i's valid key j reads table row T-1-i+j: a window of lens[b] rows
+    csum = F.pad(p_heads.float().cumsum(1), (0, 0, 1, 0))     # [H, P+1, d]
+    start = (t - 1) - torch.arange(t, device=k.device)              # [T]
+    end = start[None, :] + lens[:, None]                            # [B, T]
+    p_mean = ((csum[:, end] - csum[:, start][:, None])
+              / lens[None, :, None, None]).permute(1, 0, 2, 3)  # [B, H, T, d]
+    dq_u, dk, dv, dq_v, dp = grads
+    return [project(dq_u, unit(k_mean)), dk, dv,
+            project(dq_v, unit(p_mean)), dp]
+
+
+def k6_rows(name: str, g, valid):
+    """The entries ``grad_distances`` compares, flat, in float64: query
+    rows of dq_u and dq_v, key rows of dk and dv, all of dp."""
+    if name == "dp":
+        return g.double().flatten()
+    return g.double()[valid[:, None, :, None].expand_as(g)]
+
+
+def k6_readings(got, ref, valid) -> dict:
+    """Per gradient (relative Frobenius error, least-squares gain
+    <got, ref> / <ref, ref>) over ``k6_rows``."""
+    out = {}
+    for name, g, r in zip(K6_NAMES, got, ref):
+        g, r = k6_rows(name, g, valid), k6_rows(name, r, valid)
+        out[name] = (float((g - r).norm() / r.norm()),
+                     float((g * r).sum() / (r * r).sum()))
+    return out
+
+
+def k6_step_check(label: str, calls: list) -> dict:
+    """Each K6 launch of a train step (``K6Recorder``) against the plain
+    backward on the same bf16 inputs, from the plain forward's own (out,
+    lse) as ``bwd_kernel_phase`` holds it, dq_u and dq_v without their
+    common direction (``k6_common_free``): every gradient within
+    K6_FROB_RTOL (relative Frobenius) and its gain within K6_GAIN_TOL of 1;
+    the planted fault, dq_u and dq_v scaled by K6_FAULT_SCALE, must fall
+    outside.  The max-based readings (``grad_distances``, raw and without
+    the common direction) are printed and returned beside the worst of
+    each."""
+    if not calls:
+        raise AssertionError(f"{label}: no K6 launch was recorded")
+    # per gradient: [relative Frobenius, |gain - 1|, x RMS, x RMS raw]
+    worst = {n: [0.0, 0.0, 0.0, 0.0] for n in K6_NAMES}
+    max_abs, fault_off = 0.0, math.inf
+    for args, got in calls:
+        q_u, k, v, q_v, p_heads, do, valid = (a.detach() for a in args[:7])
+        got = [g.detach() for g in got]
+        with torch.no_grad():
+            plain_pair = fa.relpos_mha_plain(q_u, k, v, q_v, p_heads, valid,
+                                             return_lse=True)
+            ref = fa.relpos_mha_bwd_plain(q_u, k, v, q_v, p_heads, do,
+                                          valid, *plain_pair)
+            raw = grad_distances(K6_NAMES, got, ref, valid)
+            got_c, ref_c = (k6_common_free(x, k, p_heads, valid)
+                            for x in (got, ref))
+            dist = grad_distances(K6_NAMES, got_c, ref_c, valid)
+            read = k6_readings(got_c, ref_c, valid)
+            faulty = [x * K6_FAULT_SCALE if n in ("dq_u", "dq_v") else x
+                      for n, x in zip(K6_NAMES, got_c)]
+            fault = k6_readings(faulty, ref_c, valid)
+        off = max(max(f - K6_FROB_RTOL, abs(g - 1.0) - K6_GAIN_TOL)
+                  for n, (f, g) in fault.items() if n in ("dq_u", "dq_v"))
+        if not off > 0:
+            raise AssertionError(f"{label}: the K6 check misses dq scaled by "
+                                 f"{K6_FAULT_SCALE} ({fault})")
+        fault_off = min(fault_off, min(abs(fault[n][1] - 1.0)
+                                       for n in ("dq_u", "dq_v")))
+        for n in K6_NAMES:
+            w = worst[n]
+            w[0] = max(w[0], read[n][0])
+            w[1] = max(w[1], abs(read[n][1] - 1.0))
+            w[2] = max(w[2], dist[n][1])
+            w[3] = max(w[3], raw[n][1])
+        max_abs = max(max_abs, max(e for e, _ in raw.values()))
+        del plain_pair, ref, got_c, ref_c, faulty
+    b, h, t, _ = calls[0][0][0].shape
+    frob = max(w[0] for w in worst.values())
+    gain_off = max(w[1] for w in worst.values())
+    print(f"K6 on the train step's own inputs, {label} ({len(calls)} "
+          f"launches, B {b}, T' {t}; dq_u and dq_v without their common "
+          f"direction): worst relative Frobenius {frob:.2e} (limit "
+          f"{K6_FROB_RTOL}), worst |gain - 1| {gain_off:.2e} (limit "
+          f"{K6_GAIN_TOL}), max_abs_err {max_abs:.3e}; by gradient "
+          f"[Frobenius, |gain - 1|, x RMS, x RMS raw] " + json.dumps(
+              {n: [float(f"{x:.3g}") for x in w] for n, w in worst.items()})
+          + f"; planted fault, dq_u and dq_v x {K6_FAULT_SCALE}: |gain - 1| "
+          f"{fault_off:.2e}, caught", flush=True)
+    if not (frob <= K6_FROB_RTOL and gain_off <= K6_GAIN_TOL):
+        raise AssertionError(f"{label}: K6 against its plain version "
+                             f"{worst}")
+    torch.cuda.empty_cache()
+    return {"launches": len(calls), "shape": f"B {b}, T' {t}",
+            "frobenius": frob, "gain_off": gain_off, "max_abs_err": max_abs,
+            "fault_gain_off": fault_off,
+            "by_gradient_frobenius_gain_rms_rawrms": worst}
+
+
+def fenced_step(label: str, ft, batch, card: str) -> dict:
+    """Device time of ``ft.train_step`` (whose work runs on the current
+    stream), fenced (``device_ms``, 2 calls after one unfenced), by group,
+    beside the wall of 2 more steps: busy ms, idle share, launches."""
+    split = device_ms(lambda: ft.train_step(batch), calls=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        ft.train_step(batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+    busy = sum(split.values())
+    rec = {"call": label, "reading": "device_ms (fenced)", "wall_ms": wall,
+           "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+           "groups_ms": by_group(split),
+           "top_kernels": [[k[:90], ms] for k, ms in sorted(
+               split.items(), key=lambda kv: -kv[1])[:8]]}
+    print("  fenced " + json.dumps(rec) + f"; card {card}", flush=True)
+    return rec
+
+
+def relpos_rnnt_train_path(manifest: str, small_manifest: str,
+                           card: str) -> dict:
+    """Phase 21: v2_rnnt fine-tuning at batch 16 of 10-20 s
+    (``rnnt_training_phase``: the CLI for 3 steps, ``FineTuner`` x 3 with no
+    remat and under "full" and "dots", launch counts asserted, "dots"
+    against "full", the RNNT loss alone, a fenced step, K6 on one step's
+    inputs), then one step at 2 layers, batch 4, against the CPU's fp32
+    (K6 on that step's inputs, with the planted dq slip)."""
+    t0 = time.perf_counter()
+    report = rnnt_training_phase(manifest, card, name="v2_rnnt")
+    report["reference"] = training_reference_phase("v2_rnnt", small_manifest)
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def chunk_texts_agree(label: str, res, serial) -> None:
+    got, want = texts_of(res), texts_of(serial)
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{label}: chunks {bad} of {len(want)} differ "
+                             f"from _decode_batch of the same chunks")
+
+
+def shortened_row(model, fn):
+    """``fn()`` with row 0 of every chunk batch given half its encoded
+    length (a planted fault)."""
+    inner = model._encode
+
+    def encode(*args, **kw):
+        enc, lens = inner(*args, **kw)
+        lens = lens.clone()
+        lens[0] = lens[0] // 2
+        return enc, lens
+
+    model._encode = encode
+    try:
+        return fn()
+    finally:
+        del model._encode
+
+
+def rnnt_longform_path(card: str) -> dict:
+    """Phase 23: full-width v3_rnnt (random weights from seed 0, bf16
+    encoder, fp32 head) through ``transcribe_longform`` on phase 15's
+    6-minute WAV with the energy VAD, in batches of 16: greedy at
+    RNNT_BLANK_BIAS and at beam 4 at BEAM_SHAPE's bias; launch counts (K1
+    in all 16 layers of every chunk batch), segments checked, each chunk's
+    text equal to ``_decode_batch`` of the same chunks with one batch in
+    flight, walls of two batches in flight against one in turns (greedy's
+    two in flight profiled); the planted fault, row 0's encoded length
+    halved in every batch, must change a chunk's text."""
+    t0 = time.perf_counter()
+    os.environ["GIGAAM_VAD_ARTIFACT"] = "energy"
+    rng = np.random.default_rng(15)
+    audio = longform_audio(LONGFORM_SECONDS, rng)
+    report = {}
+    launches = {"K1": 0}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "longform.wav")
+        save_wav(path, audio)
+        duration = len(gt.load_audio(path)) / SAMPLE_RATE
+        model = gt.load_model("rnnt", init="random", seed=0)
+        n_layers = model.cfg.encoder.n_layers
+        base = float(model.head["joint"]["out"]["b"][model.blank_id])
+        for mode, bias, kw in (
+                ("greedy", RNNT_BLANK_BIAS, {}),
+                (f"beam {BEAM}", BEAM_SHAPE["v3_rnnt"][0],
+                 {"beam_size": BEAM})):
+            set_blank_bias(model, base, bias)
+            label = f"v3_rnnt longform {mode}"
+
+            def longform(kw=kw):
+                return model.transcribe_longform(
+                    path, fr_batch_size=LONGFORM_BATCH,
+                    word_timestamps=True, **kw)
+
+            def serial(kw=kw):
+                return longform_serial(model, path, LONGFORM_BATCH, **kw)
+
+            fa.reset_launch_counts()
+            res = longform()                 # the loops' graphs captured
+            torch.cuda.synchronize()
+            n_seg = len(res.segments)
+            n_batches = -(-n_seg // LONGFORM_BATCH)
+            if n_batches < 2:
+                raise AssertionError(f"{n_seg} segments: fewer than 2 "
+                                     f"batches")
+            launches["K1"] += assert_launches(
+                label, {"K1": n_layers * n_batches})["K1"]
+            check_longform(label, res, duration)
+            ref, batch_walls = serial()
+            chunk_texts_agree(label, res, ref)
+            chars = sum(len(t) for t in texts_of(res))
+            if not chars:
+                raise AssertionError(f"{label}: every chunk's text is empty")
+            if mode == "greedy":
+                try:
+                    chunk_texts_agree(f"{label}, row 0 shortened",
+                                      shortened_row(model, longform), ref)
+                except AssertionError as e:
+                    print(f"  {label} planted fault, row 0's encoded length "
+                          f"halved in every batch: caught ({e})", flush=True)
+                else:
+                    raise AssertionError(f"{label}: the chunk check misses a "
+                                         f"shortened row")
+            walls = alternating_walls({"one_in_flight": serial,
+                                       "two_in_flight": longform}, rounds=1)
+            med = {k: float(np.median(v)) for k, v in walls.items()}
+            report[mode] = {
+                "blank_bias": bias, "audio_s": duration, "segments": n_seg,
+                "batches": n_batches, "chars": chars, "walls_ms": walls,
+                "median_ms": med,
+                "two_over_one": med["two_in_flight"] / med["one_in_flight"],
+                "batch_call_walls_ms": batch_walls,
+                "audio_s_per_s_two": duration / (med["two_in_flight"] / 1e3)}
+            if mode == "greedy":
+                # the beam's calls run ~10^6 kernels: their profile would
+                # cost tens of seconds of host time
+                prof = profile_calls(f"{label}, two batches in flight (K1)",
+                                     longform, 1, med["two_in_flight"])
+                report[mode].update(
+                    idle_share_two=prof["idle_share"],
+                    device_busy_ms_two=prof["device_busy_ms"],
+                    launches_two=prof["launches"],
+                    groups_ms_two=prof["groups_ms"])
+            print(f"{label} {duration:.0f} s, {n_seg} segments in {n_batches}"
+                  f" batches of {LONGFORM_BATCH} ({chars} chars): each chunk "
+                  f"== _decode_batch of its batch; two in flight "
+                  f"{med['two_in_flight']:.1f} ms, one "
+                  f"{med['one_in_flight']:.1f} ms (in turns); card {card}",
+                  flush=True)
+        del model
+        torch.cuda.empty_cache()
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
     return report
 
 
@@ -6350,6 +7150,23 @@ def main() -> int:
     lap("parallel")
     for key, n in parallel["launches"].items():
         launches[key] += n
+    relpos_rnnt = relpos_rnnt_path(card)
+    lap("relpos_rnnt")
+    with tempfile.TemporaryDirectory() as root:
+        rng = np.random.default_rng(21)
+        manifest = write_train_set(root, rng, 32, 10.0, 20.0)
+        small = os.path.join(root, "small")
+        os.makedirs(small)
+        small_manifest = write_train_set(small, rng, 4, 2.0, 4.0)
+        relpos_train = relpos_rnnt_train_path(manifest, small_manifest, card)
+        lap("relpos_rnnt_train")
+        relpos_ssl = ssl_phase(manifest, small_manifest, card, name="v2_ssl")
+        lap("relpos_ssl")
+    rnnt_longform = rnnt_longform_path(card)
+    lap("rnnt_longform")
+    for part in (relpos_rnnt, relpos_train, relpos_ssl, rnnt_longform):
+        for key, n in part["launches"].items():
+            launches[key] += n
 
     replaces = {
         "K3": ("fused_mha", "gigaam_tpu_torch/csrc/attention.cu",
@@ -6391,6 +7208,10 @@ def main() -> int:
                                      export_serve["seconds_by_step"],
                                      seconds=export_serve["seconds"])))
     print("parallel " + json.dumps(parallel))
+    print("relpos_rnnt " + json.dumps(relpos_rnnt))
+    print("relpos_rnnt_train " + json.dumps(relpos_train))
+    print("relpos_ssl " + json.dumps(relpos_ssl))
+    print("rnnt_longform " + json.dumps(rnnt_longform))
     print("phase walls " + json.dumps(walls), flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
